@@ -16,17 +16,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      fixed mask, in both flavours; each proof must pass verify_proof, and
      every kernel must have launched during the proofs;
   5. the H1 MSM (2^16 points) through the merge tree and through the fold,
-     timed against each other; both must give the same point.
+     timed against each other; both must give the same point;
+  6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
+     level-1 shape and at the 2^20 one, G2 at a small one;
+  7. the Fp-product path: tools/bench_mul_kernels.run, K9 against its plain
+     version and host ints, timed, with the opcode mix of one product read
+     from K9's SASS;
+  8. the tree-phase path: tools/bench_tree_phases.run at 2^20 G1 points, the
+     merge tree's phases timed; its level-1 mid must equal the plain K7 on
+     the same inputs, and the tree, the fold and msm(path="auto") must give
+     one point;
+  9. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
+     equal to the unchunked MSM at 2^21.
 
-It prints the phase times, the launch counts, one JSON line of kernels and,
-last, {"ok": true, "device": {...}}.  Imports nothing of JAX.
+Each path (the two proofs, the tree-phase run, the Fp-product run) runs
+with every kernel wrapper's launch count set to 0 and read just after; a
+wrapper that its own path never launched fails the run.  It prints the
+phase times, the launch counts, each kernel's bound (tools/measure.py), one
+JSON line of kernels and, last, {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -46,20 +60,16 @@ NTT_SIZES = (10, 15, 16, 17)
 # windows, 2^18 elements a group): level 1 is 2^17 additions = 8192 lanes of
 # 16; K5 halves 8192 -> 4096 -> 2048 lanes; K6 takes 2048.
 TREE_M = 8192
+# level 1 of the 2^20-point tree (c = 16, groups of 4 windows): 2^21 additions
+TREE_M_2E20 = 1 << 17
+LOG2_PHASES = 20      # the tree-phase run
+LOG2_CHUNKED = 21     # msm_chunked: two segments of 2^20
 
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() on the card, CUDA events, after one warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from groth16_tpu_torch.tools.measure import time_ms
+    return time_ms(fn, "cuda", reps)
 
 
 def max_abs_err(a, b) -> int:
@@ -94,8 +104,10 @@ def random_scalars(rng, n, dev):
     return torch.from_numpy(limbs).to(dev)
 
 
-def record(results, name, variant, err, ms, plain_ms):
-    results.setdefault(name, []).append((variant, err, ms, plain_ms))
+def record(results, name, variant, err, ms, plain_ms, shape=None):
+    """One checked shape of a kernel; `shape` (curve and sizes, as
+    tools/measure.work takes them) gives its bound."""
+    results.setdefault(name, []).append((variant, err, ms, plain_ms, shape))
 
 
 def check_point_kernel(rng, dev, results):
@@ -125,8 +137,10 @@ def check_point_kernel(rng, dev, results):
         t_dbl_p = cuda_ms(lambda: C.point_double_plain(cv, P), 2)
         print(f"K1 {cv.name} n={n}: add {t_add:.4f} ms (plain {t_add_p:.2f} ms), "
               f"double {t_dbl:.4f} ms (plain {t_dbl_p:.2f} ms), max_abs_err {max(e_add, e_dbl)}")
-        record(results, "point_add", f"{cv.name} n={n}", e_add, t_add, t_add_p)
-        record(results, "point_double", f"{cv.name} n={n}", e_dbl, t_dbl, t_dbl_p)
+        record(results, "point_add", f"{cv.name} n={n}", e_add, t_add, t_add_p,
+               dict(curve=cv.name, n=n))
+        record(results, "point_double", f"{cv.name} n={n}", e_dbl, t_dbl, t_dbl_p,
+               dict(curve=cv.name, n=n))
 
 
 def _stream(rng, T, lanes, kmax, dev):
@@ -163,7 +177,8 @@ def check_fold_kernel(rng, dev, results):
         kind = "affine" if affine else "projective"
         print(f"K2 {cv.name} {kind} T={T} lanes={lanes}: {t_k:.3f} ms "
               f"(plain {t_p:.1f} ms), max_abs_err {err}")
-        record(results, "fold_level_kernel", f"{cv.name} {kind} lanes={lanes}", err, t_k, t_p)
+        record(results, "fold_level_kernel", f"{cv.name} {kind} lanes={lanes}", err, t_k, t_p,
+               dict(curve=cv.name, affine=affine, T=T, lanes=lanes))
 
 
 def check_ntt_kernel(rng, dev, results):
@@ -184,7 +199,8 @@ def check_ntt_kernel(rng, dev, results):
                     t_p = cuda_ms(lambda: NT.ntt_inner_plain(x, tw, roots, dit), 2)
                     kind = ("DIT" if dit else "DIF") + (" +twiddle" if tw is not None else "")
                     print(f"K3 2^{log2n} {kind} T={T} NB={NB}: {t_k:.4f} ms (plain {t_p:.2f} ms)")
-                    record(results, "ntt_inner_kernel", f"2^{log2n} {kind}", e, t_k, t_p)
+                    record(results, "ntt_inner_kernel", f"2^{log2n} {kind}", e, t_k, t_p,
+                           dict(T=T, NB=NB, twiddle=tw is not None))
         dom = NT.Domain(log2n)
         x = random_scalars(rng, dom.size, dev)
         max_abs_err(NT.inverse_ntt(dom, NT.forward_ntt(dom, x)), x)   # round trip
@@ -233,7 +249,7 @@ def check_tree_kernels(rng, dev, results):
     t_k = cuda_ms(lambda: KT.phase_a_kernel(cv, apr, bpl), 10)
     t_p = cuda_ms(lambda: KT.phase_a_plain(cv, apr, bpl), 1)
     print(f"K4 G1 M={TREE_M}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
-    record(results, "phase_a_kernel", f"G1 M={TREE_M}", err, t_k, t_p)
+    record(results, "phase_a_kernel", f"G1 M={TREE_M}", err, t_k, t_p, dict(M=TREE_M))
 
     w = TREE_M // 2
     for W in (w, w // 2):
@@ -242,14 +258,14 @@ def check_tree_kernels(rng, dev, results):
         t_k = cuda_ms(lambda: KT.mul_rows_kernel(cv, a, b), 20)
         t_p = cuda_ms(lambda: KT.mul_rows_plain(cv, a, b), 2)
         print(f"K5 G1 W={W}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
-        record(results, "mul_rows_kernel", f"G1 W={W}", err, t_k, t_p)
+        record(results, "mul_rows_kernel", f"G1 W={W}", err, t_k, t_p, dict(W=W))
 
     small = tot[:, :KT.INV_MAXW].contiguous()
     err = max_abs_err(KT.invert_kernel(cv, small), KT.invert_plain(cv, small))
     t_k = cuda_ms(lambda: KT.invert_kernel(cv, small), 5)
     t_p = cuda_ms(lambda: KT.invert_plain(cv, small), 1)
     print(f"K6 G1 M={KT.INV_MAXW}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
-    record(results, "invert_kernel", f"G1 M={KT.INV_MAXW}", err, t_k, t_p)
+    record(results, "invert_kernel", f"G1 M={KT.INV_MAXW}", err, t_k, t_p, dict(M=KT.INV_MAXW))
 
     tinv = KT.invert_rows(cv, tot)
     for M, want_em in ((TREE_M, False), (TREE_M // 2, True)):
@@ -260,19 +276,60 @@ def check_tree_kernels(rng, dev, results):
         t_p = cuda_ms(lambda: KT.phase_b_level_plain(cv, *args), 1)
         print(f"K8 G1 M={M} emit={want_em}: {t_k:.4f} ms (plain {t_p:.2f} ms), "
               f"max_abs_err {err}")
-        record(results, "phase_b_level_kernel", f"G1 M={M} emit={want_em}", err, t_k, t_p)
+        record(results, "phase_b_level_kernel", f"G1 M={M} emit={want_em}", err, t_k, t_p,
+               dict(M=M, emit=want_em))
 
 
-WRAPPERS = (("point_add", "kernels"), ("point_double", "kernels"),
-            ("fold_level_kernel", "kernels"), ("ntt_inner_kernel", "ntt"),
-            ("phase_a_kernel", "kernels_tree"), ("mul_rows_kernel", "kernels_tree"),
-            ("invert_kernel", "kernels_tree"), ("phase_b_level_kernel", "kernels_tree"))
+def check_tree_mid_kernel(rng, dev, results):
+    """K7 against its plain version: G1 at the H1 level-1 shape (M = 8192),
+    G2 at M = 256, and G1 at the 2^20 level-1 shape (M = 2^17: K = 2^21
+    additions), where the plain version runs in lane slices of
+    kernels_tree.PLAIN_LANES."""
+    from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
+    for cv, M in ((C.G1, TREE_M), (C.G2, 256), (C.G1, TREE_M_2E20)):
+        (_, apr, bpl, _), _ = tree_planes(rng, cv, M, dev)
+        tinv = KT.invert_rows(cv, KT.phase_a_kernel(cv, apr, bpl))
+        err = max_abs_err(KT.phase_b_kernel(cv, apr, bpl, tinv),
+                          KT.phase_b_plain(cv, apr, bpl, tinv))
+        t_k = cuda_ms(lambda: KT.phase_b_kernel(cv, apr, bpl, tinv), 10)
+        t_p = cuda_ms(lambda: KT.phase_b_plain(cv, apr, bpl, tinv), 1)
+        print(f"K7 {cv.name} M={M}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
+        record(results, "phase_b_kernel", f"{cv.name} M={M}", err, t_k, t_p,
+               dict(curve=cv.name, M=M))
+
+
+# (wrapper, module, the path that must launch it)
+WRAPPERS = (("point_add", "kernels", "proof"), ("point_double", "kernels", "proof"),
+            ("fold_level_kernel", "kernels", "proof"), ("ntt_inner_kernel", "ntt", "proof"),
+            ("phase_a_kernel", "kernels_tree", "proof"),
+            ("mul_rows_kernel", "kernels_tree", "proof"),
+            ("invert_kernel", "kernels_tree", "proof"),
+            ("phase_b_level_kernel", "kernels_tree", "proof"),
+            ("phase_b_kernel", "kernels_tree", "tree phases"),
+            ("fp_mul_chain_kernel", "kernels", "fp products"))
 
 
 def _wrappers():
     import importlib
     return [getattr(importlib.import_module(f"groth16_tpu_torch.ops.{mod}"), name)
-            for name, mod in WRAPPERS]
+            for name, mod, _ in WRAPPERS]
+
+
+def reset_counts():
+    for fn in _wrappers():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _wrappers()}
+
+
+def check_launched(counts: dict, path: str) -> None:
+    """Raise unless every wrapper of `path` was launched in its run."""
+    print(f"launches during the {path} run: " + json.dumps(counts))
+    for name, _, p in WRAPPERS:
+        if p == path and counts[name] == 0:
+            raise AssertionError(f"kernel wrapper {name} was not launched by the {path} path")
 
 
 def main_path(dev):
@@ -300,16 +357,17 @@ def main_path(dev):
                   f"(nvars {zkey.header.nvars}, domain 2^{zkey.header.log_domain_size})")
             inputs.append((flavour, zkey, w))
 
-    wrappers = _wrappers()
-    for fn in wrappers:
-        fn.launches = 0
+    reset_counts()
     proofs = []
     for flavour, zkey, w in inputs:
         tm = {}
+        before = read_counts()
         prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
         proofs.append((flavour, zkey, prf))
         print(f"prove {flavour.value}: " + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
-    counts = {fn.__name__: fn.launches for fn in wrappers}
+        print(f"launches during the {flavour.value} proof: " + json.dumps(
+            {k: v - before[k] for k, v in read_counts().items()}))
+    counts = read_counts()
 
     for flavour, zkey, prf in proofs:
         if prf.pi_a is None or prf.pi_b is None or prf.pi_c is None:
@@ -317,10 +375,7 @@ def main_path(dev):
         if not G.verify_proof(G.extract_vkey(zkey), prf):
             raise AssertionError(f"{flavour.value}: proof does not verify")
         print(f"verify {flavour.value}: ok")
-    print("launches during the two proofs: " + json.dumps(counts))
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"kernel wrapper {name} was not launched by the main path")
+    check_launched(counts, "proof")
     return counts, inputs[0][1]
 
 
@@ -332,10 +387,8 @@ def h1_tree_vs_fold(rng, dev, zkey):
     pa = zkey.ppoints.points_h1
     P = C.from_affine(C.G1, torch.from_numpy(pa.x).to(dev), torch.from_numpy(pa.y).to(dev))
     s = random_scalars(rng, pa.x.shape[0], dev)
-    c_fold = M.pick_window_bits(s.shape[0])
     runs = {"tree": lambda: M.msm(C.G1, s, P, affine=True),
-            "fold": lambda: M.horner_combine(
-                C.G1, M.window_sums(C.G1, s, P, c_fold, affine=True), c_fold)}
+            "fold": lambda: M.msm(C.G1, s, P, affine=True, path="fold")}
     out, ms = {}, {}
     for name, fn in runs.items():
         out[name] = C.to_affine(C.G1, fn())
@@ -345,6 +398,67 @@ def h1_tree_vs_fold(rng, dev, zkey):
           "same point")
 
 
+def fp_product_path(dev, results):
+    """tools/bench_mul_kernels.run with the launch counts around it."""
+    from groth16_tpu_torch.tools import bench_mul_kernels as BM
+    reset_counts()
+    res = BM.run(256, device=dev)
+    counts = read_counts()
+    check_launched(counts, "fp products")
+    record(results, "fp_mul_chain_kernel", f"k={res['k']} n={res['n']}", res["max_abs_err"],
+           res["ms"], res["plain_ms"], dict(k=res["k"], n=res["n"]))
+    return counts, res
+
+
+def tree_phase_path(dev, results):
+    """tools/bench_tree_phases.run at 2^20 with the launch counts around it;
+    the run holds its level-1 mid (K7) against the plain version."""
+    from groth16_tpu_torch.tools import bench_tree_phases as BT
+    reset_counts()
+    res = BT.run(LOG2_PHASES, 4, dev)
+    counts = read_counts()
+    check_launched(counts, "tree phases")
+    record(results, "phase_b_kernel", f"G1 M={res['mid_lanes']} in the 2^20 run",
+           res["mid_max_abs_err"], None, None)
+    return counts
+
+
+def chunked_msm(rng, dev):
+    """msm_chunked over 2^21 host-numpy points in segments of 2^20 against the
+    unchunked msm on the device; each timed on the host clock around a
+    synchronize after one warm-up run, the chunked one with its host-to-device
+    copies."""
+    import torch
+    from groth16_tpu_torch.ops import curve as C, field as F, msm as M
+    from groth16_tpu_torch.tools.bench_tree_phases import make_points
+    n = 1 << LOG2_CHUNKED
+    P = make_points(n, dev)
+    s = random_scalars(rng, n, dev)
+    host_s, host_P = s.cpu().numpy(), tuple(c.cpu().numpy() for c in P)
+    runs = {"msm": lambda: M.msm(C.G1, s, P, affine=True),
+            "msm_chunked": lambda: M.msm_chunked(C.G1, host_s, host_P, chunk_log2=20,
+                                                 device=dev)}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[name] = C.to_affine(C.G1, res)
+        print(f"{name} n=2^{LOG2_CHUNKED}: {wall * 1e3:.1f} ms, peak device memory "
+              f"{peak:.3f} GiB ({base:.3f} GiB allocated before)")
+    if not all(torch.equal(F.as_i32(a), F.as_i32(b))
+               for a, b in zip(out["msm"], out["msm_chunked"])):
+        raise AssertionError("msm_chunked differs from the unchunked msm")
+    c_seg, c_all = M.pick_window_bits_tree(1 << 20), M.pick_window_bits_tree(n)
+    print(f"msm_chunked == msm at 2^{LOG2_CHUNKED} (c = {c_seg} per segment, {c_all} unchunked)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -352,11 +466,10 @@ def main() -> int:
         return 2
     import numpy as np
     from groth16_tpu_torch.ops import cuda
+    from groth16_tpu_torch.tools import measure
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    print(smi[0])
     dev = torch.device("cuda", 0)
+    print(measure.card_line(dev))         # nvidia-smi: name, power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
@@ -365,13 +478,39 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     results = {}
-    check_point_kernel(rng, dev, results)
-    check_fold_kernel(rng, dev, results)
-    check_ntt_kernel(rng, dev, results)
-    check_tree_kernels(rng, dev, results)
+    counts = {}
 
-    counts, zkey = main_path(dev)
-    h1_tree_vs_fold(rng, dev, zkey)
+    def phase(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s wall", flush=True)
+        return out
+
+    phase("K1 check", lambda: check_point_kernel(rng, dev, results))
+    phase("K2 check", lambda: check_fold_kernel(rng, dev, results))
+    phase("K3 check", lambda: check_ntt_kernel(rng, dev, results))
+    phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
+    counts["proof"], zkey = phase("proofs", lambda: main_path(dev))
+    phase("H1 tree vs fold", lambda: h1_tree_vs_fold(rng, dev, zkey))
+    phase("K7 check", lambda: check_tree_mid_kernel(rng, dev, results))
+    counts["fp products"], k9 = phase("K9 Fp-product run", lambda: fp_product_path(dev, results))
+    counts["tree phases"] = phase("2^20 tree-phase run", lambda: tree_phase_path(dev, results))
+    phase("msm_chunked 2^21", lambda: chunked_msm(rng, dev))
+
+    clock = k9["sm_clock_max_mhz"]
+    print(f"bounds: {measure.FP_MUL_MULTIPLIES} multiplies an Fp product at "
+          f"{measure.SMS} x {measure.MUL_PER_SM_PER_CLOCK} a clock, SM clock {clock:.0f} MHz; "
+          f"{measure.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    def bound(name, shape):
+        return measure.bound_ms(*measure.work(name, **shape), clock)
+
+    for name, rows in results.items():
+        for variant, _, ms, plain_ms, shape in rows:
+            if shape is not None:
+                b, side = bound(name, shape)
+                print(f"bound {name} {variant}: kernel {ms:.4f} ms, bound {b:.5f} ms "
+                      f"({side}), plain " + ("not run" if plain_ms is None else f"{plain_ms:.2f} ms"))
 
     src = "groth16_tpu_torch/csrc/"
     table = {"point_add": ("point.cu", "groth16_tpu/ops/kernels.py:288"),
@@ -381,16 +520,22 @@ def main() -> int:
              "phase_a_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:120"),
              "mul_rows_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:166"),
              "invert_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:202"),
-             "phase_b_level_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:370")}
+             "phase_b_level_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:370"),
+             "phase_b_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:292"),
+             "fp_mul_chain_kernel": ("mul_chain.cu", "tools/bench_mul_kernels.py:30")}
+    paths = {name: path for name, _, path in WRAPPERS}
     kernels = []
     for name, (source, replaces) in table.items():
         rows = results[name]
         timed = [r for r in rows if r[2] is not None]
-        variant, _, ms, plain_ms = timed[0]          # the first main-path shape checked
+        variant, _, ms, plain_ms, shape = timed[0]   # the first main-path shape checked
+        b, side = bound(name, shape)
         kernels.append({"name": name, "route": "cuda", "source": src + source,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": max(r[1] for r in rows), "ms": ms, "plain_ms": plain_ms,
-                        "shape": variant})
+                        "replaces": replaces, "launches": counts[paths[name]][name],
+                        "path": paths[name],
+                        "max_abs_err": max(r[1] for r in rows if r[1] is not None),
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": side,
+                        "library_ms": None, "shape": variant})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -210,8 +210,8 @@ BN_HD void fold_lane(const int32_t* kT, const uint32_t* pT, uint32_t* emit,
 // ----------------------------------------------------------- merge tree ---
 //
 // Lane bodies of the batched-affine merge-tree kernels (the bodies of
-// groth16_tpu/ops/kernels_tree.py::_phase_a_call, ::_invert_call and
-// ::_phase_b_level_call).  One tree level is a batch of affine additions
+// groth16_tpu/ops/kernels_tree.py::_phase_a_call, ::_invert_call,
+// ::_phase_b_call and ::_phase_b_level_call).  One tree level is a batch of affine additions
 // mid = A.pR + B.pL whose slope denominators share one batch inversion.
 // Layouts, with the lane axis M minor:
 //   points  uint32[2*NC, T, M]  limb-major fused x|y, (0, 0) = infinity;
@@ -344,17 +344,13 @@ BN_HD void tree_store_sel(uint32_t* dst, long stride, bool cond,
   }
 }
 
-// K8 lane m: a forward sweep keeps the exclusive prefix products of the
-// denominators, a reverse sweep expands the lane inverse tinv[:, m] to
-// per-slot inverses, finishes each addition and writes the node updates
-//   PL' = match & aP ? mid : A.pL,  PR' = match & bP ? mid : B.pR,
-//   EM0 = match ? mid : A.pR  (only when em != nullptr).
-template <class C>
-BN_HD void tree_phase_b_lane(const uint32_t* apl, const uint32_t* apr,
-                             const uint32_t* bpl, const uint32_t* bpr,
-                             const int32_t* flg, const uint32_t* tinv,
-                             uint32_t* opl, uint32_t* opr, uint32_t* oem,
-                             long M, long m) {
+// The sweep K7 and K8 share, lane m: a forward pass keeps the exclusive
+// prefix products of the denominators, a reverse pass expands the lane
+// inverse tinv[:, m] to per-slot inverses and finishes each addition, handing
+// slot o's mid to `out(o, plane, mid)`.
+template <class C, class Out>
+BN_HD void tree_mid_sweep(const uint32_t* apr, const uint32_t* bpl,
+                          const uint32_t* tinv, long M, long m, const Out& out) {
   typedef typename C::F F;
   const long plane = (long)TREE_T * M;
   F pre[TREE_T];
@@ -372,13 +368,53 @@ BN_HD void tree_phase_b_lane(const uint32_t* apl, const uint32_t* apr,
     const TreeSlot<F> s = tree_slot<C>(apr + o, bpl + o, plane);
     const F inv = rinv * pre[t];
     rinv = rinv * tree_den<C>(s);
-    const Aff<F> mid = tree_mid<C>(s, inv);
+    out(o, plane, tree_mid<C>(s, inv));
+  }
+}
+
+// K7 output: the mid itself.
+template <class C>
+struct TreeMidOut {
+  uint32_t* mid;
+  BN_HD void operator()(long o, long plane, const Aff<typename C::F>& p) const {
+    p.x.store(mid + o, plane);
+    p.y.store(mid + o + C::NC * plane, plane);
+  }
+};
+
+// K8 output: the node updates
+//   PL' = match & aP ? mid : A.pL,  PR' = match & bP ? mid : B.pR,
+//   EM0 = match ? mid : A.pR  (only when oem != nullptr).
+template <class C>
+struct TreeNodeOut {
+  const uint32_t *apl, *apr, *bpr;
+  const int32_t* flg;
+  uint32_t *opl, *opr, *oem;
+  BN_HD void operator()(long o, long plane, const Aff<typename C::F>& mid) const {
     const int32_t fl = flg[o];
     const bool match = fl & 1;
     tree_store_sel<C>(opl + o, plane, match && (fl & 2), mid, apl + o);
     tree_store_sel<C>(opr + o, plane, match && (fl & 4), mid, bpr + o);
     if (oem) tree_store_sel<C>(oem + o, plane, match, mid, apr + o);
   }
+};
+
+// K7 lane m: mid = A.pR + B.pL of its T slots -> mid[:, t, m].
+template <class C>
+BN_HD void tree_mid_lane(const uint32_t* apr, const uint32_t* bpl, const uint32_t* tinv,
+                         uint32_t* mid, long M, long m) {
+  tree_mid_sweep<C>(apr, bpl, tinv, M, m, TreeMidOut<C>{mid});
+}
+
+// K8 lane m: the sweep with the node updates.
+template <class C>
+BN_HD void tree_phase_b_lane(const uint32_t* apl, const uint32_t* apr,
+                             const uint32_t* bpl, const uint32_t* bpr,
+                             const int32_t* flg, const uint32_t* tinv,
+                             uint32_t* opl, uint32_t* opr, uint32_t* oem,
+                             long M, long m) {
+  tree_mid_sweep<C>(apr, bpl, tinv, M, m,
+                    TreeNodeOut<C>{apl, apr, bpr, flg, opl, opr, oem});
 }
 
 }  // namespace bn254

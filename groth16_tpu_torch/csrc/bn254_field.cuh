@@ -228,4 +228,17 @@ struct Fp2 {
   }
 };
 
+// K9 lane i: k chained products x <- x * y of the Fp elements a[:, i] and
+// b[:, i] (wire layout, limb stride n) -> out[:, i].  The loop stays rolled,
+// so its body is exactly one product (the SASS instruction count per product
+// is read from it).
+BN_HD void fp_mul_chain_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                             int k, long n, long i) {
+  Fp x = Fp::load(a + i, n);
+  const Fp y = Fp::load(b + i, n);
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) x = x * y;
+  x.store(out + i, n);
+}
+
 }  // namespace bn254

@@ -3,7 +3,7 @@
 // g++ compiles the same __host__ __device__ field, point, fold-lane and
 // merge-tree lane functions the CUDA kernels run (bn254_field.cuh,
 // bn254_curve.cuh), and this file loops them over wire-layout arrays, so the
-// arithmetic of K1, K2, K4, K6 and K8 is checked without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
+// arithmetic of K1, K2, K4, K6, K7, K8 and K9 is checked without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254shim.so bn254_host_shim.cpp
 
 #include "bn254_curve.cuh"
@@ -70,7 +70,7 @@ void shim_fold(int g2, int affine, const int32_t* kT, const uint32_t* pT,
   }
 }
 
-// merge tree: K4 lanes m < M, K6 lanes j < INV_W, K8 lanes m < M (oem may be null)
+// merge tree: K4, K7 and K8 lanes m < M (oem may be null), K6 lanes j < INV_W
 void shim_tree_phase_a(int g2, const uint32_t* apr, const uint32_t* bpl,
                        uint32_t* tot, long M) {
   for (long m = 0; m < M; ++m) {
@@ -84,6 +84,19 @@ void shim_tree_invert(int g2, const uint32_t* tot, uint32_t* inv, long M) {
     if (g2) tree_invert_lane<G2>(tot, inv, M, j);
     else tree_invert_lane<G1>(tot, inv, M, j);
   }
+}
+
+void shim_tree_mid(int g2, const uint32_t* apr, const uint32_t* bpl, const uint32_t* tinv,
+                   uint32_t* mid, long M) {
+  for (long m = 0; m < M; ++m) {
+    if (g2) tree_mid_lane<G2>(apr, bpl, tinv, mid, M, m);
+    else tree_mid_lane<G1>(apr, bpl, tinv, mid, M, m);
+  }
+}
+
+// K9 lanes i < n
+void shim_fp_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out, int k, long n) {
+  for (long i = 0; i < n; ++i) fp_mul_chain_lane(a, b, out, k, n, i);
 }
 
 void shim_tree_phase_b(int g2, const uint32_t* apl, const uint32_t* apr,

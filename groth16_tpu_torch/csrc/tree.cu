@@ -1,7 +1,8 @@
-// K4, K5, K6, K8: one level of the batched-affine merge-tree MSM.
+// K4, K5, K6, K7, K8: one level of the batched-affine merge-tree MSM.
 //
 // Replace groth16_tpu/ops/kernels_tree.py::_phase_a_call (K4),
-// ::_mul_rows_call (K5), ::_invert_call (K6) and ::_phase_b_level_call (K8).
+// ::_mul_rows_call (K5), ::_invert_call (K6), ::_phase_b_call (K7) and
+// ::_phase_b_level_call (K8).
 // A level of K affine additions is viewed as [T = 16, M = K / 16] with the
 // lane axis M minor, so that one thread per lane walks its 16 additions and
 // the 32 threads of a warp read neighbouring words on every limb load:
@@ -15,7 +16,14 @@
 //   K8  per lane, recompute the denominators and their prefix products,
 //       expand the lane inverse to the 16 per-addition inverses, finish each
 //       affine addition (about 7 products against 13 for a projective mixed
-//       add) and write the tree's node updates.
+//       add) and write the tree's node updates;
+//   K7  K8's sweep without the node updates: it writes mid = A.pR + B.pL to
+//       every slot (the batched affine add of kernels_tree.mid, which only
+//       the phase tool calls).  Per addition it reads two points and writes
+//       one (384 bytes in G1) and does 7 Fp products (21 in G2); at the
+//       card's peak rates the bytes and the G1 products take about the same
+//       time, so which side bounds it depends on the instructions one product
+//       compiles to (PERF.md has the bound).
 //
 // Bound on this card by integer multiply throughput and, for K8, by
 // registers: the 16 prefix products of a lane live in local memory (L1),
@@ -51,6 +59,16 @@ template <class C>
 __global__ void tree_invert_kernel(const uint32_t* __restrict__ tot,
                                    uint32_t* __restrict__ inv, long M) {
   tree_invert_lane<C>(tot, inv, M, threadIdx.x);
+}
+
+template <class C>
+__global__ void tree_mid_kernel(const uint32_t* __restrict__ apr,
+                                const uint32_t* __restrict__ bpl,
+                                const uint32_t* __restrict__ tinv,
+                                uint32_t* __restrict__ mid, long M) {
+  long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  tree_mid_lane<C>(apr, bpl, tinv, mid, M, m);
 }
 
 template <class C>
@@ -114,6 +132,22 @@ int g16_tree_invert(int g2, const void* tot, void* inv, long M, void* stream) {
       tree_invert_kernel<G2><<<1, INV_W, 0, s>>>((const uint32_t*)tot, (uint32_t*)inv, M);
     else
       tree_invert_kernel<G1><<<1, INV_W, 0, s>>>((const uint32_t*)tot, (uint32_t*)inv, M);
+  }
+  return (int)cudaGetLastError();
+}
+
+int g16_tree_mid(int g2, const void* apr, const void* bpl, const void* tinv, void* mid,
+                 long M, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M > 0) {
+    if (g2)
+      tree_mid_kernel<G2><<<grid(M, block_size<G2>()), block_size<G2>(), 0, s>>>(
+          (const uint32_t*)apr, (const uint32_t*)bpl, (const uint32_t*)tinv,
+          (uint32_t*)mid, M);
+    else
+      tree_mid_kernel<G1><<<grid(M, block_size<G1>()), block_size<G1>(), 0, s>>>(
+          (const uint32_t*)apr, (const uint32_t*)bpl, (const uint32_t*)tinv,
+          (uint32_t*)mid, M);
   }
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 
-KERNEL_SOURCES = ("point.cu", "fold.cu", "ntt.cu", "tree.cu")
+KERNEL_SOURCES = ("point.cu", "fold.cu", "ntt.cu", "tree.cu", "mul_chain.cu")
 HEADERS = ("bn254_field.cuh", "bn254_curve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "g16_tree_mul_rows": [_I, _P, _P, _P, _L, _P],
     "g16_tree_invert": [_I, _P, _P, _L, _P],
     "g16_tree_phase_b": [_I] + [_P] * 9 + [_L, _P],
+    "g16_tree_mid": [_I, _P, _P, _P, _P, _L, _P],
+    "g16_fp_mul_chain": [_P, _P, _P, _I, _L, _P],
 }
 
 
@@ -100,6 +102,12 @@ def _build() -> str:
     return so
 
 
+def lib_path() -> str:
+    """Path of the kernel library, built on first use."""
+    with _LOCK:
+        return _build()
+
+
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first use.  Raises if it cannot be built."""
     global _LIB
@@ -144,7 +152,10 @@ def host_shim():
     L.shim_tree_phase_a.argtypes = [_I, _P, _P, _P, _L]
     L.shim_tree_invert.argtypes = [_I, _P, _P, _L]
     L.shim_tree_phase_b.argtypes = [_I] + [_P] * 9 + [_L]
+    L.shim_tree_mid.argtypes = [_I, _P, _P, _P, _P, _L]
+    L.shim_fp_mul_chain.argtypes = [_P, _P, _P, _I, _L]
     for fn in (L.shim_field, L.shim_point, L.shim_fold, L.shim_tree_phase_a,
-               L.shim_tree_invert, L.shim_tree_phase_b):
+               L.shim_tree_invert, L.shim_tree_phase_b, L.shim_tree_mid,
+               L.shim_fp_mul_chain):
         fn.restype = None
     return L

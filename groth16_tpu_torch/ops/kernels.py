@@ -1,12 +1,15 @@
-"""Launch wrappers of the point kernel (K1) and the segmented-fold kernel (K2).
+"""Launch wrappers of the point kernel (K1), the segmented-fold kernel (K2)
+and the chained-product kernel (K9).
 
-Counterpart of groth16_tpu/ops/kernels.py (`_point_call`, `_fold_call`).
+Counterpart of groth16_tpu/ops/kernels.py (`_point_call`, `_fold_call`) and
+of the kernel of tools/bench_mul_kernels.py (`make_call`).
 The wrappers here take CUDA tensors only: they check device, dtype and
 shape, allocate outputs with `torch.empty`, launch on the current stream,
 raise on a launch error, and count their launches (`<wrapper>.launches`).
 The plain PyTorch versions sit beside them: `curve.point_add_plain` /
-`point_double_plain` and `fold_level_plain` here; `curve.point_add` /
-`point_double` and `fold_level` here dispatch by the device of their input.
+`point_double_plain`, `fold_level_plain` and `fp_mul_chain_plain` here;
+`curve.point_add` / `point_double`, `fold_level` and `fp_mul_chain` here
+dispatch by the device of their input.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from . import curve as C
 from . import field as F
 from . import cuda
+from .field import FP
 
 FOLD_T = 32  # sequential elements per lane at level 0
 
@@ -164,3 +168,42 @@ def fold_level(cv: C.CurveSpec, kT: torch.Tensor, pT: torch.Tensor,
     if pT.device.type == "cpu":
         return fold_level_plain(cv, kT, pT, affine)
     return fold_level_kernel(cv, kT, pT, affine)
+
+
+def _chain_check(a: torch.Tensor, b: torch.Tensor, k: int) -> None:
+    if a.shape != b.shape or a.ndim != 2 or a.shape[0] != 16 or k < 0:
+        raise ValueError(f"fp_mul_chain takes two uint32[16, n] rows and k >= 0, "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}, k={k}")
+
+
+def fp_mul_chain_kernel(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """K9 on CUDA tensors (see `fp_mul_chain_plain`)."""
+    _chain_check(a, b, k)
+    a, b = _cuda_inputs([a, b])
+    out = torch.empty_like(a)
+    rc = cuda.lib().g16_fp_mul_chain(a.data_ptr(), b.data_ptr(), out.data_ptr(), k,
+                                     a.shape[1], cuda.stream_ptr(a.device))
+    cuda.check(rc, "fp mul chain kernel")
+    fp_mul_chain_kernel.launches += 1
+    return out
+
+
+fp_mul_chain_kernel.launches = 0
+
+
+def fp_mul_chain_plain(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version of K9 (any device): k chained Montgomery products
+    x <- x * b * R^-1 mod p, x starting at a, of limb-major Fp elements
+    uint32[16, n] (element i is column i)."""
+    _chain_check(a, b, k)
+    x, y = F.i64(a).T, F.i64(b).T
+    for _ in range(k):
+        x = F.mont_mul(FP, x, y)
+    return x.T.to(torch.uint32).contiguous()
+
+
+def fp_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """k chained Fp products: K9 on CUDA tensors, the plain version on CPU."""
+    if a.device.type == "cpu":
+        return fp_mul_chain_plain(a, b, k)
+    return fp_mul_chain_kernel(a, b, k)

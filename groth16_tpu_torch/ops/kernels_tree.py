@@ -1,5 +1,6 @@
-"""One level of the batched-affine merge tree: kernels K4, K5, K6 and K8
-(csrc/tree.cu), their plain PyTorch versions and `level`, one whole tree level.
+"""One level of the batched-affine merge tree: kernels K4, K5, K6, K7 and K8
+(csrc/tree.cu), their plain PyTorch versions, `level`, one whole tree level,
+and `mid`, one batch of affine additions.
 
 Counterpart of groth16_tpu/ops/kernels_tree.py.  A level of K affine
 additions mid = A.pR + B.pL is padded to a multiple of T_SLOTS * INV_W and
@@ -12,7 +13,9 @@ whole level share one batch inversion:
                       INV_MAXW lanes (and multiply back up afterwards);
   K6 `invert`         per-lane inverses of at most INV_MAXW totals;
   K8 `phase_b_level`  per-addition inverses, the affine additions and the
-                      node updates PL', PR' and EM0.
+                      node updates PL', PR' and EM0;
+  K7 `phase_b`        K8 without the node updates: the mids alone (`mid`,
+                      which only tools/bench_tree_phases.py calls).
 
 Each kernel wrapper (`*_kernel`) takes CUDA tensors only and counts its
 launches (`<wrapper>.launches`); the dispatchers without the suffix run the
@@ -35,6 +38,7 @@ from .kernels import _cuda_inputs
 T_SLOTS = 16     # additions per lane (bn254_curve.cuh TREE_T)
 INV_W = 128      # lanes of the inversion kernel (INV_W)
 INV_MAXW = 2048  # widest totals row K6 takes (INV_W * INV_MAX_CHUNKS)
+PLAIN_LANES = 8192  # lanes per slice of the plain K7 (`phase_b_plain`)
 
 
 def ncomp(cv: CurveSpec) -> int:
@@ -114,11 +118,16 @@ def invert_plain(cv: CurveSpec, tots: torch.Tensor) -> torch.Tensor:
     return _limb_major(cv, torch.stack([a, F.neg_mod(FP, b)], -2))
 
 
-def phase_b_level_plain(cv: CurveSpec, apl, apr, bpl, bpr, flg, tinv, want_em: bool):
-    """Plain K8: the level's affine additions and node updates.  Point planes
-    uint32[R2, T, M], flg int32[T, M] (bit 0 keys match, 1 A pure, 2 B pure),
-    tinv uint32[R, M] the inverse of each lane's denominator product.
-    Returns (PL', PR', EM0), EM0 None unless `want_em`."""
+def phase_b_plain(cv: CurveSpec, apr, bpl, tinv) -> torch.Tensor:
+    """Plain K7: mid = A.pR + B.pL of every slot, uint32[R2, T, M], from the
+    point planes uint32[R2, T, M] and tinv uint32[R, M], the inverse of each
+    lane's denominator product.  Lanes are independent, so wide levels run
+    in slices of PLAIN_LANES lanes, which bounds the int64 intermediates."""
+    M = apr.shape[2]
+    if M > PLAIN_LANES:
+        return torch.cat([phase_b_plain(cv, apr[:, :, s:s + PLAIN_LANES],
+                                        bpl[:, :, s:s + PLAIN_LANES], tinv[:, s:s + PLAIN_LANES])
+                          for s in range(0, M, PLAIN_LANES)], 2)
     K = cv.fops
     (x1, y1, x2, y2, i1, i2, eqx, eqy, dbl), den, one = _slots(cv, apr, bpl)
     # 1/den[t] = tinv * (product of the lane's other denominators)
@@ -135,7 +144,15 @@ def phase_b_level_plain(cv: CurveSpec, apl, apr, bpl, bpr, flg, tinv, want_em: b
     zero = torch.zeros_like(x3)
     x3 = K.select(i2, x1, K.select(i1, x2, K.select(cancel, zero, x3)))
     y3 = K.select(i2, y1, K.select(i1, y2, K.select(cancel, zero, y3)))
-    mid = F.as_i32(torch.cat([_limb_major(cv, x3), _limb_major(cv, y3)], 0))
+    return torch.cat([_limb_major(cv, x3), _limb_major(cv, y3)], 0)
+
+
+def phase_b_level_plain(cv: CurveSpec, apl, apr, bpl, bpr, flg, tinv, want_em: bool):
+    """Plain K8: the level's affine additions (`phase_b_plain`) and node
+    updates.  Point planes uint32[R2, T, M], flg int32[T, M] (bit 0 keys
+    match, 1 A pure, 2 B pure), tinv uint32[R, M].  Returns (PL', PR', EM0),
+    EM0 None unless `want_em`."""
+    mid = F.as_i32(phase_b_plain(cv, apr, bpl, tinv))
     match, aP, bP = (flg & 1) != 0, (flg & 2) != 0, (flg & 4) != 0
 
     def sel(cond, other):
@@ -208,12 +225,34 @@ def invert_kernel(cv: CurveSpec, tots: torch.Tensor) -> torch.Tensor:
 invert_kernel.launches = 0
 
 
+def _tinv_check(cv: CurveSpec, tinv: torch.Tensor, M: int) -> None:
+    if tuple(tinv.shape) != (ncomp(cv), M):
+        raise ValueError(f"lane inverses must be [{ncomp(cv)}, {M}], got {tuple(tinv.shape)}")
+
+
+def phase_b_kernel(cv: CurveSpec, apr, bpl, tinv) -> torch.Tensor:
+    """K7 (see `phase_b_plain`)."""
+    shape = _plane_check(cv, apr, bpl)
+    _tinv_check(cv, tinv, shape[2])
+    apr, bpl, tinv = _cuda_inputs([apr, bpl, tinv])
+    mid = torch.empty(shape, dtype=torch.uint32, device=apr.device)
+    rc = cuda.lib().g16_tree_mid(_g2(cv), apr.data_ptr(), bpl.data_ptr(), tinv.data_ptr(),
+                                 mid.data_ptr(), shape[2], cuda.stream_ptr(apr.device))
+    cuda.check(rc, "tree mid kernel")
+    phase_b_kernel.launches += 1
+    return mid
+
+
+phase_b_kernel.launches = 0
+
+
 def phase_b_level_kernel(cv: CurveSpec, apl, apr, bpl, bpr, flg, tinv, want_em: bool):
     """K8 (see `phase_b_level_plain`)."""
     shape = _plane_check(cv, apl, apr, bpl, bpr)
     M = shape[2]
-    if tuple(flg.shape) != (T_SLOTS, M) or tuple(tinv.shape) != (ncomp(cv), M):
-        raise ValueError("flags must be [T, M] and lane inverses [R, M]")
+    _tinv_check(cv, tinv, M)
+    if tuple(flg.shape) != (T_SLOTS, M):
+        raise ValueError(f"flags must be [{T_SLOTS}, {M}], got {tuple(flg.shape)}")
     apl, apr, bpl, bpr, tinv = _cuda_inputs([apl, apr, bpl, bpr, tinv])
     (flg,) = _cuda_inputs([flg], torch.int32)
     outs = [torch.empty(shape, dtype=torch.uint32, device=apl.device)
@@ -251,6 +290,10 @@ def invert(cv, tots):
     return invert_plain(cv, tots) if _on_cpu(tots) else invert_kernel(cv, tots)
 
 
+def phase_b(cv, apr, bpl, tinv):
+    return phase_b_plain(cv, apr, bpl, tinv) if _on_cpu(apr) else phase_b_kernel(cv, apr, bpl, tinv)
+
+
 def phase_b_level(cv, apl, apr, bpl, bpr, flg, tinv, want_em):
     fn = phase_b_level_plain if _on_cpu(apl) else phase_b_level_kernel
     return fn(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
@@ -273,21 +316,44 @@ def invert_rows(cv: CurveSpec, tots: torch.Tensor) -> torch.Tensor:
     return inv
 
 
+def _tiles(K: int) -> int:
+    """K additions padded to whole [T_SLOTS, INV_W] tiles."""
+    tile = T_SLOTS * INV_W
+    return -(-K // tile) * tile
+
+
+def _planes(x: torch.Tensor, Kp: int) -> torch.Tensor:
+    """uint32[R2, K] columns -> [R2, T_SLOTS, Kp / T_SLOTS] planes, padded
+    with (0, 0) additions (den 1, mid (0, 0))."""
+    R2, K = x.shape
+    return F.as_u32(tnf.pad(F.as_i32(x), (0, Kp - K)).reshape(R2, T_SLOTS, Kp // T_SLOTS))
+
+
 def level(cv: CurveSpec, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em: bool):
     """One tree level (groth16_tpu/ops/kernels_tree.py::level_pallas): point
     columns uint32[R2, K], bool[K] flag planes.  Returns (PL', PR', EM0) as
     uint32[R2, K], EM0 None unless `want_em` (level 1 never emits)."""
     R2, K = A_pl.shape
-    tile = T_SLOTS * INV_W
-    Kp = -(-K // tile) * tile
-    M = Kp // T_SLOTS
-
-    def planes(x):   # pad with (0, 0) additions: den 1, mid (0, 0)
-        return F.as_u32(tnf.pad(F.as_i32(x), (0, Kp - K)).reshape(R2, T_SLOTS, M))
-
+    Kp = _tiles(K)
     flg = match.to(torch.int32) | (aP.to(torch.int32) << 1) | (bP.to(torch.int32) << 2)
-    flg = tnf.pad(flg, (0, Kp - K)).reshape(T_SLOTS, M)
-    apl, apr, bpl, bpr = (planes(x) for x in (A_pl, A_pr, B_pl, B_pr))
+    flg = tnf.pad(flg, (0, Kp - K)).reshape(T_SLOTS, Kp // T_SLOTS)
+    apl, apr, bpl, bpr = (_planes(x, Kp) for x in (A_pl, A_pr, B_pl, B_pr))
     tinv = invert_rows(cv, phase_a(cv, apr, bpl))
     outs = phase_b_level(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
     return tuple(None if o is None else o.reshape(R2, Kp)[:, :K] for o in outs)
+
+
+def mid_planes(cv: CurveSpec, a_cols: torch.Tensor, b_cols: torch.Tensor) -> tuple:
+    """K7's inputs in `mid`: the columns as planes padded to whole tiles and
+    their lane inverses (K4, then the batch inversion K5 / K6)."""
+    Kp = _tiles(a_cols.shape[1])
+    apr, bpl = _planes(a_cols, Kp), _planes(b_cols, Kp)
+    return apr, bpl, invert_rows(cv, phase_a(cv, apr, bpl))
+
+
+def mid(cv: CurveSpec, a_cols: torch.Tensor, b_cols: torch.Tensor) -> torch.Tensor:
+    """Batched affine additions mid = A + B of limb-major fused x|y columns
+    uint32[R2, K] (groth16_tpu/ops/kernels_tree.py::mid_pallas, the
+    counterpart of msm_tree.mid_jnp): `mid_planes`, then K7."""
+    R2, K = a_cols.shape
+    return phase_b(cv, *mid_planes(cv, a_cols, b_cols)).reshape(R2, -1)[:, :K]

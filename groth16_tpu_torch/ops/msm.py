@@ -20,12 +20,14 @@ segmented fold:
 
 Every projective point operation goes through `curve.point_add` /
 `point_double` (kernel K1 on CUDA tensors).  Below 128 points the batched
-double-and-add ladder (`msm_naive`) runs instead.  Results are projective; their affine forms equal
-the JAX package's for the same inputs.
+double-and-add ladder (`msm_naive`) runs instead.  `msm_chunked` streams
+point sets larger than one device segment.  Results are projective; their
+affine forms equal the JAX package's for the same inputs.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import curve as C
@@ -48,11 +50,21 @@ def pick_window_bits_tree(n: int) -> int:
 
 
 TREE_MIN_N = 1 << 16   # tree / fold crossover of groth16_tpu/ops/msm.py
+PATHS = ("auto", "tree", "fold")
 
 
-def tree_path(n: int, affine: bool) -> bool:
-    """Whether an n-point MSM takes the merge tree (affine points only)."""
-    return affine and n >= TREE_MIN_N
+def tree_path(n: int, affine: bool, path: str = "auto") -> bool:
+    """Whether an n-point MSM takes the merge tree (affine points only):
+    `path` "tree" or "fold" forces the bucket phase, "auto" takes the tree
+    from TREE_MIN_N points (groth16_tpu/ops/msm.py:tree_path)."""
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    return affine and (path == "tree" or (path == "auto" and n >= TREE_MIN_N))
+
+
+def _path_window_bits(n: int, affine: bool, path: str) -> int:
+    """The window width of the bucket phase that an n-point MSM takes."""
+    return pick_window_bits_tree(n) if tree_path(n, affine, path) else pick_window_bits(n)
 
 
 def _window_digits(s: torch.Tensor, w: int, c: int) -> torch.Tensor:
@@ -192,9 +204,13 @@ def _weighted_bucket_reduce(cv: CurveSpec, buckets, n_buckets: int):
 
 
 def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
-                affine: bool = False):
-    """Per-window Pippenger sums (X, Y, Z) of [W, comp], before Horner."""
+                affine: bool = False, path: str = "auto"):
+    """Per-window Pippenger sums (X, Y, Z) of [W, comp], before Horner: the
+    merge tree where `tree_path` says so, else the fold."""
     n = scalars_std.shape[0]
+    if tree_path(n, affine, path):
+        from . import msm_tree as MT
+        return MT.window_sums_tree(cv, scalars_std, P, c, MT.WINDOW_GROUP)
     dev = scalars_std.device
     keys = signed_window_digits(scalars_std, c)
     m = max(FOLD_T, 1 << max(0, (n - 1).bit_length()))
@@ -224,21 +240,53 @@ def horner_combine(cv: CurveSpec, sums, c: int):
     return acc
 
 
-def msm(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False):
+def msm(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False,
+        path: str = "auto"):
     """sum_i scalar_i * P_i -> one projective point.
 
     `scalars_std`: uint32[N, 16] standard (non-Montgomery) form.  `P`:
     projective batch; `affine=True` when every Z is 0 or Montgomery 1 (the
     zkey's wire-format points): from TREE_MIN_N points the merge tree runs,
-    below it the first fold level runs mixed adds on x|y rows."""
+    below it the first fold level runs mixed adds on x|y rows.  `path`
+    forces the bucket phase (see `tree_path`)."""
     n = scalars_std.shape[0]
     if n < 128:
         return msm_naive(cv, scalars_std, P)
-    if tree_path(n, affine):
-        from .msm_tree import msm_tree
-        return msm_tree(cv, scalars_std, P)
-    c = pick_window_bits(n)
-    return horner_combine(cv, window_sums(cv, scalars_std, P, c, affine), c)
+    c = _path_window_bits(n, affine, path)
+    return horner_combine(cv, window_sums(cv, scalars_std, P, c, affine, path), c)
+
+
+def _on(device, x) -> torch.Tensor:
+    """A host numpy array or a tensor, on `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
+
+
+def msm_chunked(cv: CurveSpec, scalars_std, P, chunk_log2: int = 20, device="cuda"):
+    """MSM of an affine (wire-format) point set streamed to `device` in
+    segments of 2^chunk_log2 points (groth16_tpu/ops/msm.py:msm_chunked):
+    each segment runs the whole bucket phase at the window of the path a
+    segment takes, the per-window sums add across segments (one batched
+    point add each), and one Horner finishes.
+
+    `scalars_std` / `P` may be host numpy arrays or tensors; each segment is
+    copied to `device` in turn.  At n <= 2^chunk_log2 this is `msm` of the
+    whole set.  n must be a multiple of the segment size."""
+    n = scalars_std.shape[0]
+    chunk = 1 << chunk_log2
+    if n <= chunk:
+        return msm(cv, _on(device, scalars_std), tuple(_on(device, t) for t in P), affine=True)
+    if n % chunk:
+        raise ValueError(f"msm_chunked: {n} points is not a multiple of the "
+                         f"segment size 2^{chunk_log2}; pad the MSM")
+    c = _path_window_bits(chunk, True, "auto")
+    total = None
+    for s in range(0, n, chunk):
+        sums = window_sums(cv, _on(device, scalars_std[s:s + chunk]),
+                           tuple(_on(device, t[s:s + chunk]) for t in P), c, affine=True)
+        total = sums if total is None else C.point_add(cv, total, sums)
+    return horner_combine(cv, total, c)
 
 
 def msm_naive(cv: CurveSpec, scalars_std: torch.Tensor, P):

@@ -40,14 +40,15 @@ WINDOW_GROUP = 4   # windows per tree (groth16_tpu/ops/msm.py window_sums)
 
 
 def group_buckets_tree(cv: CurveSpec, sk: torch.Tensor, cols: torch.Tensor,
-                       n_buckets: int) -> torch.Tensor:
+                       n_buckets: int, level_fn=KT.level) -> torch.Tensor:
     """Merge-tree bucket sums of one group of G windows.
 
     sk: int64[G, m], each window's |digits| in sorted order (G, m powers of
     two).  cols: uint32[R2, G*m], the limb-major affine x|y columns of the
     sorted streams, signs applied, in global bit-reversed order.  Returns
     int32[G, n_buckets, R2] affine bucket rows; bucket 0 collects the digit-0
-    points and is weighted 0 by the caller."""
+    points and is weighted 0 by the caller.  `level_fn` runs one level (the
+    signature of `KT.level`); the phase tool swaps in a no-op one."""
     G, m = sk.shape
     R2, N = cols.shape
     dev = cols.device
@@ -62,7 +63,7 @@ def group_buckets_tree(cv: CurveSpec, sk: torch.Tensor, cols: torch.Tensor,
         match, aP, bP = kAR == kBL, kAL == kAR, kBL == kBR
         # level 1 merges single elements, which are always pure: nothing closes
         want_em = s > 1
-        PL, PR, em0 = KT.level(cv, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em)
+        PL, PR, em0 = level_fn(cv, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em)
         if want_em:
             # slot 0: the mid, or A.pR when the segment ended at A's right
             # edge; slot 1: B.pL when it ended at B's left edge
@@ -106,7 +107,7 @@ def _pow2_groups(W: int, cap: int) -> list:
 
 
 def window_sums_tree(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
-                     group: int = WINDOW_GROUP):
+                     group: int = WINDOW_GROUP, level_fn=KT.level):
     """Per-window Pippenger sums (X, Y, Z) of [W, comp] through the merge
     tree.  P is projective with Z in {0, Montgomery 1} (wire-format affine
     points); windows go through the tree in power-of-two groups of at most
@@ -140,7 +141,7 @@ def window_sums_tree(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
         idx = order + (sk2 & 1) * npad
         idx_st = idx.reshape(-1)[bitrev_perm(G * npad, dev)]
         cols = F.as_u32(rows2[idx_st].T.contiguous())          # [R2, G*npad]
-        groups.append(group_buckets_tree(cv, sk2 >> 1, cols, nb))
+        groups.append(group_buckets_tree(cv, sk2 >> 1, cols, nb, level_fn))
 
     brows = torch.cat(groups, 0)                                # [W, nb, R2]
     shape = (W, nb) + cv.comp_shape
@@ -149,11 +150,3 @@ def window_sums_tree(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
     buckets = tuple(b.transpose(0, 1) for b in C.from_affine(cv, bx, by))  # [nb, W, comp]
     return _weighted_bucket_reduce(cv, buckets, nb)
 
-
-def msm_tree(cv: CurveSpec, scalars_std: torch.Tensor, P, window_bits: int = 0,
-             group: int = WINDOW_GROUP):
-    """Full MSM through the merge tree, at the window width of the tree
-    dispatch unless `window_bits` is given."""
-    from .msm import horner_combine, pick_window_bits_tree
-    c = window_bits or pick_window_bits_tree(scalars_std.shape[0])
-    return horner_combine(cv, window_sums_tree(cv, scalars_std, P, c, group), c)

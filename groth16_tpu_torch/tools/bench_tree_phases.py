@@ -1,0 +1,197 @@
+"""Phase by phase, where the time of a merge-tree MSM goes on the GPU.
+
+    python3 -m groth16_tpu_torch.tools.bench_tree_phases [log2n] [group]
+
+Counterpart of tools/bench_tree_phases.py.  A G1 MSM of 2^log2n points
+(default 2^20) at the tree's window (c = 16 at 2^20), windows in groups of
+`group` (default 4), on points made on the device as bench.py makes them
+(the generator times random 32-bit scalars, then wire-form affine).  Each
+phase is timed with CUDA events, mean of 3 after a warm-up:
+
+  signed digits (all windows);
+  sort + sign-packed key + bit-reversed row gather, one group;
+  argsort only, one group;
+  row gather + transpose, one group;
+  glue core: the level loop with an xor in place of the mid, no emissions;
+  tree glue: group_buckets_tree with a no-op level (all the glue, no kernel);
+  one `kernels_tree.mid` at the level-1 shape (K4, K5/K6, K7), its output
+  then held against the plain K7 on the same planes and lane inverses;
+  one group through the real levels (K4, K5/K6, K8);
+  window_sums_tree over all windows;
+  Horner;
+  msm(path="tree");
+  msm(path="fold") at the same n, the JAX tool's "(e)".
+
+`run` checks that the tree, the fold and msm(path="auto") give one affine
+point, then prints one line per phase and one JSON line of the phase times
+with the card's name and power limit and the peak device memory of the tree
+MSM.  The JAX tool's `lax.gather` offset-first variant is left out: it
+compared two XLA formulations of one gather, and PyTorch has one.  Needs one
+CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+
+def make_points(n: int, device, seed: int = 7):
+    """n G1 points k_i G, k_i random 31-bit from a numpy seed, in wire form
+    (projective with Z = Montgomery 1).  The ladder runs on K1; the affine
+    conversion inverts every Z with the tree's batch inversion (K5, K6),
+    so n must be a multiple of 128 (no Z is 0)."""
+    import numpy as np
+    import torch
+    from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
+    from groth16_tpu_torch.utils.hostmath import G1_GEN
+    rng = np.random.default_rng(seed)
+    ks = rng.integers(1, 1 << 31, size=n, dtype=np.uint32)
+    scal = np.zeros((n, 16), np.uint32)
+    scal[:, 0], scal[:, 1] = ks & 0xFFFF, ks >> 16
+    gen = C.points_from_host(C.G1, [G1_GEN], device)
+    X, Y, Z = C.scalar_mul(C.G1, torch.from_numpy(scal).to(device), gen, 32)
+    zinv = KT.invert_rows(C.G1, Z.T.contiguous())
+    x, y = (KT.mul_rows(C.G1, c.T.contiguous(), zinv).T.contiguous() for c in (X, Y))
+    return C.from_affine(C.G1, x, y)
+
+
+def noop_level(cv, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em):
+    """A tree level with an xor in place of the mid: the glue's reads and
+    selects, no field arithmetic."""
+    import torch
+    from groth16_tpu_torch.ops import field as F
+    mid = F.as_i32(A_pr) ^ F.as_i32(B_pl)
+
+    def sel(cond, other):
+        return F.as_u32(torch.where(cond[None], mid, F.as_i32(other)))
+
+    return sel(match & aP, A_pl), sel(match & bP, B_pr), (sel(match, A_pr) if want_em else None)
+
+
+def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
+    """Time the phases of a G1 MSM of 2^log2n points on `device` (its plain
+    versions on a CPU device); check tree == fold == auto; print and return
+    the phase times."""
+    import numpy as np
+    import torch
+    from groth16_tpu_torch.ops import curve as C, field as F, kernels_tree as KT
+    from groth16_tpu_torch.ops import msm as M, msm_tree as MT
+    from groth16_tpu_torch.ops.field import FP
+    from groth16_tpu_torch.ops.ntt import bitrev_perm
+    from groth16_tpu_torch.tools import measure
+
+    dev = torch.device(device)
+    cv, K = C.G1, C.G1.fops
+    n = 1 << log2n
+    c = M.pick_window_bits_tree(n)
+    nb = (1 << (c - 1)) + 1
+    rng = np.random.default_rng(3)
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
+    limbs[:, 15] &= 0x3FFF
+    sc = torch.from_numpy(limbs).to(dev)
+    P = make_points(n, dev)
+    ms = {}
+
+    def phase(name, fn):
+        """Time fn; return the output of its last call."""
+        out = []
+
+        def call():
+            out[:] = [fn()]
+
+        ms[name] = measure.time_ms(call, dev, reps)
+        print(f"{name:48s} {ms[name]:10.3f} ms", flush=True)
+        return out[0]
+
+    # the first group's columns, as window_sums_tree makes them
+    W = -(-(M.NBITS + 1) // c)
+    G = MT._pow2_groups(W, 1 << (group.bit_length() - 1))[0]
+
+    def sort_gather():
+        digits = M.signed_window_digits(sc, c)[:G]
+        y = K.select(K.is_zero(P[2]), torch.zeros_like(P[1]), P[1])
+        x_r, y_r = F.as_i32(P[0]), F.as_i32(y)
+        ny_r = F.as_i32(F.neg_mod(FP, y))
+        rows2 = torch.cat([torch.cat([x_r, y_r], 1), torch.cat([x_r, ny_r], 1)], 0)
+        key = (digits.abs() << 1) | (digits < 0).to(torch.int64)
+        sk2, order = torch.sort(key, dim=1, stable=True)
+        idx_st = (order + (sk2 & 1) * n).reshape(-1)[bitrev_perm(G * n, dev)]
+        return sk2 >> 1, F.as_u32(rows2[idx_st].T.contiguous()), rows2, idx_st
+
+    sk, cols, rows2, idx_st = sort_gather()
+    phase("signed digits (all windows)", lambda: M.signed_window_digits(sc, c))
+    phase(f"sort + gather + sign ({G} windows)", sort_gather)
+    dig = torch.from_numpy(rng.integers(0, 1 << 15, size=(G, n))).to(dev)
+    phase(f"argsort only ({G} windows)", lambda: torch.argsort(dig, dim=1))
+    phase("row gather + transpose", lambda: rows2[idx_st].T.contiguous())
+
+    def glue_core():
+        G, m = sk.shape
+        N = G * m
+        PL = PR = F.as_i32(cols)
+        sk_st = sk.reshape(-1)[bitrev_perm(N, dev)]
+        Kl, s = N // 2, 1
+        while s < m:
+            A_pl, A_pr, B_pl, B_pr = PL[:, :Kl], PR[:, :Kl], PL[:, Kl:], PR[:, Kl:]
+            kAL, kAR = sk_st[:Kl], sk_st[N - 2 * Kl:N - Kl]
+            kBL, kBR = sk_st[Kl:2 * Kl], sk_st[N - Kl:]
+            match, aP, bP = kAR == kBL, kAL == kAR, kBL == kBR
+            mid = A_pr ^ B_pl
+            PL = torch.where((match & aP)[None], mid, A_pl)
+            PR = torch.where((match & bP)[None], mid, B_pr)
+            Kl //= 2
+            s *= 2
+        return PL, PR
+
+    phase("glue core (no emissions or routing)", glue_core)
+    phase("tree glue (no-op level)", lambda: MT.group_buckets_tree(cv, sk, cols, nb, noop_level))
+    half = cols.shape[1] // 2
+    a_cols, b_cols = cols[:, :half], cols[:, half:]
+    mid = phase(f"kernels_tree.mid, level 1 (K={half})", lambda: KT.mid(cv, a_cols, b_cols))
+    # K7's output against its plain version on the same planes and lane inverses
+    want = KT.phase_b_plain(cv, *KT.mid_planes(cv, a_cols, b_cols)).reshape(mid.shape[0], -1)
+    mid_err = int((F.i64(mid) - F.i64(want[:, :half])).abs().max())
+    if mid_err:
+        raise AssertionError(f"level-1 mid differs from the plain K7 (max abs err {mid_err})")
+    phase(f"one group ({G} windows), real levels", lambda: MT.group_buckets_tree(cv, sk, cols, nb))
+    sums = phase("window_sums_tree (all windows)",
+                 lambda: MT.window_sums_tree(cv, sc, P, c, group))
+    phase("horner combine", lambda: M.horner_combine(cv, sums, c))
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) / 2**30 if on_card else None
+    out = {"tree": phase("msm(path='tree')", lambda: M.msm(cv, sc, P, affine=True, path="tree"))}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+    out["fold"] = phase("msm(path='fold')", lambda: M.msm(cv, sc, P, affine=True, path="fold"))
+    out["auto"] = M.msm(cv, sc, P, affine=True)
+    pts = [C.to_affine(cv, p) for p in out.values()]
+    for name, p in zip(out, pts):
+        if not all(torch.equal(F.as_i32(u), F.as_i32(v)) for u, v in zip(p, pts[0])):
+            raise AssertionError(f"msm(path={name!r}) gives another point than the tree")
+    print(f"tree, fold and auto give one point (c = {c} tree, "
+          f"{M.pick_window_bits(n)} fold); peak device memory of the tree MSM "
+          + ("not measured (cpu)" if peak is None
+             else f"{peak:.3f} GiB ({base:.3f} GiB allocated before it)"))
+    res = {"tool": "bench_tree_phases", "card": measure.card_line(dev), "log2n": log2n,
+           "group": group, "c": c, "phases_ms": ms, "peak_gib_msm_tree": peak,
+           "allocated_gib_before": base, "same_point": True, "mid_lanes": want.shape[1] // KT.T_SLOTS,
+           "mid_max_abs_err": mid_err}
+    print(json.dumps(res))
+    return res
+
+
+def main(argv=None) -> int:
+    import torch
+    args = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("bench_tree_phases: needs a CUDA device", file=sys.stderr)
+        return 2
+    run(int(args[0]) if args else 20, int(args[1]) if len(args) > 1 else 4)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,214 @@
+"""Timing, the card's identity and the least time a kernel could take.
+
+Shared by chip_smoke.py and the two tools (bench_tree_phases,
+bench_mul_kernels).  A kernel's bound is the larger of two times:
+
+  bytes        each input read once and each output written once, over the
+               H100's 3.35 TB/s;
+  operations   the Fp products the work needs, times the 32-bit multiplies
+               one product needs (FP_MUL_MULTIPLIES), over 132 SMs x 64
+               32-bit integer multiplies or multiply-adds per SM per clock
+               (the CUDA C++ Programming Guide's throughput table, compute
+               capability 9.0) x the card's maximum SM clock (nvidia-smi
+               clocks.max.sm).
+
+The header's Fp product is CIOS on eight 32-bit limbs: per limb of b, 8
+widening products a_j * b_i, one low product m = t_0 * n', and 8 widening
+products m * p_j, so 128 widening and 8 low multiplies.  The guide gives
+no separate rate for the 32 x 32 -> 64 form; each counts as one multiply at
+the table's rate, which keeps the bound a least time (were a widening
+product two issues, the compute side would be up to twice as long).  Carry
+adds and moves are not counted: the function needs them, but not on the
+multiply pipe.  An Fp2 product counts as the 3 Fp products of the header's
+Karatsuba multiply; a squaring as a product.  `work` gives (bytes, Fp
+products) of each kernel wrapper at a shape, counted from the kernel
+sources.  The multiplies a compile actually issues are read from the SASS
+of kernel K9's loop (`fp_product_opcodes`), whose body is one product.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+SMS = 132
+MUL_PER_SM_PER_CLOCK = 64
+FP_MUL_MULTIPLIES = 2 * 8 * 8 + 8     # widening a_j * b_i and m * p_j, low m = t_0 * n'
+
+# Fp products of one Fermat inverse in csrc/bn254_curve.cuh::field_inv: 256
+# squarings and one product per set bit of p - 2
+_P_FP = 21888242871839275222246405745257275088696311157297823662689037894645226208583
+FP_INV_PRODUCTS = 256 + bin(_P_FP - 2).count("1")
+
+
+def time_ms(fn, device, reps: int = 3, warmup: bool = True) -> float:
+    """Mean milliseconds of fn(): on a CUDA device CUDA events over `reps`
+    calls after one warm-up call (unless `warmup` is False); on the CPU the
+    host clock over `reps` calls."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    if warmup:
+        fn()
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as nvidia-smi prints them, or "cpu"."""
+    import torch
+    return _smi("name,power.limit") if torch.device(device).type == "cuda" else "cpu"
+
+
+def sm_clock_max_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    return float(_smi("clocks.max.sm").split()[0])
+
+
+def peak_products_per_s(clock_mhz: float) -> float:
+    """Fp products a second at the card's 32-bit multiply peak."""
+    return SMS * MUL_PER_SM_PER_CLOCK * clock_mhz * 1e6 / FP_MUL_MULTIPLIES
+
+
+# ---------------------------------------------------------------------------
+# SASS: the instructions of one Fp product
+# ---------------------------------------------------------------------------
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def loop_opcodes(sass: str, function: str) -> dict:
+    """Opcode counts of the body of the loop of `function` in cuobjdump -sass
+    text: the instructions from the target of a backward branch up to the
+    branch (the loop with the most multiplies, if several)."""
+    sections = re.split(r"\n\s*Function : ", sass)
+    body = next((sec for sec in sections[1:] if function in sec.split("\n", 1)[0]), None)
+    if body is None:
+        raise ValueError(f"no SASS for a function named like {function!r}")
+    insns, labels, pending = [], {}, []
+    for line in body.splitlines():
+        lab = _LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            insns.append((addr, m.group(2), m.group(3)))
+    best = None
+    for addr, op, args in insns:
+        if not op.startswith("BRA"):
+            continue
+        tgt = re.search(r"`\((\.L_x_\d+)\)", args)
+        target = labels.get(tgt.group(1)) if tgt else None
+        if target is None:
+            hexa = re.search(r"0x([0-9a-f]+)", args)
+            target = int(hexa.group(1), 16) if hexa else None
+        if target is None or target > addr:
+            continue
+        counts: dict = {}
+        for a, o, _ in insns:
+            if target <= a <= addr:
+                counts[o] = counts.get(o, 0) + 1
+        if best is None or multiply_count(counts) > multiply_count(best):
+            best = counts
+    if best is None:
+        raise ValueError(f"no loop found in the SASS of {function!r}")
+    return best
+
+
+def multiply_count(opcodes: dict) -> int:
+    """Instructions that multiply: IMAD, IMAD.WIDE*, IMAD.HI* (not the
+    moves, carry adds and shifts the compiler also places on the IMAD
+    pipe: IMAD.MOV, IMAD.X, IMAD.IADD, IMAD.SHL)."""
+    return sum(n for op, n in opcodes.items()
+               if op == "IMAD" or op.startswith(("IMAD.WIDE", "IMAD.HI")))
+
+
+def fp_product_opcodes(lib_path: str) -> dict:
+    """Opcode counts of one Fp product: K9's loop body in the built kernel
+    library (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    return loop_opcodes(sass, "fp_mul_chain_kernel")
+
+
+# ---------------------------------------------------------------------------
+# work of each kernel wrapper: (bytes moved, Fp products)
+# ---------------------------------------------------------------------------
+
+def _geom(curve: str):
+    """(wire words per coordinate, Fp products per field product)."""
+    return (16, 1) if curve == "G1" else (32, 3)
+
+
+def work(name: str, curve: str = "G1", **shape) -> tuple:
+    """(bytes, Fp products) of one launch of wrapper `name` at `shape`:
+    point_add / point_double (n), fold_level_kernel (affine, T, lanes),
+    ntt_inner_kernel (T, NB, twiddle), phase_a_kernel / phase_b_kernel (M),
+    phase_b_level_kernel (M, emit), mul_rows_kernel (W), invert_kernel (M),
+    fp_mul_chain_kernel (k, n)."""
+    nc, f = _geom(curve)
+    s = shape
+    if name == "point_add":                       # 6 coordinates in, 3 out
+        return 4 * 9 * nc * s["n"], 14 * f * s["n"]
+    if name == "point_double":
+        return 4 * 6 * nc * s["n"], 9 * f * s["n"]
+    if name == "fold_level_kernel":               # every slot runs the add
+        T, lanes = s["T"], s["lanes"]
+        rin = (2 if s["affine"] else 3) * nc
+        words = T * lanes + T * rin * lanes + T * 3 * nc * lanes + 3 * nc * lanes
+        return 4 * words, (13 if s["affine"] else 14) * f * T * lanes
+    if name == "ntt_inner_kernel":
+        T, NB, tw = s["T"], s["NB"], int(s["twiddle"])
+        words = 16 * NB * T * (2 + tw) + 16 * (T // 2)
+        return 4 * words, NB * ((T // 2) * (T.bit_length() - 1) + tw * T)
+    if name == "phase_a_kernel":                  # 16 denominators a lane
+        M = s["M"]
+        return 4 * (2 * 2 * nc * 16 * M + nc * M), 16 * f * M
+    if name == "mul_rows_kernel":
+        return 4 * 3 * nc * s["W"], f * s["W"]
+    if name == "invert_kernel":                   # chain, one inverse, walk back
+        M = s["M"]
+        inv = FP_INV_PRODUCTS + (4 if curve == "G2" else 0)
+        return 4 * 2 * nc * M, 128 * (3 * (M // 128) * f + inv)
+    if name == "phase_b_kernel":                  # 16 + 16 x 6 products a lane
+        M = s["M"]
+        return 4 * (3 * 2 * nc * 16 * M + nc * M), 112 * f * M
+    if name == "phase_b_level_kernel":
+        M = s["M"]
+        planes = 4 + 2 + int(s["emit"])
+        return 4 * (planes * 2 * nc * 16 * M + 16 * M + nc * M), 112 * f * M
+    if name == "fp_mul_chain_kernel":
+        return 4 * 3 * 16 * s["n"], s["k"] * s["n"]
+    raise ValueError(f"no work count for {name!r}")
+
+
+def bound_ms(nbytes: int, products: int, clock_mhz: float) -> tuple:
+    """(least milliseconds, "bytes" or "operations") for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products / peak_products_per_s(clock_mhz)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")

@@ -1,5 +1,5 @@
-"""Kernels K1-K6 and K8 on the card against their plain PyTorch versions,
-the merge-tree MSM and one small proof on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
+"""Kernels K1-K9 on the card against their plain PyTorch versions, the
+merge-tree MSM, the chunked MSM and one small proof on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
 machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_gpu.py
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from groth16_tpu_torch.ops import curve as C, field as F, kernels as KN, kernels_tree as KT
-from groth16_tpu_torch.ops import msm_tree as MT, ntt as NT
+from groth16_tpu_torch.ops import ntt as NT
 from groth16_tpu_torch.ops.limbs import ints_to_limbs
 
 # The suite runs six worker processes on a few cores: one intra-op thread
@@ -47,6 +47,10 @@ def test_wrappers_refuse_cpu_tensors():
         KT.phase_a_kernel(C.G1, planes, planes)
     with pytest.raises(ValueError):
         KT.invert_kernel(C.G1, torch.zeros((16, 128), dtype=torch.uint32))
+    with pytest.raises(ValueError):
+        KT.phase_b_kernel(C.G1, planes, planes, torch.zeros((16, 128), dtype=torch.uint32))
+    with pytest.raises(ValueError):
+        KN.fp_mul_chain_kernel(planes[:16, 0], planes[:16, 0], 4)
 
 
 @pytest.mark.gpu
@@ -117,14 +121,38 @@ def test_tree_kernels_match_plain(dev, cv):
         got = KT.phase_b_level_kernel(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
         want = KT.phase_b_level_plain(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
         assert all(g is w or torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
+    assert torch.equal(F.as_i32(KT.phase_b_kernel(cv, apr, bpl, tinv)),
+                       F.as_i32(KT.phase_b_plain(cv, apr, bpl, tinv)))
+
+
+@pytest.mark.gpu
+def test_mul_chain_kernel_matches_plain(dev):
+    rng = np.random.default_rng(13)
+    a, b = (_scalars(rng, 5000, dev).T.contiguous() for _ in range(2))
+    for k in (0, 1, 37):
+        assert torch.equal(F.as_i32(KN.fp_mul_chain_kernel(a, b, k)),
+                           F.as_i32(KN.fp_mul_chain_plain(a, b, k)))
+
+
+@pytest.mark.gpu
+def test_msm_chunked_on_the_card(dev):
+    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.tools.bench_tree_phases import make_points
+    n = 1 << 17
+    P = make_points(n, dev)
+    s = _scalars(np.random.default_rng(14), n, dev)
+    want = C.to_affine(C.G1, M.msm(C.G1, s, P, affine=True))
+    got = M.msm_chunked(C.G1, s.cpu().numpy(), tuple(c.cpu().numpy() for c in P), 16,
+                        device=dev)
+    assert _same(C.to_affine(C.G1, got), want)
 
 
 @pytest.mark.gpu
 def test_tree_msm_on_the_card(dev):
-    from test_torch_tree import adversarial_case
+    from test_torch_tree import adversarial_case, tree_msm
     ks, pts, want = adversarial_case(C.G1, 40, seed=40)
-    got = MT.msm_tree(C.G1, torch.from_numpy(ints_to_limbs(ks)).to(dev),
-                      C.points_from_host(C.G1, pts, dev), 8, group=16)
+    got = tree_msm(C.G1, torch.from_numpy(ints_to_limbs(ks)).to(dev),
+                   C.points_from_host(C.G1, pts, dev), 8, 16)
     assert C.points_to_host(C.G1, tuple(x[None] for x in got))[0] == want
 
 

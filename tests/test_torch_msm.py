@@ -1,9 +1,11 @@
-"""Port MSM (fold path, groth16_tpu_torch.ops.msm) vs a host-int oracle.
+"""Port MSM (groth16_tpu_torch.ops.msm: the fold path, the path controls and
+msm_chunked) vs a host-int oracle.
 
 The points are P_i = a_i * G with known discrete logs a_i, so the expected
 sum_i k_i P_i is one host scalar multiplication by sum_i k_i a_i.  Results
-compare after conversion to affine: the bucket schedule changes the
-projective representative.  The port vs JAX `msm` runs in the slow lane."""
+compare after conversion to affine (tolerance 0: exact integer arithmetic):
+the bucket schedule changes the projective representative.  The port vs JAX
+`msm` runs in the slow lane."""
 
 import numpy as np
 import pytest
@@ -48,7 +50,7 @@ def _check(cv, n, case, affine=True, seed=0):
     P = C.points_from_host(cv, pts)
     if not affine:                                      # Z != 1 points
         P = C.point_add(cv, P, C.inf_like(cv, (n,)))
-    got = M.msm(cv, torch.from_numpy(ints_to_limbs(ks)), P, affine)
+    got = M.msm(cv, torch.from_numpy(ints_to_limbs(ks)), P, affine=affine)
     want = H.ec_scalar_mul(fo, sum(k * a for k, a in zip(ks, logs)) % R, g)
     assert C.points_to_host(cv, tuple(c[None] for c in got)) == [want]
 
@@ -67,6 +69,56 @@ def test_g2_fold_msm_matches_host(n, case):
 def test_projective_input_and_naive_path():
     _check(C.G1, 200, "random", affine=False, seed=1)   # fold, projective level 0
     _check(C.G1, 50, "random", seed=2)                  # < 128 points: naive ladder
+
+
+def _host_case(cv, n, seed):
+    """Points with an infinity and random scalars as host numpy wire arrays,
+    and the host-int sum."""
+    pts, fo, g = _multiples(cv, n)
+    pts[n // 3] = None
+    logs = [0 if p is None else i + 1 for i, p in enumerate(pts)]
+    ks = _scalars("random", n, np.random.default_rng(seed))
+    P = tuple(c.numpy() for c in C.points_from_host(cv, pts))
+    want = H.ec_scalar_mul(fo, sum(k * a for k, a in zip(ks, logs)) % R, g)
+    return ints_to_limbs(ks), P, want
+
+
+@pytest.mark.parametrize("n,chunk_log2", [(512, 8), (1024, 8)], ids=["2-segments", "4-segments"])
+def test_msm_chunked_matches_host(n, chunk_log2):
+    ks, P, want = _host_case(C.G1, n, seed=n)
+    got = M.msm_chunked(C.G1, ks, P, chunk_log2, device="cpu")
+    assert C.points_to_host(C.G1, tuple(c[None] for c in got)) == [want]
+
+
+def test_msm_chunked_one_segment_and_ragged_length():
+    ks, P, want = _host_case(C.G1, 300, seed=3)
+    got = M.msm_chunked(C.G1, ks, P, 9, device="cpu")          # n <= chunk: one msm
+    assert C.points_to_host(C.G1, tuple(c[None] for c in got)) == [want]
+    with pytest.raises(ValueError):
+        M.msm_chunked(C.G1, ks, P, 8, device="cpu")             # 300 is not a multiple of 256
+
+
+def test_tree_and_fold_paths_agree(monkeypatch):
+    """msm(path="tree") and msm(path="fold") at n = 512 (below the tree's
+    crossover, so "auto" folds): one affine point, the host's.  The tree's
+    window group is widened to 64 here only to keep the plain (CPU) levels
+    few: every group pays one plain Fermat inversion per level."""
+    from groth16_tpu_torch.ops import msm_tree as MT
+    monkeypatch.setattr(MT, "WINDOW_GROUP", 64)
+    ks, P, want = _host_case(C.G1, 512, seed=6)
+    s, P = torch.from_numpy(ks), tuple(torch.from_numpy(c) for c in P)
+    for path in ("tree", "fold"):
+        got = M.msm(C.G1, s, P, affine=True, path=path)
+        assert C.points_to_host(C.G1, tuple(c[None] for c in got)) == [want], path
+
+
+def test_tree_path_takes_the_callers_path():
+    for n in (128, 1 << 16):
+        assert M.tree_path(n, True, "tree") and not M.tree_path(n, True, "fold")
+        assert not M.tree_path(n, False, "tree")
+    assert M.tree_path(1 << 16, True, "auto") and not M.tree_path(512, True, "auto")
+    with pytest.raises(ValueError):
+        M.tree_path(512, True, "merge")
 
 
 def test_digits_and_window_heuristic_match_jax():

@@ -1,8 +1,10 @@
 """The port's merge-tree MSM (groth16_tpu_torch.ops.msm_tree, kernels_tree):
-whole MSMs against host ints, one tree level against host affine additions,
-the batch inversion's product tree, and the kernels' lane bodies built with
-g++ (csrc/bn254_host_shim.cpp) against the plain PyTorch versions.  The port
-vs JAX `msm_tree` runs in the slow lane."""
+whole MSMs against host ints, one tree level and K7's batched mids against
+host affine additions and JAX `msm_tree.mid_jnp`, the batch inversion's
+product tree, and the kernels' lane bodies built with g++
+(csrc/bn254_host_shim.cpp) against the plain PyTorch versions.  Tolerance 0
+throughout: exact integer arithmetic.  The port vs JAX `msm_tree` runs in the
+slow lane."""
 
 import ctypes
 import random
@@ -41,9 +43,14 @@ def adversarial_case(cv, n, seed, bits=254):
     return ks, pts, H.ec_msm(fo, ks, pts)
 
 
+def tree_msm(cv, s, P, c, group):
+    """A whole MSM through the merge tree at window c and window group
+    `group`: `window_sums_tree`, then Horner."""
+    return M.horner_combine(cv, MT.window_sums_tree(cv, s, P, c, group), c)
+
+
 def _tree_msm(cv, ks, pts, c, group):
-    P = C.points_from_host(cv, pts)
-    got = MT.msm_tree(cv, torch.from_numpy(ints_to_limbs(ks)), P, c, group=group)
+    got = tree_msm(cv, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(cv, pts), c, group)
     return C.points_to_host(cv, tuple(x[None] for x in got))[0]
 
 
@@ -127,6 +134,59 @@ def test_level_matches_host(cv):
     assert KT.level(cv, *cols, match, aP, bP, False)[2] is None
 
 
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_phase_b_plain_matches_host(cv):
+    """Plain K7 on one tile of every group-law case: mid = A.pR + B.pL by
+    host ints, given the lane inverses of the plain K4 / K6."""
+    T, M_ = KT.T_SLOTS, KT.INV_W
+    fo, _ = _group(cv)
+    (a, b), cols, _ = level_case(cv, T * M_, seed=4)
+    apr, bpl = (c.reshape(c.shape[0], T, M_) for c in cols[1:3])
+    tinv = KT.invert_plain(cv, KT.phase_a_plain(cv, apr, bpl))
+    got = KT.phase_b_plain(cv, apr, bpl, tinv).reshape(-1, T * M_)
+    want = np.stack([_limbs(cv, H.ec_add(fo, x, y)) for x, y in zip(a, b)], 1)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_phase_b_plain_in_lane_slices(monkeypatch):
+    """Plain K7 over lane slices (how it runs levels wider than
+    PLAIN_LANES) equals one pass over all lanes."""
+    T, M_ = KT.T_SLOTS, KT.INV_W
+    _, cols, _ = level_case(C.G1, T * M_, seed=6)
+    apr, bpl = (c.reshape(c.shape[0], T, M_) for c in cols[1:3])
+    tinv = KT.invert_plain(C.G1, KT.phase_a_plain(C.G1, apr, bpl))
+    whole = KT.phase_b_plain(C.G1, apr, bpl, tinv)
+    monkeypatch.setattr(KT, "PLAIN_LANES", 48)      # slices of 48, 48 and 32 lanes
+    assert torch.equal(F.as_i32(KT.phase_b_plain(C.G1, apr, bpl, tinv)), F.as_i32(whole))
+
+
+def test_mid_matches_jax_mid_jnp():
+    """`KT.mid` (K4, K6 and K7 through their plain versions, K = 300 padded
+    to one tile) against the JAX package's portable `msm_tree.mid_jnp`."""
+    import jax.numpy as jnp
+    from groth16_tpu.ops import curve as JC, msm_tree as JMT
+    _, cols, _ = level_case(C.G1, 300, seed=3)
+    got = KT.mid(C.G1, cols[1], cols[2])
+    want = JMT.mid_jnp(JC.G1, jnp.asarray(cols[1].numpy()), jnp.asarray(cols[2].numpy()))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_window_sums_tree_explicit_level_fn():
+    """`level_fn=KT.level` given explicitly is the default; a level that
+    merges nothing changes the sums."""
+    ks, pts, _ = adversarial_case(C.G1, 13, seed=8)
+    s, P = torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(C.G1, pts)
+    want = MT.window_sums_tree(C.G1, s, P, 8, 32)
+    got = MT.window_sums_tree(C.G1, s, P, 8, 32, level_fn=KT.level)
+    assert all(torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
+
+    def keep(cv, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em):
+        return A_pl, B_pr, (A_pr if want_em else None)
+
+    other = MT.window_sums_tree(C.G1, s, P, 8, 32, level_fn=keep)
+    assert C.points_to_host(C.G1, other) != C.points_to_host(C.G1, want)
+
+
 def test_invert_rows_product_tree():
     """Totals wider than INV_MAXW go through one K5 halving each way."""
     rng = np.random.default_rng(5)
@@ -183,13 +243,24 @@ def test_tree_lane_header_matches_plain(shim, cv):
                 assert torch.equal(F.as_i32(o), F.as_i32(p))
 
 
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_tree_mid_lane_header_matches_plain(shim, cv):
+    """K7's lane body vs `phase_b_plain` on one tile."""
+    T, M_ = KT.T_SLOTS, KT.INV_W
+    _, cols, _ = level_case(cv, T * M_, seed=13)
+    apr, bpl = (c.reshape(c.shape[0], T, M_).contiguous() for c in cols[1:3])
+    tinv = KT.invert_plain(cv, KT.phase_a_plain(cv, apr, bpl))
+    mid = torch.zeros_like(apr)
+    shim.shim_tree_mid(int(cv.name == "G2"), _p(apr), _p(bpl), _p(tinv), _p(mid), M_)
+    assert torch.equal(F.as_i32(mid), F.as_i32(KT.phase_b_plain(cv, apr, bpl, tinv)))
+
+
 @pytest.mark.slow
 def test_tree_msm_matches_jax_msm_tree():
     import jax.numpy as jnp
     from groth16_tpu.ops import curve as JC, msm_tree as JMT
     ks, pts, _ = adversarial_case(C.G1, 13, seed=21)
-    got = MT.msm_tree(C.G1, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(C.G1, pts),
-                      8, group=8)
+    got = tree_msm(C.G1, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(C.G1, pts), 8, 8)
     want = JMT.msm_tree(JC.G1, jnp.asarray(ints_to_limbs(ks)), JC.points_from_host(JC.G1, pts),
                         8, group=8)
     x, y = C.to_affine(C.G1, got)
