@@ -9,12 +9,16 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the kernels from csrc/ with nvcc (sm_90a) and print the build time;
   3. hold every kernel against its plain PyTorch version on the card at the
      main path's shapes, bit-exact (tolerance 0: exact integer arithmetic),
-     and time both with CUDA events;
+     and time both with CUDA events: K1's add, doubling chain and Horner, K2,
+     K3, K4, K5, the batch inversion K6 at widths from 1 to 2^17 (a zero
+     among the totals), K8, and `to_affine` on the card against the CPU;
   4. the main path: synthetic_circuit(16) (65,533 constraints, domain 2^16),
      the port's fake setup on the card, write_zkey / write_witness to a temp
      directory, parse_zkey / parse_witness, generate_proof_with_mask with a
-     fixed mask, in both flavours; each proof must pass verify_proof, and
-     every kernel must have launched during the proofs;
+     fixed mask, in both flavours; each proof must pass verify_proof,
+     every kernel of the proof path must have launched during the proofs,
+     and a proof may launch Horner 5 times, at most 10 doubling chains,
+     fewer than 400 K1 kernels in all and no K5;
   5. the H1 MSM (2^16 points) through the merge tree and through the fold,
      timed against each other; both must give the same point;
   6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
@@ -24,8 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      from K9's SASS;
   8. the tree-phase path: tools/bench_tree_phases.run at 2^20 G1 points, the
      merge tree's phases timed; its level-1 mid must equal the plain K7 on
-     the same inputs, and the tree, the fold and msm(path="auto") must give
-     one point;
+     the same inputs, the halvings (K5) + narrow inversion must equal the one
+     wide K6 launch on the level-1 totals, and the tree, the fold and
+     msm(path="auto") must give one point;
   9. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
      equal to the unchunked MSM at 2^21.
 
@@ -58,8 +63,20 @@ K2_SHAPES = (("G1", True, 20 * 2048, 1 << 12), ("G1", False, 20 * 64, 1 << 12),
 NTT_SIZES = (10, 15, 16, 17)
 # Merge-tree launches of the H1 MSM (2^16 points, c = 13, groups of 4
 # windows, 2^18 elements a group): level 1 is 2^17 additions = 8192 lanes of
-# 16; K5 halves 8192 -> 4096 -> 2048 lanes; K6 takes 2048.
+# 16, whose totals K6 inverts in one launch.
 TREE_M = 8192
+# K6 widths held against the plain version (curve, M, a zero among the
+# totals); timed at 2048 (the widest row of the one-block K6 it replaced) and
+# at the 2^20 tree's level 1
+K6_WIDTHS = (("G1", 2048, False), ("G1", 1 << 17, False), ("G1", 1, False), ("G1", 127, True),
+             ("G1", 128, False), ("G1", 8192, False), ("G2", 1, False), ("G2", 256, False))
+K6_TIMED = (2048, 1 << 17)
+# K1 chains: the bucket reduce doubles the top bucket (k = 12) and Sq (k = 6)
+# of c = 13's 20 windows; Horner runs W = 20, c = 13 (2^16) and W = 16,
+# c = 16 (2^20)
+DOUBLE_N_SHAPES = ((20, 12), (20, 6))
+HORNER_SHAPES = ((20, 13), (16, 16))
+K1_MAX_PER_PROOF = 400
 # level 1 of the 2^20-point tree (c = 16, groups of 4 windows): 2^21 additions
 TREE_M_2E20 = 1 << 17
 LOG2_PHASES = 20      # the tree-phase run
@@ -111,8 +128,11 @@ def record(results, name, variant, err, ms, plain_ms, shape=None):
 
 
 def check_point_kernel(rng, dev, results):
-    """K1 add and double, G1 and G2, on 2^16 random projective points with
-    infinity, P = Q and P = -Q lanes."""
+    """K1 on 2^16 random projective points with infinity, P = Q and P = -Q
+    lanes, G1 and G2: the add, the doubling chain (k = 1 and 3 there, k = 12
+    and 6 on 20 points as the bucket reduce runs it) and Horner (W = 20,
+    c = 13 and W = 16, c = 16 on sums with an infinity and two equal
+    windows)."""
     import torch
     from groth16_tpu_torch.ops import curve as C, kernels as KN
     from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
@@ -129,18 +149,35 @@ def check_point_kernel(rng, dev, results):
         for j in range(3):
             Q[j][192:256] = negP[j].to(torch.uint32)                         # P = -Q
         Q = tuple(Q)
-        e_add = max_abs_err(KN.point_add(cv, P, Q), C.point_add_plain(cv, P, Q))
-        e_dbl = max_abs_err(KN.point_double(cv, P), C.point_double_plain(cv, P))
-        t_add = cuda_ms(lambda: KN.point_add(cv, P, Q), 20)
-        t_add_p = cuda_ms(lambda: C.point_add_plain(cv, P, Q), 2)
-        t_dbl = cuda_ms(lambda: KN.point_double(cv, P), 20)
-        t_dbl_p = cuda_ms(lambda: C.point_double_plain(cv, P), 2)
-        print(f"K1 {cv.name} n={n}: add {t_add:.4f} ms (plain {t_add_p:.2f} ms), "
-              f"double {t_dbl:.4f} ms (plain {t_dbl_p:.2f} ms), max_abs_err {max(e_add, e_dbl)}")
-        record(results, "point_add", f"{cv.name} n={n}", e_add, t_add, t_add_p,
-               dict(curve=cv.name, n=n))
-        record(results, "point_double", f"{cv.name} n={n}", e_dbl, t_dbl, t_dbl_p,
-               dict(curve=cv.name, n=n))
+        err = max_abs_err(KN.point_add(cv, P, Q), C.point_add_plain(cv, P, Q))
+        t_k = cuda_ms(lambda: KN.point_add(cv, P, Q), 20)
+        t_p = cuda_ms(lambda: C.point_add_plain(cv, P, Q), 2)
+        print(f"K1 {cv.name} add n={n}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
+        record(results, "point_add", f"{cv.name} n={n}", err, t_k, t_p, dict(curve=cv.name, n=n))
+
+        # window sums as the MSM hands them over: an infinity, two equal windows
+        S = [c[60:80].clone() for c in P]
+        for c in S:
+            c[7] = c[6]
+        chains = [(tuple(S), k) for _, k in DOUBLE_N_SHAPES] + [(P, 1), (P, 3)]
+        for pts, k in chains:
+            m = pts[0].shape[0]
+            err = max_abs_err(KN.point_double_n(cv, pts, k), C.point_double_n_plain(cv, pts, k))
+            t_k = cuda_ms(lambda: KN.point_double_n(cv, pts, k), 20)
+            t_p = cuda_ms(lambda: C.point_double_n_plain(cv, pts, k), 2)
+            print(f"K1 {cv.name} double_n n={m} k={k}: {t_k:.4f} ms (plain {t_p:.2f} ms), "
+                  f"max_abs_err {err}")
+            record(results, "point_double_n", f"{cv.name} n={m} k={k}", err, t_k, t_p,
+                   dict(curve=cv.name, n=m, k=k))
+        for W, c in HORNER_SHAPES:
+            sums = tuple(x[:W].contiguous() for x in S)
+            err = max_abs_err(KN.horner(cv, sums, c), C.horner_plain(cv, sums, c))
+            t_k = cuda_ms(lambda: KN.horner(cv, sums, c), 5)
+            t_p = cuda_ms(lambda: C.horner_plain(cv, sums, c), 1)
+            print(f"K1 {cv.name} horner W={W} c={c}: {t_k:.4f} ms (plain {t_p:.2f} ms), "
+                  f"max_abs_err {err}")
+            record(results, "horner", f"{cv.name} W={W} c={c}", err, t_k, t_p,
+                   dict(curve=cv.name, B=1, W=W, c=c))
 
 
 def _stream(rng, T, lanes, kmax, dev):
@@ -238,6 +275,46 @@ def tree_planes(rng, cv, M, dev):
     return planes, flg
 
 
+def check_invert_kernel(rng, dev, results):
+    """K6 against `invert_plain` at every width of K6_WIDTHS (random
+    254-bit totals, a zero among them where the entry says so), timed at K6_TIMED;
+    the bound counts the Euclid steps of this run's block roots."""
+    from groth16_tpu_torch.ops import curve as C, field as F, kernels_tree as KT
+    from groth16_tpu_torch.tools import measure
+    for name, M, zero in K6_WIDTHS:
+        cv = C.G1 if name == "G1" else C.G2
+        tots = random_scalars(rng, M * KT.ncomp(cv) // 16, dev).reshape(M, -1).T.contiguous()
+        if zero:
+            F.as_i32(tots)[:, M // 2] = 0
+        err = max_abs_err(KT.invert_kernel(cv, tots), KT.invert_plain(cv, tots))
+        if name == "G1" and M in K6_TIMED:
+            t_k = cuda_ms(lambda: KT.invert_kernel(cv, tots), 10)
+            t_p = cuda_ms(lambda: KT.invert_plain(cv, tots), 1)
+            ops = sum(measure.euclid_ops(r) for r in measure.invert_block_roots(tots.cpu().numpy()))
+            print(f"K6 {name} M={M}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
+            record(results, "invert_kernel", f"{name} M={M}", err, t_k, t_p,
+                   dict(curve=name, M=M, inv_ops=ops))
+        else:
+            print(f"K6 {name} M={M}" + (" with a zero" if zero else "") + f": max_abs_err {err}")
+            record(results, "invert_kernel", f"{name} M={M}", err, None, None)
+
+
+def check_to_affine(rng, dev):
+    """`to_affine` on the card (Z inverted by K6) against `to_affine` of the
+    same points on the CPU, G1 and G2, an infinity among them."""
+    from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
+    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
+    for cv in (C.G1, C.G2):
+        P = fixed_base_mul(cv, random_scalars(rng, 96, dev))
+        P = tuple(_cat([i, c[1:]]) for i, c in zip(C.inf_like(cv, (1,), dev), P))
+        before = KT.invert_kernel.launches
+        got = C.to_affine(cv, P)
+        if KT.invert_kernel.launches != before + 1:
+            raise AssertionError("to_affine on the card did not go through K6")
+        err = max_abs_err(tuple(g.cpu() for g in got), C.to_affine(cv, tuple(c.cpu() for c in P)))
+        print(f"to_affine {cv.name} n=96 with an infinity, card against CPU: max_abs_err {err}")
+
+
 def check_tree_kernels(rng, dev, results):
     """K4, K5, K6 and K8 (G1) at the level shapes of the H1 MSM."""
     from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
@@ -260,14 +337,8 @@ def check_tree_kernels(rng, dev, results):
         print(f"K5 G1 W={W}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
         record(results, "mul_rows_kernel", f"G1 W={W}", err, t_k, t_p, dict(W=W))
 
-    small = tot[:, :KT.INV_MAXW].contiguous()
-    err = max_abs_err(KT.invert_kernel(cv, small), KT.invert_plain(cv, small))
-    t_k = cuda_ms(lambda: KT.invert_kernel(cv, small), 5)
-    t_p = cuda_ms(lambda: KT.invert_plain(cv, small), 1)
-    print(f"K6 G1 M={KT.INV_MAXW}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
-    record(results, "invert_kernel", f"G1 M={KT.INV_MAXW}", err, t_k, t_p, dict(M=KT.INV_MAXW))
-
-    tinv = KT.invert_rows(cv, tot)
+    check_invert_kernel(rng, dev, results)
+    tinv = KT.invert_kernel(cv, tot)
     for M, want_em in ((TREE_M, False), (TREE_M // 2, True)):
         args = [p[:, :, :M].contiguous() for p in (apl, apr, bpl, bpr)]
         args += [flg[:, :M].contiguous(), tinv[:, :M].contiguous(), want_em]
@@ -288,7 +359,7 @@ def check_tree_mid_kernel(rng, dev, results):
     from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
     for cv, M in ((C.G1, TREE_M), (C.G2, 256), (C.G1, TREE_M_2E20)):
         (_, apr, bpl, _), _ = tree_planes(rng, cv, M, dev)
-        tinv = KT.invert_rows(cv, KT.phase_a_kernel(cv, apr, bpl))
+        tinv = KT.invert_kernel(cv, KT.phase_a_kernel(cv, apr, bpl))
         err = max_abs_err(KT.phase_b_kernel(cv, apr, bpl, tinv),
                           KT.phase_b_plain(cv, apr, bpl, tinv))
         t_k = cuda_ms(lambda: KT.phase_b_kernel(cv, apr, bpl, tinv), 10)
@@ -299,10 +370,11 @@ def check_tree_mid_kernel(rng, dev, results):
 
 
 # (wrapper, module, the path that must launch it)
-WRAPPERS = (("point_add", "kernels", "proof"), ("point_double", "kernels", "proof"),
+WRAPPERS = (("point_add", "kernels", "proof"), ("point_double_n", "kernels", "proof"),
+            ("horner", "kernels", "proof"),
             ("fold_level_kernel", "kernels", "proof"), ("ntt_inner_kernel", "ntt", "proof"),
             ("phase_a_kernel", "kernels_tree", "proof"),
-            ("mul_rows_kernel", "kernels_tree", "proof"),
+            ("mul_rows_kernel", "kernels_tree", "tree phases"),
             ("invert_kernel", "kernels_tree", "proof"),
             ("phase_b_level_kernel", "kernels_tree", "proof"),
             ("phase_b_kernel", "kernels_tree", "tree phases"),
@@ -365,8 +437,14 @@ def main_path(dev):
         prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
         proofs.append((flavour, zkey, prf))
         print(f"prove {flavour.value}: " + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
-        print(f"launches during the {flavour.value} proof: " + json.dumps(
-            {k: v - before[k] for k, v in read_counts().items()}))
+        during = {k: v - before[k] for k, v in read_counts().items()}
+        print(f"launches during the {flavour.value} proof: " + json.dumps(during))
+        k1 = during["point_add"] + during["point_double_n"] + during["horner"]
+        if (during["horner"] != 5 or during["point_double_n"] > 10 or k1 >= K1_MAX_PER_PROOF
+                or during["mul_rows_kernel"]):
+            raise AssertionError(f"{flavour.value}: a proof launches Horner 5 times, at most 10 "
+                                 f"doubling chains, fewer than {K1_MAX_PER_PROOF} K1 kernels "
+                                 f"(got {k1}) and no K5")
     counts = read_counts()
 
     for flavour, zkey, prf in proofs:
@@ -412,7 +490,8 @@ def fp_product_path(dev, results):
 
 def tree_phase_path(dev, results):
     """tools/bench_tree_phases.run at 2^20 with the launch counts around it;
-    the run holds its level-1 mid (K7) against the plain version."""
+    the run holds its level-1 mid (K7) against the plain version and the
+    halvings (K5) + narrow inversion against the one wide K6 launch."""
     from groth16_tpu_torch.tools import bench_tree_phases as BT
     reset_counts()
     res = BT.run(LOG2_PHASES, 4, dev)
@@ -490,6 +569,7 @@ def main() -> int:
     phase("K2 check", lambda: check_fold_kernel(rng, dev, results))
     phase("K3 check", lambda: check_ntt_kernel(rng, dev, results))
     phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
+    phase("to_affine check", lambda: check_to_affine(rng, dev))
     counts["proof"], zkey = phase("proofs", lambda: main_path(dev))
     phase("H1 tree vs fold", lambda: h1_tree_vs_fold(rng, dev, zkey))
     phase("K7 check", lambda: check_tree_mid_kernel(rng, dev, results))
@@ -514,7 +594,8 @@ def main() -> int:
 
     src = "groth16_tpu_torch/csrc/"
     table = {"point_add": ("point.cu", "groth16_tpu/ops/kernels.py:288"),
-             "point_double": ("point.cu", "groth16_tpu/ops/kernels.py:288"),
+             "point_double_n": ("point.cu", "groth16_tpu/ops/kernels.py:288"),
+             "horner": ("point.cu", "groth16_tpu/ops/kernels.py:288"),
              "fold_level_kernel": ("fold.cu", "groth16_tpu/ops/kernels.py:416"),
              "ntt_inner_kernel": ("ntt.cu", "groth16_tpu/ops/ntt_pallas.py:232"),
              "phase_a_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:120"),

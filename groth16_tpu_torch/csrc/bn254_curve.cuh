@@ -153,6 +153,46 @@ BN_HD Proj<typename C::F> infinity() {
   return Proj<F>{F::zero(), C::one(), F::zero()};
 }
 
+// ------------------------------------------------------------ K1 chains ---
+//
+// One thread's work in the chain kernels of K1 (csrc/point.cu), on the
+// point-major wire layout uint32[n, NC] a coordinate.
+
+template <class C>
+BN_HD Proj<typename C::F> load_proj_vec(const uint32_t* x, const uint32_t* y,
+                                        const uint32_t* z, long o) {
+  typedef typename C::F F;
+  return Proj<F>{F::load_vec(x + o), F::load_vec(y + o), F::load_vec(z + o)};
+}
+
+template <class C>
+BN_HD void store_proj_vec(uint32_t* x, uint32_t* y, uint32_t* z, long o,
+                          const Proj<typename C::F>& P) {
+  P.X.store_vec(x + o);
+  P.Y.store_vec(y + o);
+  P.Z.store_vec(z + o);
+}
+
+// 2^k P: k doublings in registers (the loop stays rolled: one body).
+template <class C>
+BN_HD Proj<typename C::F> double_n(Proj<typename C::F> P, int k) {
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) P = rcb_double<C>(P);
+  return P;
+}
+
+// Horner over W window sums S[0..W) of one MSM (coordinates at x, y, z, NC
+// words a window): acc = S[W-1]; for w = W-2 .. 0: c doublings, + S[w].
+template <class C>
+BN_HD Proj<typename C::F> horner_lane(const uint32_t* x, const uint32_t* y,
+                                      const uint32_t* z, int W, int c) {
+  Proj<typename C::F> acc = load_proj_vec<C>(x, y, z, (long)(W - 1) * C::NC);
+#pragma unroll 1
+  for (int w = W - 2; w >= 0; --w)
+    acc = rcb_add<C>(double_n<C>(acc, c), load_proj_vec<C>(x, y, z, (long)w * C::NC));
+  return acc;
+}
+
 // ------------------------------------------------------------ fold lane ---
 //
 // One lane of the segmented fold over a digit-sorted stream (the body of
@@ -220,22 +260,72 @@ BN_HD void fold_lane(const int32_t* kT, const uint32_t* pT, uint32_t* emit,
 //   totals  uint32[NC, M]       per-lane denominator products (and inverses)
 
 constexpr int TREE_T = 16;       // sequential additions per lane
-constexpr int INV_W = 128;       // lanes of the batch-inversion kernel
-constexpr int INV_MAX_CHUNKS = 16;
+constexpr int INV_THREADS = 128;  // threads of a batch-inversion block (a power of two)
+constexpr int INV_CHUNK = 4;      // totals each of them chains
 
-// Fermat inverse a^(p-2) in Fp (the inverse of 0 is 0).
-BN_HD Fp field_inv(const Fp& a) {
-  Fp acc = G1::one(), base = a;
-#pragma unroll 1
-  for (int w = 0; w < 8; ++w) {
-    const uint32_t e = FpParams::p(w) - (w == 0 ? 2u : 0u);
-#pragma unroll 1
-    for (int b = 0; b < 32; ++b) {
-      if ((e >> b) & 1u) acc = acc * base;
-      base = base.sqr();
-    }
+// R^3 mod p: the Montgomery product by it takes (aR)^-1 = a^-1 R^-1 to a^-1 R.
+BN_HD Fp fp_r3() {
+  return Fp{{0xda1530dfu, 0xb1cd6dafu, 0xa7283db6u, 0x62f210e6u,
+             0x0ada0afbu, 0xef7f0b0cu, 0x2d592544u, 0x20fd6e90u}};
+}
+
+// x / 2 mod p for a canonical x: (x + p) / 2 when x is odd (x + p < 2^255).
+BN_HD Fp fp_half(const Fp& x) {
+  const uint32_t mask = 0u - (x.v[0] & 1u);
+  uint32_t t[8];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t s = (uint64_t)x.v[i] + (FpParams::p(i) & mask) + c;
+    t[i] = (uint32_t)s;
+    c = s >> 32;
   }
-  return acc;
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = (t[i] >> 1) | ((i < 7 ? t[i + 1] : 0u) << 31);
+  return r;
+}
+
+// Inverse in Fp of a Montgomery value (the inverse of 0 is 0), by the binary
+// extended Euclid with right shifts: u = x1 A and v = x2 A (mod p) hold
+// throughout for the input residue A, v stays odd, u only shrinks, and u = 0
+// leaves v = gcd = 1, so x2 = A^-1.  At most about 2 x 254 steps of a few
+// limb-wide shifts and subtractions: about a tenth of the serial
+// instructions of a Fermat ladder a^(p-2) (some 380 products).  The number
+// of steps depends on the value: this code makes no constant-time promise
+// (the MSM's sort and bucket schedule depend on the scalars already).  The
+// result is the canonical residue.
+BN_HD Fp field_inv(const Fp& a) {
+  Fp u = a, v, x1 = Fp::zero(), x2 = Fp::zero();
+  x1.v[0] = 1u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v.v[i] = FpParams::p(i);
+#pragma unroll 1
+  while (!u.is_zero()) {
+    if (u.v[0] & 1u) {
+      // both odd: put the larger in u, subtract, and the difference is even
+      bool lt = false;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) lt = u.v[i] != v.v[i] ? u.v[i] < v.v[i] : lt;
+      if (lt) {
+        const Fp tu = u, tx = x1;
+        u = v; v = tu;
+        x1 = x2; x2 = tx;
+      }
+      uint32_t borrow = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint64_t d = (uint64_t)u.v[i] - v.v[i] - borrow;
+        u.v[i] = (uint32_t)d;
+        borrow = (uint32_t)(d >> 63);
+      }
+      x1 = x1 - x2;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) u.v[i] = (u.v[i] >> 1) | ((i < 7 ? u.v[i + 1] : 0u) << 31);
+    x1 = fp_half(x1);
+  }
+  return x2 * fp_r3();   // the input is aR: (aR)^-1 R^3 R^-1 = a^-1 R
 }
 
 // Fp2 inverse through the norm: (c0 - c1 u) / (c0^2 + c1^2).
@@ -311,24 +401,64 @@ BN_HD void tree_phase_a_lane(const uint32_t* apr, const uint32_t* bpl, uint32_t*
   run.store(tot + m, M);
 }
 
-// K6 lane j < INV_W: Montgomery's trick over the chunks tot[:, i*INV_W + j]
-// (M / INV_W <= INV_MAX_CHUNKS of them), one Fermat inverse, and the walk back.
+// K6, the batch inversion of tot[:, 0..M): every block of INV_THREADS
+// threads takes INV_THREADS * INV_CHUNK totals and shares nothing with the
+// others.  Thread t of the block whose first total is e0 chains the totals
+// e0 + t + i * INV_THREADS (`inv_chain`); the block multiplies the thread
+// products together in a binary tree in shared scratch (`inv_tree_up`, node i
+// = node 2i * node 2i+1, leaves at INV_THREADS + t, root at 1); one thread
+// inverts the root (`field_inv`); the way back mirrors the way down
+// (`inv_tree_down`, then `inv_walk_back`).  The scratch is packed and
+// node-minor: word w of node i at [w * 2 * INV_THREADS + i].  Totals past M
+// count as one; a total of 0 counts as one on the way down and gives 0.
+
+// Thread's first total is e: the exclusive prefix products of its chunk ->
+// pre, and the chunk's product.
 template <class C>
-BN_HD void tree_invert_lane(const uint32_t* tot, uint32_t* inv, long M, int j) {
+BN_HD typename C::F inv_chain(const uint32_t* tot, long M, long e,
+                              typename C::F pre[INV_CHUNK]) {
   typedef typename C::F F;
-  const int nch = (int)(M / INV_W);
-  F pre[INV_MAX_CHUNKS];
   F run = C::one();
-#pragma unroll 1
-  for (int i = 0; i < nch; ++i) {
+#pragma unroll
+  for (int i = 0; i < INV_CHUNK; ++i) {
+    const long idx = e + (long)i * INV_THREADS;
     pre[i] = run;
-    run = run * F::load(tot + (long)i * INV_W + j, M);
+    if (idx < M) {
+      const F v = F::load(tot + idx, M);
+      run = run * F::select(v.is_zero(), C::one(), v);
+    }
   }
-  F rinv = field_inv(run);
-#pragma unroll 1
-  for (int i = nch - 1; i >= 0; --i) {
-    (rinv * pre[i]).store(inv + (long)i * INV_W + j, M);
-    rinv = rinv * F::load(tot + (long)i * INV_W + j, M);
+  return run;
+}
+
+template <class F>
+BN_HD void inv_tree_up(uint32_t* node, int i) {
+  const long s = 2 * INV_THREADS;
+  (F::load_packed(node + 2 * i, s) * F::load_packed(node + 2 * i + 1, s))
+      .store_packed(node + i, s);
+}
+
+// the inverse of child c from its parent's inverse and its sibling's product
+template <class F>
+BN_HD void inv_tree_down(const uint32_t* node, uint32_t* invn, int c) {
+  const long s = 2 * INV_THREADS;
+  (F::load_packed(invn + (c >> 1), s) * F::load_packed(node + (c ^ 1), s))
+      .store_packed(invn + c, s);
+}
+
+// rinv = 1 / (the chunk's product): the inverse of each total -> inv.
+template <class C>
+BN_HD void inv_walk_back(const uint32_t* tot, uint32_t* inv, long M, long e,
+                         const typename C::F pre[INV_CHUNK], typename C::F rinv) {
+  typedef typename C::F F;
+#pragma unroll
+  for (int i = INV_CHUNK - 1; i >= 0; --i) {
+    const long idx = e + (long)i * INV_THREADS;
+    if (idx >= M) continue;
+    const F v = F::load(tot + idx, M);
+    const bool z = v.is_zero();
+    F::select(z, F::zero(), rinv * pre[i]).store(inv + idx, M);
+    rinv = rinv * F::select(z, C::one(), v);
   }
 }
 

@@ -26,6 +26,16 @@
 #define BN_HD inline
 #endif
 
+// The Fp product is inlined unless a translation unit defines
+// BN254_NOINLINE_MUL before this header: then it is one function that every
+// caller branches to (csrc/point.cu does; tools/bench_point_variants.py
+// times both builds of K1 and K6).
+#if defined(__CUDACC__) && defined(BN254_NOINLINE_MUL)
+#define BN_MUL __host__ __device__ __noinline__
+#else
+#define BN_MUL BN_HD
+#endif
+
 namespace bn254 {
 
 // ---------------------------------------------------------------- moduli ---
@@ -86,6 +96,51 @@ struct Field {
     }
   }
 
+  // The same wire layout for one element whose sixteen words are contiguous
+  // and 16-byte aligned (the point-major layout uint32[n, 16] of K1): four
+  // 128-bit loads or stores on the card.
+  BN_HD static Field load_vec(const uint32_t* w) {
+#if defined(__CUDA_ARCH__)
+    Field r;
+    const uint4* q = reinterpret_cast<const uint4*>(w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint4 u = q[i];
+      r.v[2 * i] = (u.x & 0xffffu) | (u.y << 16);
+      r.v[2 * i + 1] = (u.z & 0xffffu) | (u.w << 16);
+    }
+    return r;
+#else
+    return load(w);
+#endif
+  }
+
+  BN_HD void store_vec(uint32_t* w) const {
+#if defined(__CUDA_ARCH__)
+    uint4* q = reinterpret_cast<uint4*>(w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = make_uint4(v[2 * i] & 0xffffu, v[2 * i] >> 16, v[2 * i + 1] & 0xffffu,
+                        v[2 * i + 1] >> 16);
+#else
+    store(w);
+#endif
+  }
+
+  // packed layout: the eight 32-bit words themselves, `stride` words apart
+  // (shared-memory scratch inside a kernel, never the wire)
+  static constexpr int PACKED = 8;
+  BN_HD static Field load_packed(const uint32_t* w, long stride) {
+    Field r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r.v[i] = w[i * stride];
+    return r;
+  }
+  BN_HD void store_packed(uint32_t* w, long stride) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i * stride] = v[i];
+  }
+
   // t (9 words, value < 2p) -> t mod p
   BN_HD static Field reduce_once(const uint32_t t[9]) {
     Field d;
@@ -140,7 +195,7 @@ struct Field {
   BN_HD Field neg() const { return zero() - *this; }
 
   // CIOS Montgomery product a*b*2^-256 mod p (eight 32-bit words)
-  BN_HD Field operator*(const Field& b) const {
+  BN_MUL Field operator*(const Field& b) const {
     uint32_t t[10];
 #pragma unroll
     for (int i = 0; i < 10; ++i) t[i] = 0;
@@ -207,6 +262,21 @@ struct Fp2 {
   BN_HD void store(uint32_t* w, long stride = 1) const {
     c0.store(w, stride);
     c1.store(w + 16 * stride, stride);
+  }
+  BN_HD static Fp2 load_vec(const uint32_t* w) {
+    return Fp2{Fp::load_vec(w), Fp::load_vec(w + 16)};
+  }
+  BN_HD void store_vec(uint32_t* w) const {
+    c0.store_vec(w);
+    c1.store_vec(w + 16);
+  }
+  static constexpr int PACKED = 16;
+  BN_HD static Fp2 load_packed(const uint32_t* w, long stride) {
+    return Fp2{Fp::load_packed(w, stride), Fp::load_packed(w + 8 * stride, stride)};
+  }
+  BN_HD void store_packed(uint32_t* w, long stride) const {
+    c0.store_packed(w, stride);
+    c1.store_packed(w + 8 * stride, stride);
   }
 
   BN_HD Fp2 operator+(const Fp2& b) const { return Fp2{c0 + b.c0, c1 + b.c1}; }

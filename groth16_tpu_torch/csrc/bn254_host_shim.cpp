@@ -3,8 +3,11 @@
 // g++ compiles the same __host__ __device__ field, point, fold-lane and
 // merge-tree lane functions the CUDA kernels run (bn254_field.cuh,
 // bn254_curve.cuh), and this file loops them over wire-layout arrays, so the
-// arithmetic of K1, K2, K4, K6, K7, K8 and K9 is checked without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
+// arithmetic of K1 (chains included), K2, K4, K6, K7, K8 and K9 is checked
+// without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254shim.so bn254_host_shim.cpp
+
+#include <vector>
 
 #include "bn254_curve.cuh"
 
@@ -40,6 +43,46 @@ static void point_op(int dbl, long n, const uint32_t* const* in,
   }
 }
 
+template <class C>
+static void double_n_op(long n, int k, const uint32_t* const* in, uint32_t* const* out) {
+  for (long i = 0; i < n; ++i) {
+    const long o = i * C::NC;
+    store_proj_vec<C>(out[0], out[1], out[2], o,
+                      double_n<C>(load_proj_vec<C>(in[0], in[1], in[2], o), k));
+  }
+}
+
+template <class C>
+static void horner_op(long B, int W, int c, const uint32_t* const* in, uint32_t* const* out) {
+  for (long b = 0; b < B; ++b) {
+    const long o = b * W * C::NC;
+    store_proj_vec<C>(out[0], out[1], out[2], b * C::NC,
+                      horner_lane<C>(in[0] + o, in[1] + o, in[2] + o, W, c));
+  }
+}
+
+// K6 as its kernel runs it, one block after the other and each phase over
+// the block's threads in turn (the loops stand where the kernel synchronises)
+template <class C>
+static void invert_blocks(const uint32_t* tot, uint32_t* inv, long M) {
+  typedef typename C::F F;
+  const int T = INV_THREADS;
+  std::vector<uint32_t> node(F::PACKED * 2 * T), invn(F::PACKED * 2 * T);
+  std::vector<F> pre(T * INV_CHUNK);
+  for (long e0 = 0; e0 < M; e0 += (long)T * INV_CHUNK) {
+    for (int t = 0; t < T; ++t)
+      inv_chain<C>(tot, M, e0 + t, &pre[t * INV_CHUNK]).store_packed(&node[T + t], 2 * T);
+    for (int s = T / 2; s >= 1; s >>= 1)
+      for (int t = 0; t < s; ++t) inv_tree_up<F>(node.data(), s + t);
+    field_inv(F::load_packed(&node[1], 2 * T)).store_packed(&invn[1], 2 * T);
+    for (int s = 1; s < T; s <<= 1)
+      for (int t = 0; t < 2 * s; ++t) inv_tree_down<F>(node.data(), invn.data(), 2 * s + t);
+    for (int t = 0; t < T; ++t)
+      inv_walk_back<C>(tot, inv, M, e0 + t, &pre[t * INV_CHUNK],
+                       F::load_packed(&invn[T + t], 2 * T));
+  }
+}
+
 extern "C" {
 
 // field: 0 = Fp, 1 = Fr, 2 = Fp2; op: 0 = mul, 1 = add, 2 = sub
@@ -70,7 +113,7 @@ void shim_fold(int g2, int affine, const int32_t* kT, const uint32_t* pT,
   }
 }
 
-// merge tree: K4, K7 and K8 lanes m < M (oem may be null), K6 lanes j < INV_W
+// merge tree: K4, K7 and K8 lanes m < M (oem may be null), K6 block by block
 void shim_tree_phase_a(int g2, const uint32_t* apr, const uint32_t* bpl,
                        uint32_t* tot, long M) {
   for (long m = 0; m < M; ++m) {
@@ -80,10 +123,30 @@ void shim_tree_phase_a(int g2, const uint32_t* apr, const uint32_t* bpl,
 }
 
 void shim_tree_invert(int g2, const uint32_t* tot, uint32_t* inv, long M) {
-  for (int j = 0; j < INV_W; ++j) {
-    if (g2) tree_invert_lane<G2>(tot, inv, M, j);
-    else tree_invert_lane<G1>(tot, inv, M, j);
+  if (g2) invert_blocks<G2>(tot, inv, M);
+  else invert_blocks<G1>(tot, inv, M);
+}
+
+// field: 0 = Fp, 2 = Fp2; Montgomery values in, their inverses out
+void shim_field_inv(int field, long n, const uint32_t* a, uint32_t* out) {
+  for (long i = 0; i < n; ++i) {
+    if (field == 0) field_inv(Fp::load(a + i * 16)).store(out + i * 16);
+    else field_inv(Fp2::load(a + i * 32)).store(out + i * 32);
   }
+}
+
+// K1 chains: in / out are 3 coordinate arrays; n points doubled k times
+void shim_point_double_n(int g2, long n, int k, const uint32_t* const* in,
+                         uint32_t* const* out) {
+  if (g2) double_n_op<G2>(n, k, in, out);
+  else double_n_op<G1>(n, k, in, out);
+}
+
+// B Horners over sums [B, W, NC] a coordinate -> out [B, NC]
+void shim_horner(int g2, long B, int W, int c, const uint32_t* const* in,
+                 uint32_t* const* out) {
+  if (g2) horner_op<G2>(B, W, c, in, out);
+  else horner_op<G1>(B, W, c, in, out);
 }
 
 void shim_tree_mid(int g2, const uint32_t* apr, const uint32_t* bpl, const uint32_t* tinv,

@@ -8,11 +8,22 @@
 // the 32 threads of a warp read neighbouring words on every limb load:
 //
 //   K4  per lane, the product of its 16 slope denominators;
-//   K5  elementwise products of two total rows (the product-tree halvings
-//       that bring M down to at most 16 * 128 before K6);
-//   K6  one block of 128 threads: each chains its M / 128 totals, inverts
-//       the product with one Fermat ladder and walks back, so a level pays
-//       128 inversions in all;
+//   K5  elementwise products of two total rows (the halvings of a product
+//       tree over the totals; the tree level no longer needs them, only
+//       tools/bench_tree_phases.py runs that route, beside K6);
+//   K6  the batch inversion of any number of totals in one launch.  Replaces
+//       groth16_tpu/ops/kernels_tree.py::_invert_call, whose one grid step of
+//       128 lanes with a Fermat ladder each was the TPU's shape.  Here every
+//       block of 128 threads takes 512 totals: a thread chains 4 of them, the
+//       block multiplies its 128 thread products in a tree in shared memory,
+//       ONE thread inverts the root by a binary extended Euclid (about a
+//       tenth of the ladder's serial instructions), and the way back mirrors
+//       the way down.  Blocks share nothing, so a level of 2^17 totals pays
+//       256 inversions, all at once on different SMs.  Bound by latency: one
+//       inversion plus two short product chains (4 + 7 products down, 7 + 8
+//       back), whatever M is; the design keeps every serial piece short
+//       rather than the work small.  curve.to_affine inverts its Z through
+//       the same launch;
 //   K8  per lane, recompute the denominators and their prefix products,
 //       expand the lane inverse to the 16 per-addition inverses, finish each
 //       affine addition (about 7 products against 13 for a projective mixed
@@ -27,8 +38,7 @@
 //
 // Bound on this card by integer multiply throughput and, for K8, by
 // registers: the 16 prefix products of a lane live in local memory (L1),
-// and G2 launches use smaller blocks.  K6 runs on one SM and is bound by the
-// latency of its 254-step ladder.
+// and G2 launches use smaller blocks.
 
 #include <cuda_runtime.h>
 
@@ -56,9 +66,29 @@ __global__ void tree_mul_rows_kernel(const uint32_t* __restrict__ a,
 }
 
 template <class C>
-__global__ void tree_invert_kernel(const uint32_t* __restrict__ tot,
-                                   uint32_t* __restrict__ inv, long M) {
-  tree_invert_lane<C>(tot, inv, M, threadIdx.x);
+__global__ void __launch_bounds__(INV_THREADS)
+tree_invert_kernel(const uint32_t* __restrict__ tot, uint32_t* __restrict__ inv, long M) {
+  typedef typename C::F F;
+  __shared__ uint32_t node[F::PACKED * 2 * INV_THREADS];
+  __shared__ uint32_t invn[F::PACKED * 2 * INV_THREADS];
+  const int t = threadIdx.x;
+  const long e = (long)blockIdx.x * (INV_THREADS * INV_CHUNK) + t;
+  F pre[INV_CHUNK];
+  inv_chain<C>(tot, M, e, pre).store_packed(node + INV_THREADS + t, 2 * INV_THREADS);
+  __syncthreads();
+  for (int s = INV_THREADS / 2; s >= 1; s >>= 1) {
+    if (t < s) inv_tree_up<F>(node, s + t);
+    __syncthreads();
+  }
+  if (t == 0)
+    field_inv(F::load_packed(node + 1, 2 * INV_THREADS)).store_packed(invn + 1, 2 * INV_THREADS);
+  __syncthreads();
+  for (int s = 1; s < INV_THREADS; s <<= 1) {
+    if (t < 2 * s) inv_tree_down<F>(node, invn, 2 * s + t);
+    __syncthreads();
+  }
+  inv_walk_back<C>(tot, inv, M, e, pre,
+                   F::load_packed(invn + INV_THREADS + t, 2 * INV_THREADS));
 }
 
 template <class C>
@@ -124,14 +154,17 @@ int g16_tree_mul_rows(int g2, const void* a, const void* b, void* out, long W,
   return (int)cudaGetLastError();
 }
 
-// M a multiple of INV_W, at most INV_W * INV_MAX_CHUNKS (checked by the caller)
+// any M >= 1: the last block's missing totals count as one
 int g16_tree_invert(int g2, const void* tot, void* inv, long M, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (M > 0) {
+    const unsigned blocks = grid(M, INV_THREADS * INV_CHUNK);
     if (g2)
-      tree_invert_kernel<G2><<<1, INV_W, 0, s>>>((const uint32_t*)tot, (uint32_t*)inv, M);
+      tree_invert_kernel<G2><<<blocks, INV_THREADS, 0, s>>>((const uint32_t*)tot,
+                                                            (uint32_t*)inv, M);
     else
-      tree_invert_kernel<G1><<<1, INV_W, 0, s>>>((const uint32_t*)tot, (uint32_t*)inv, M);
+      tree_invert_kernel<G1><<<blocks, INV_THREADS, 0, s>>>((const uint32_t*)tot,
+                                                            (uint32_t*)inv, M);
   }
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,8 @@ build_seconds = 0.0   # wall time of the nvcc build in this process (0 if cached
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     "g16_point_add": [_I] + [_P] * 9 + [_L, _P],
-    "g16_point_double": [_I] + [_P] * 6 + [_L, _P],
+    "g16_point_double_n": [_I] + [_P] * 6 + [_L, _I, _P],
+    "g16_horner": [_I] + [_P] * 6 + [_L, _I, _I, _P],
     "g16_fold": [_I, _I, _P, _P, _P, _P, _I, _L, _P],
     "g16_ntt": [_P, _P, _P, _P, _I, _L, _I, _P],
     "g16_tree_phase_a": [_I, _P, _P, _P, _L, _P],
@@ -68,38 +69,62 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _run(cmds) -> None:
-    """Run compiler commands in parallel; raise with the output of any that fail."""
+def _run(cmds) -> str:
+    """Run compiler commands in parallel; raise with the output of any that
+    fail, else return what they printed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for c in cmds]
-    errors = []
+    errors, log = [], []
     for c, p in zip(cmds, procs):
-        out, _ = p.communicate()
+        out = p.communicate()[0].decode(errors="replace")
+        log.append(out)
         if p.returncode:
-            errors.append(f"$ {' '.join(c)}\n{out.decode(errors='replace')}")
+            errors.append(f"$ {' '.join(c)}\n{out}")
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return "".join(log)
+
+
+def compile_library(sources=KERNEL_SOURCES, extra_flags=()) -> tuple:
+    """nvcc build of `sources` (one compiler process each, all started
+    together) into one shared library under BUILD_DIR, keyed by a hash of the
+    sources, headers and flags.  Returns (path, the compilers' output, the
+    seconds the build took); "" and 0.0 when the library was already there."""
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    tag = _tag(tuple(sources) + HEADERS, flags)
+    so = os.path.join(BUILD_DIR, f"libg16kernels-{tag}.so")
+    if os.path.exists(so):
+        return so, "", 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    objs = [os.path.join(BUILD_DIR, f"{src}.{tag}.{os.getpid()}.o") for src in sources]
+    log = _run([[nvcc, *flags, "-c", os.path.join(CSRC, src), "-o", obj]
+                for src, obj in zip(sources, objs)])
+    tmp = f"{so}.tmp{os.getpid()}"
+    _run([[nvcc, *flags, "-shared", "-o", tmp, *objs]])
+    os.replace(tmp, so)
+    for obj in objs:
+        os.remove(obj)
+    return so, log, time.perf_counter() - t0
 
 
 def _build() -> str:
     global build_seconds
-    tag = _tag(KERNEL_SOURCES + HEADERS, NVCC_FLAGS)
-    so = os.path.join(BUILD_DIR, f"libg16kernels-{tag}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.perf_counter()
-    nvcc = _nvcc()
-    objs = [os.path.join(BUILD_DIR, f"{src}.{tag}.{os.getpid()}.o") for src in KERNEL_SOURCES]
-    _run([[nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src), "-o", obj]
-          for src, obj in zip(KERNEL_SOURCES, objs)])
-    tmp = f"{so}.tmp{os.getpid()}"
-    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
-    os.replace(tmp, so)
-    for obj in objs:
-        os.remove(obj)
-    build_seconds = time.perf_counter() - t0
+    so, _, seconds = compile_library()
+    build_seconds = build_seconds or seconds
     return so
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a kernel library and set the signatures of the functions it has."""
+    L = ctypes.CDLL(path)
+    for name, args in _SIGNATURES.items():
+        fn = getattr(L, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return L
 
 
 def lib_path() -> str:
@@ -113,13 +138,17 @@ def lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            L = ctypes.CDLL(_build())
-            for name, args in _SIGNATURES.items():
-                fn = getattr(L, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _LIB = L
+            _LIB = bind(_build())
         return _LIB
+
+
+def use_library(path: str) -> None:
+    """Make every wrapper launch from the kernel library at `path` (one that
+    `compile_library` built): tools/bench_point_variants.py times builds of
+    the same sources under other flags through the package's own wrappers."""
+    global _LIB
+    with _LOCK:
+        _LIB = bind(path)
 
 
 def check(rc: int, what: str) -> None:
@@ -148,6 +177,9 @@ def host_shim():
     L = ctypes.CDLL(so)
     L.shim_field.argtypes = [_I, _I, _L, _P, _P, _P]
     L.shim_point.argtypes = [_I, _I, _L, _P, _P]
+    L.shim_point_double_n.argtypes = [_I, _L, _I, _P, _P]
+    L.shim_horner.argtypes = [_I, _L, _I, _I, _P, _P]
+    L.shim_field_inv.argtypes = [_I, _L, _P, _P]
     L.shim_fold.argtypes = [_I, _I, _P, _P, _P, _P, _I, _L]
     L.shim_tree_phase_a.argtypes = [_I, _P, _P, _P, _L]
     L.shim_tree_invert.argtypes = [_I, _P, _P, _L]
@@ -156,6 +188,6 @@ def host_shim():
     L.shim_fp_mul_chain.argtypes = [_P, _P, _P, _I, _L]
     for fn in (L.shim_field, L.shim_point, L.shim_fold, L.shim_tree_phase_a,
                L.shim_tree_invert, L.shim_tree_phase_b, L.shim_tree_mid,
-               L.shim_fp_mul_chain):
+               L.shim_fp_mul_chain, L.shim_point_double_n, L.shim_horner, L.shim_field_inv):
         fn.restype = None
     return L

@@ -6,11 +6,13 @@ Counterpart of groth16_tpu/ops/curve.py.  A batch of points is a tuple
 is (0 : 1 : 0).  The group law is the complete RCB15 formulas, so infinity
 and doubling need no branches.
 
-`point_add` / `point_double` are the wrappers of kernel K1
-(csrc/point.cu): on CUDA tensors they launch it, on CPU tensors they run the
-plain version (`point_add_plain` / `point_double_plain`, the same formulas on
-int64 limbs with the independent products of each step stacked into one
-multiply).  Both give bit-identical projective results.
+`point_add`, `point_double_n` (k doublings; `point_double` is k = 1) and
+`horner` dispatch to kernel K1 (csrc/point.cu): on CUDA tensors they launch
+it, on CPU tensors they run the plain version (`point_add_plain`,
+`point_double_n_plain`, `horner_plain`: the same formulas on int64 limbs with
+the independent products of each step stacked into one multiply).  Both give
+bit-identical projective results.  `to_affine` inverts Z on CUDA tensors
+with the merge tree's batch-inversion kernel K6 (csrc/tree.cu).
 """
 
 from __future__ import annotations
@@ -234,12 +236,47 @@ def point_add(cv: CurveSpec, P, Q):
     return kernels.point_add(cv, P, Q)
 
 
-def point_double(cv: CurveSpec, P):
-    """Batched complete doubling: K1 on CUDA tensors, plain on CPU."""
+def point_double_n_plain(cv: CurveSpec, P, k: int):
+    """Plain PyTorch version of K1's doubling chain (any device): k times
+    `point_double_plain`."""
+    for _ in range(k):
+        P = point_double_plain(cv, P)
+    return tuple(P)
+
+
+def point_double_n(cv: CurveSpec, P, k: int):
+    """2^k P of a batch: one K1 launch on CUDA tensors, plain on CPU."""
     from . import kernels
     if P[0].device.type == "cpu":
-        return point_double_plain(cv, P)
-    return kernels.point_double(cv, P)
+        return point_double_n_plain(cv, P, k)
+    return kernels.point_double_n(cv, P, k)
+
+
+def point_double(cv: CurveSpec, P):
+    """Batched complete doubling: `point_double_n` with k = 1."""
+    return point_double_n(cv, P, 1)
+
+
+def horner_plain(cv: CurveSpec, sums, c: int):
+    """Plain PyTorch version of K1's Horner (any device): window sums
+    [..., W, comp] -> sum_w 2^(c w) S_w of [..., comp], high window first:
+    acc = S[W-1]; for w = W-2 .. 0: c doublings, then + S[w]."""
+    axis = -1 - len(cv.comp_shape)
+    W = sums[0].shape[axis]
+    acc = tuple(s.select(axis, W - 1) for s in sums)
+    for w in range(W - 2, -1, -1):
+        acc = point_double_n_plain(cv, acc, c)
+        acc = point_add_plain(cv, acc, tuple(s.select(axis, w) for s in sums))
+    return tuple(acc)
+
+
+def horner(cv: CurveSpec, sums, c: int):
+    """Horner over window sums: one K1 launch on CUDA tensors, plain on CPU."""
+    from . import kernels
+    if sums[0].device.type == "cpu":
+        kernels.horner_shape(cv, sums)
+        return horner_plain(cv, sums, c)
+    return kernels.horner(cv, sums, c)
 
 
 def point_neg(cv: CurveSpec, P):
@@ -251,7 +288,7 @@ def point_select(cv: CurveSpec, cond, P, Q):
     return tuple(cv.fops.select(cond, p, q) for p, q in zip(*_bcast(P, Q)))
 
 
-def inf_like(cv: CurveSpec, shape=(), device="cpu") -> tuple:
+def inf_like(cv: CurveSpec, shape, device) -> tuple:
     """Batch of points at infinity (0 : 1 : 0), uint32 Montgomery limbs."""
     full = tuple(shape) + cv.comp_shape
     zero = torch.zeros(full, dtype=torch.uint32, device=device)
@@ -273,19 +310,17 @@ def from_affine(cv: CurveSpec, x, y):
 
 
 def to_affine(cv: CurveSpec, P):
-    """Projective batch -> affine (x, y); infinity maps to (0, 0).  One
-    batched Fermat inversion over all Z (Fp2 through the norm)."""
+    """Projective batch -> affine (x, y); infinity maps to (0, 0).  All Z
+    share one batch inversion, as one limb-major row through
+    `kernels_tree.invert`: kernel K6 on CUDA tensors, on CPU tensors its plain
+    version (a batched Fermat ladder of plain products, Fp2 through the
+    norm).  The inverse of Z = 0 is 0."""
+    from . import kernels_tree
     K = cv.fops
     X, Y, Z = _i64(P)
     inf = K.is_zero(Z)
-    if cv.name == "G1":
-        zinv = F.inv_mod(FP, Z)
-    else:
-        z0, z1 = Z[..., 0, :], Z[..., 1, :]
-        n0, n1 = F.mont_mul(FP, torch.stack([z0, z1]), torch.stack([z0, z1]))
-        ninv = F.inv_mod(FP, F.add_mod(FP, n0, n1))
-        a, b = F.mont_mul(FP, torch.stack([z0, z1]), ninv)
-        zinv = torch.stack([a, F.neg_mod(FP, b)], -2)
+    row = P[2].to(torch.uint32).reshape(-1, kernels_tree.ncomp(cv)).T.contiguous()
+    zinv = F.i64(kernels_tree.invert(cv, row).T).reshape(Z.shape)
     x, y = K.mul(torch.stack([X, Y]), zinv)
     zero = torch.zeros_like(x)
     return (K.select(inf, zero, x).to(torch.uint32),
@@ -307,7 +342,7 @@ def scalar_bits(scalars_std: torch.Tensor, nbits: int = 256) -> torch.Tensor:
 
 def scalar_mul(cv: CurveSpec, scalars_std: torch.Tensor, P, nbits: int = 256):
     """Batched variable-base [k_i] P_i, right to left: one complete add and
-    one double per bit, every step a K1 launch on CUDA tensors."""
+    one doubling per bit, every step a K1 launch on CUDA tensors."""
     bits = scalar_bits(scalars_std, nbits)
     acc = inf_like(cv, scalars_std.shape[:-1], scalars_std.device)
     base = tuple(c.expand(acc[0].shape) for c in P)
@@ -340,7 +375,7 @@ def tree_sum(cv: CurveSpec, P):
 # host <-> device points
 # ---------------------------------------------------------------------------
 
-def points_from_host(cv: CurveSpec, pts, device="cpu") -> tuple:
+def points_from_host(cv: CurveSpec, pts, device) -> tuple:
     """Host affine points (ints / int pairs, None = infinity) -> projective."""
     n = len(pts)
     xs = np.zeros((n,) + cv.comp_shape, np.uint32)

@@ -1,15 +1,16 @@
-"""Launch wrappers of the point kernel (K1), the segmented-fold kernel (K2)
-and the chained-product kernel (K9).
+"""Launch wrappers of the point kernels (K1: add, doubling chain, Horner),
+the segmented-fold kernel (K2) and the chained-product kernel (K9).
 
 Counterpart of groth16_tpu/ops/kernels.py (`_point_call`, `_fold_call`) and
 of the kernel of tools/bench_mul_kernels.py (`make_call`).
-The wrappers here take CUDA tensors only: they check device, dtype and
-shape, allocate outputs with `torch.empty`, launch on the current stream,
-raise on a launch error, and count their launches (`<wrapper>.launches`).
-The plain PyTorch versions sit beside them: `curve.point_add_plain` /
-`point_double_plain`, `fold_level_plain` and `fp_mul_chain_plain` here;
-`curve.point_add` / `point_double`, `fold_level` and `fp_mul_chain` here
-dispatch by the device of their input.
+The wrappers here take CUDA tensors only: they check device, dtype, shape
+and alignment, allocate outputs with `torch.empty`, launch on the current
+stream, raise on a launch error, and count their launches
+(`<wrapper>.launches`).  The plain PyTorch versions sit beside them:
+`curve.point_add_plain` / `point_double_n_plain` / `horner_plain`,
+`fold_level_plain` and `fp_mul_chain_plain` here; `curve.point_add` /
+`point_double_n` / `horner`, `fold_level` and `fp_mul_chain` here dispatch
+by the device of their input.
 """
 
 from __future__ import annotations
@@ -47,34 +48,83 @@ def _point_shape(cv, P):
     return shape, n
 
 
+def _aligned(tensors) -> list:
+    """Data pointers for K1's 128-bit loads and stores: 16-byte aligned or
+    the call raises."""
+    ptrs = [t.data_ptr() for t in tensors]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("point kernel tensors must be 16-byte aligned")
+    return ptrs
+
+
+def _k1_launch(fn_name: str, cv, ins, out_shape, *tail):
+    """Allocate three output coordinates, launch one K1 function on the
+    current stream and raise on a launch error."""
+    dev = ins[0].device
+    outs = [torch.empty(out_shape, dtype=torch.uint32, device=dev) for _ in range(3)]
+    rc = getattr(cuda.lib(), fn_name)(int(cv.name == "G2"), *_aligned(ins + outs), *tail,
+                                      cuda.stream_ptr(dev))
+    cuda.check(rc, f"{fn_name} kernel")
+    return tuple(outs)
+
+
 def point_add(cv: C.CurveSpec, P, Q):
     """K1 add: complete RCB15 addition of two same-shape CUDA point batches."""
     shape, n = _point_shape(cv, tuple(P) + tuple(Q))
-    ins = _cuda_inputs(tuple(P) + tuple(Q))
-    outs = [torch.empty(shape, dtype=torch.uint32, device=ins[0].device) for _ in range(3)]
-    rc = cuda.lib().g16_point_add(int(cv.name == "G2"), *(t.data_ptr() for t in ins + outs),
-                                  n, cuda.stream_ptr(ins[0].device))
-    cuda.check(rc, "point_add kernel")
+    out = _k1_launch("g16_point_add", cv, _cuda_inputs(tuple(P) + tuple(Q)), shape, n)
     point_add.launches += 1
-    return tuple(outs)
+    return out
 
 
 point_add.launches = 0
 
 
-def point_double(cv: C.CurveSpec, P):
-    """K1 double: complete RCB15 doubling of a CUDA point batch."""
+def point_double_n(cv: C.CurveSpec, P, k: int):
+    """K1 doubling chain: 2^k P of a CUDA point batch in one launch (each
+    thread doubles its point k times in registers; k = 1 is the doubling).
+    Replaces groth16_tpu/ops/kernels.py:288 `_point_call` as the bucket
+    reduce drives it (k traced calls in one program there); on the MSM's few
+    points it is bound by the latency of one thread's k x 9 serial products.
+    Plain version: `curve.point_double_n_plain`."""
+    if k < 0:
+        raise ValueError(f"point_double_n takes k >= 0, got {k}")
     shape, n = _point_shape(cv, tuple(P))
-    ins = _cuda_inputs(tuple(P))
-    outs = [torch.empty(shape, dtype=torch.uint32, device=ins[0].device) for _ in range(3)]
-    rc = cuda.lib().g16_point_double(int(cv.name == "G2"), *(t.data_ptr() for t in ins + outs),
-                                     n, cuda.stream_ptr(ins[0].device))
-    cuda.check(rc, "point_double kernel")
-    point_double.launches += 1
-    return tuple(outs)
+    out = _k1_launch("g16_point_double_n", cv, _cuda_inputs(tuple(P)), shape, n, k)
+    point_double_n.launches += 1
+    return out
 
 
-point_double.launches = 0
+point_double_n.launches = 0
+
+
+def horner_shape(cv: C.CurveSpec, sums) -> tuple:
+    """(batch shape, W) of window sums [..., W, comp]."""
+    shape, _ = _point_shape(cv, tuple(sums))
+    lead = tuple(shape[:len(shape) - len(cv.comp_shape)])
+    if not lead or lead[-1] < 1:
+        raise ValueError(f"horner takes {cv.name} sums of [..., W >= 1, comp], got {tuple(shape)}")
+    return lead[:-1], lead[-1]
+
+
+def horner(cv: C.CurveSpec, sums, c: int):
+    """K1 Horner: sum_w 2^(c w) S_w of CUDA window sums [W, comp] (or
+    [B, W, comp]: one thread per independent Horner) in one launch.
+    Replaces groth16_tpu/ops/kernels.py:288 `_point_call` as
+    groth16_tpu/ops/msm.py:515 `horner_combine` drives it (one `lax.scan` in
+    one program there); bound on this card by the latency of one thread's
+    (W - 1)(9 c + 14) serial products.  Plain version: `curve.horner_plain`."""
+    if c < 0:
+        raise ValueError(f"horner takes c >= 0, got {c}")
+    batch, W = horner_shape(cv, sums)
+    B = 1
+    for d in batch:
+        B *= d
+    out = _k1_launch("g16_horner", cv, _cuda_inputs(tuple(sums)), batch + cv.comp_shape, B, W, c)
+    horner.launches += 1
+    return out
+
+
+horner.launches = 0
 
 
 def fold_rows(cv) -> int:

@@ -3,17 +3,20 @@
 and `mid`, one batch of affine additions.
 
 Counterpart of groth16_tpu/ops/kernels_tree.py.  A level of K affine
-additions mid = A.pR + B.pL is padded to a multiple of T_SLOTS * INV_W and
-viewed as [R2, T_SLOTS, M] limb-major fused x|y columns (M = K / T_SLOTS
-lanes, lane axis minor); (0, 0) is infinity.  The slope denominators of the
-whole level share one batch inversion:
+additions mid = A.pR + B.pL is padded to a multiple of T_SLOTS and viewed as
+[R2, T_SLOTS, M] limb-major fused x|y columns (M = K / T_SLOTS lanes, lane
+axis minor); (0, 0) is infinity.  The slope denominators of the whole level
+share one batch inversion, so a level is three launches, K4, K6, K8:
 
   K4 `phase_a`        per-lane product of the T_SLOTS masked denominators;
-  K5 `mul_rows`       pairwise products that halve the totals down to
-                      INV_MAXW lanes (and multiply back up afterwards);
-  K6 `invert`         per-lane inverses of at most INV_MAXW totals;
+  K6 `invert`         inverses of any number M >= 1 of totals in one launch
+                      (0 gives 0); `curve.to_affine` inverts its Z with it;
   K8 `phase_b_level`  per-addition inverses, the affine additions and the
                       node updates PL', PR' and EM0;
+  K5 `mul_rows`       elementwise products of two rows of totals: the
+                      halvings of a product tree, the route to a narrow
+                      inversion that tools/bench_tree_phases.py times beside
+                      the one wide K6 launch (and its affine conversion);
   K7 `phase_b`        K8 without the node updates: the mids alone (`mid`,
                       which only tools/bench_tree_phases.py calls).
 
@@ -36,8 +39,7 @@ from .field import FP
 from .kernels import _cuda_inputs
 
 T_SLOTS = 16     # additions per lane (bn254_curve.cuh TREE_T)
-INV_W = 128      # lanes of the inversion kernel (INV_W)
-INV_MAXW = 2048  # widest totals row K6 takes (INV_W * INV_MAX_CHUNKS)
+INV_W = 128      # threads of a K6 block (INV_THREADS); each chains 4 totals
 PLAIN_LANES = 8192  # lanes per slice of the plain K7 (`phase_b_plain`)
 
 
@@ -107,7 +109,7 @@ def mul_rows_plain(cv: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 def invert_plain(cv: CurveSpec, tots: torch.Tensor) -> torch.Tensor:
-    """Plain K6: per-lane inverses of nonzero uint32[R, M] totals (Fermat;
+    """Plain K6: per-lane inverses of uint32[R, M] totals, 0 for 0 (Fermat;
     Fp2 through the norm)."""
     e = _elems(cv, tots)
     if cv.name == "G1":
@@ -208,11 +210,13 @@ mul_rows_kernel.launches = 0
 
 
 def invert_kernel(cv: CurveSpec, tots: torch.Tensor) -> torch.Tensor:
-    """K6 (see `invert_plain`); M a multiple of INV_W, at most INV_MAXW."""
+    """K6 (see `invert_plain`): any M, one launch of ceil(M / (4 * INV_W))
+    blocks with one inversion each.  Replaces
+    groth16_tpu/ops/kernels_tree.py:202 `_invert_call`; bound by the latency
+    of one inversion and two short product chains (csrc/tree.cu)."""
     M = tots.shape[-1]
-    if tots.ndim != 2 or tots.shape[0] != ncomp(cv) or M % INV_W or M > INV_MAXW:
-        raise ValueError(f"invert takes [{ncomp(cv)}, M], M a multiple of {INV_W} "
-                         f"<= {INV_MAXW}, got {tuple(tots.shape)}")
+    if tots.ndim != 2 or tots.shape[0] != ncomp(cv):
+        raise ValueError(f"invert takes [{ncomp(cv)}, M], got {tuple(tots.shape)}")
     (tots,) = _cuda_inputs([tots])
     inv = torch.empty_like(tots)
     rc = cuda.lib().g16_tree_invert(_g2(cv), tots.data_ptr(), inv.data_ptr(), M,
@@ -299,27 +303,9 @@ def phase_b_level(cv, apl, apr, bpl, bpr, flg, tinv, want_em):
     return fn(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
 
 
-def invert_rows(cv: CurveSpec, tots: torch.Tensor) -> torch.Tensor:
-    """Inverses of uint32[R, M] lane totals: product-tree halvings (K5) down
-    to INV_MAXW lanes, one K6, then the mirrored walk back up (K5)."""
-    stack = []
-    x = tots
-    while x.shape[-1] > INV_MAXW and (x.shape[-1] // 2) % INV_W == 0:
-        w = x.shape[-1] // 2
-        stack.append(x)
-        x = mul_rows(cv, x[:, :w], x[:, w:])
-    inv = invert(cv, x)
-    for lv in reversed(stack):
-        w = lv.shape[-1] // 2
-        inv = F.as_u32(torch.cat([F.as_i32(mul_rows(cv, inv, lv[:, w:])),
-                                  F.as_i32(mul_rows(cv, inv, lv[:, :w]))], -1))
-    return inv
-
-
 def _tiles(K: int) -> int:
-    """K additions padded to whole [T_SLOTS, INV_W] tiles."""
-    tile = T_SLOTS * INV_W
-    return -(-K // tile) * tile
+    """K additions padded to whole lanes of T_SLOTS."""
+    return -(-K // T_SLOTS) * T_SLOTS
 
 
 def _planes(x: torch.Tensor, Kp: int) -> torch.Tensor:
@@ -338,17 +324,17 @@ def level(cv: CurveSpec, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em: bool):
     flg = match.to(torch.int32) | (aP.to(torch.int32) << 1) | (bP.to(torch.int32) << 2)
     flg = tnf.pad(flg, (0, Kp - K)).reshape(T_SLOTS, Kp // T_SLOTS)
     apl, apr, bpl, bpr = (_planes(x, Kp) for x in (A_pl, A_pr, B_pl, B_pr))
-    tinv = invert_rows(cv, phase_a(cv, apr, bpl))
+    tinv = invert(cv, phase_a(cv, apr, bpl))
     outs = phase_b_level(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
     return tuple(None if o is None else o.reshape(R2, Kp)[:, :K] for o in outs)
 
 
 def mid_planes(cv: CurveSpec, a_cols: torch.Tensor, b_cols: torch.Tensor) -> tuple:
-    """K7's inputs in `mid`: the columns as planes padded to whole tiles and
-    their lane inverses (K4, then the batch inversion K5 / K6)."""
+    """K7's inputs in `mid`: the columns as planes padded to whole lanes and
+    their lane inverses (K4, then the batch inversion K6)."""
     Kp = _tiles(a_cols.shape[1])
     apr, bpl = _planes(a_cols, Kp), _planes(b_cols, Kp)
-    return apr, bpl, invert_rows(cv, phase_a(cv, apr, bpl))
+    return apr, bpl, invert(cv, phase_a(cv, apr, bpl))
 
 
 def mid(cv: CurveSpec, a_cols: torch.Tensor, b_cols: torch.Tensor) -> torch.Tensor:

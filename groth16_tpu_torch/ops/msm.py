@@ -18,8 +18,9 @@ segmented fold:
      [Q, L] factorization b = q*L + l (tree sums and log-depth suffix sums);
   4. Horner over the windows.
 
-Every projective point operation goes through `curve.point_add` /
-`point_double` (kernel K1 on CUDA tensors).  Below 128 points the batched
+Every projective point operation goes through `curve.point_add`,
+`point_double_n` and `horner` (kernel K1 on CUDA tensors: the doubling
+chains of the bucket reduce and the whole Horner are one launch each).  Below 128 points the batched
 double-and-add ladder (`msm_naive`) runs instead.  `msm_chunked` streams
 point sets larger than one device segment.  Results are projective; their
 affine forms equal the JAX package's for the same inputs.
@@ -185,9 +186,7 @@ def _weighted_bucket_reduce(cv: CurveSpec, buckets, n_buckets: int):
     if n_buckets & (n_buckets - 1):
         k = (n_buckets - 1).bit_length() - 1
         assert n_buckets == (1 << k) + 1, n_buckets
-        top = tuple(b[n_buckets - 1] for b in buckets)
-        for _ in range(k):
-            top = C.point_double(cv, top)
+        top = C.point_double_n(cv, tuple(b[n_buckets - 1] for b in buckets), k)
         base = _weighted_bucket_reduce(cv, tuple(b[:n_buckets - 1] for b in buckets), 1 << k)
         return C.point_add(cv, base, top)
     lq = max(1, (n_buckets.bit_length() - 1) // 2)
@@ -198,9 +197,7 @@ def _weighted_bucket_reduce(cv: CurveSpec, buckets, n_buckets: int):
     cols = C.tree_sum(cv, G)                                      # [L, W]
     Sq = _tri_sum(cv, rows)
     Sl = _tri_sum(cv, cols)
-    for _ in range(L.bit_length() - 1):
-        Sq = C.point_double(cv, Sq)
-    return C.point_add(cv, Sq, Sl)
+    return C.point_add(cv, C.point_double_n(cv, Sq, L.bit_length() - 1), Sl)
 
 
 def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
@@ -230,14 +227,9 @@ def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
 
 
 def horner_combine(cv: CurveSpec, sums, c: int):
-    """acc = sum_w 2^(c*w) * S_w, windows high to low."""
-    W = sums[0].shape[0]
-    acc = tuple(s[W - 1] for s in sums)
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            acc = C.point_double(cv, acc)
-        acc = C.point_add(cv, acc, tuple(s[w] for s in sums))
-    return acc
+    """acc = sum_w 2^(c*w) * S_w of window sums [W, comp], windows high to
+    low: one launch of K1's Horner on CUDA tensors (`curve.horner`)."""
+    return C.horner(cv, sums, c)
 
 
 def msm(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False,

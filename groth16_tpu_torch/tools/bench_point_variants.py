@@ -1,0 +1,130 @@
+"""Build options of the point kernels (K1) and the batch inversion (K6),
+timed against each other on one card in one run.
+
+    python3 -m groth16_tpu_torch.tools.bench_point_variants
+
+csrc/point.cu and csrc/tree.cu are built once per option set (all builds
+started together), each with `-Xptxas -v`:
+
+  default        the flags of ops/cuda.py: the Fp product is one function
+                 that K1's formulas branch to, and inlined in the tree's
+                 kernels;
+  inline-mul     -DG16_K1_INLINE_MUL: inlined in K1 too;
+  noinline-mul   -DBN254_NOINLINE_MUL: one function in the tree's kernels too.
+
+For each build it prints the registers and spill bytes ptxas reports for the
+K1 and K6 kernels, then times, with CUDA events through the package's own
+wrappers: K1 add and doubling at 2^16 points, the doubling chain (k = 12 on
+20 points) and Horner (W = 20, c = 13) in G1 and G2, and K6 in G1 at M =
+2,048 and 2^17.  Every build's outputs must equal the default's.  One JSON
+line at the end.  Needs one CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+VARIANTS = {"default": (), "inline-mul": ("-DG16_K1_INLINE_MUL",),
+            "noinline-mul": ("-DBN254_NOINLINE_MUL",)}
+SOURCES = ("point.cu", "tree.cu")
+KERNELS = ("point_add_kernel", "point_double_n_kernel", "horner_kernel", "tree_invert_kernel")
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_table(log: str) -> dict:
+    """{kernel and curve: (registers, spill store bytes, spill load bytes)}
+    from `nvcc -Xptxas -v` output, for the kernels named in KERNELS."""
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            sym = m.group(1)
+            kern = next((k for k in KERNELS if k in sym), None)
+            name = None if kern is None else f"{kern} {'G2' if 'G2' in sym else 'G1'}"
+            continue
+        m = _SPILL.search(line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = _USED.search(line)
+        if m and name:
+            out[name] = (int(m.group(1)),) + spill
+            name = None
+    return out
+
+
+def measure_variant(dev) -> tuple:
+    """(times in ms, outputs) of the loaded library's K1 and K6 at the
+    shapes in the module docstring."""
+    import numpy as np
+    import torch
+    from groth16_tpu_torch.ops import curve as C, kernels as KN, kernels_tree as KT
+    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
+    from groth16_tpu_torch.tools.measure import time_ms
+    rng = np.random.default_rng(11)
+
+    def scalars(n):
+        limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
+        limbs[:, 15] &= 0x2FFF
+        return torch.from_numpy(limbs).to(dev)
+
+    ms, outs = {}, []
+
+    def run(name, fn, reps):
+        outs.append(fn())
+        ms[name] = time_ms(fn, dev, reps)
+
+    for cv in (C.G1, C.G2):
+        P, Q = (fixed_base_mul(cv, scalars(1 << 16)) for _ in range(2))
+        S = tuple(c[:20].contiguous() for c in P)
+        run(f"{cv.name} add 2^16", lambda: KN.point_add(cv, P, Q), 20)
+        run(f"{cv.name} double 2^16", lambda: KN.point_double_n(cv, P, 1), 20)
+        run(f"{cv.name} double_n k=12 n=20", lambda: KN.point_double_n(cv, S, 12), 20)
+        run(f"{cv.name} horner W=20 c=13", lambda: KN.horner(cv, S, 13), 5)
+    for M in (2048, 1 << 17):
+        tots = scalars(M).T.contiguous()
+        run(f"G1 invert M={M}", lambda: (KT.invert_kernel(C.G1, tots),), 10)
+    return ms, outs
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_point_variants: needs a CUDA device", file=sys.stderr)
+        return 2
+    from groth16_tpu_torch.ops import cuda, field as F
+    from groth16_tpu_torch.tools import measure
+    dev = torch.device("cuda", 0)
+    print(measure.card_line(dev))
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        builds = dict(zip(VARIANTS, pool.map(
+            lambda flags: cuda.compile_library(SOURCES, flags + ("-Xptxas", "-v")),
+            VARIANTS.values())))
+    res, ref = {}, None
+    for name, (path, log, seconds) in builds.items():
+        cuda.use_library(path)
+        regs = ptxas_table(log)
+        ms, outs = measure_variant(dev)
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = outs
+        elif not all(torch.equal(F.as_i32(a), F.as_i32(b))
+                     for x, y in zip(outs, ref) for a, b in zip(x, y)):
+            raise AssertionError(f"build {name!r} gives other results than the default build")
+        res[name] = {"build_s": seconds, "registers_spill": regs, "ms": ms}
+        print(f"{name} (built in {seconds:.1f} s)")
+        for k, v in regs.items():
+            print(f"  ptxas {k:32s} {v[0]:4d} registers, spill {v[1]} / {v[2]} bytes")
+        for k, v in ms.items():
+            print(f"  {k:32s} {v:10.4f} ms")
+    print(json.dumps({"tool": "bench_point_variants", "card": measure.card_line(dev),
+                      "variants": res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

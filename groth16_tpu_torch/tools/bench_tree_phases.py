@@ -14,9 +14,12 @@ phase is timed with CUDA events, mean of 3 after a warm-up:
   row gather + transpose, one group;
   glue core: the level loop with an xor in place of the mid, no emissions;
   tree glue: group_buckets_tree with a no-op level (all the glue, no kernel);
-  one `kernels_tree.mid` at the level-1 shape (K4, K5/K6, K7), its output
+  one `kernels_tree.mid` at the level-1 shape (K4, K6, K7), its output
   then held against the plain K7 on the same planes and lane inverses;
-  one group through the real levels (K4, K5/K6, K8);
+  the level-1 totals' batch inversion two ways: one wide K6 launch, and
+  halvings + narrow inversion (`invert_by_halvings`: K5 products down to
+  2,048 lanes, K6 on those, K5 back up); the outputs must be equal;
+  one group through the real levels (K4, K6, K8);
   window_sums_tree over all windows;
   Horner;
   msm(path="tree");
@@ -39,8 +42,8 @@ import sys
 def make_points(n: int, device, seed: int = 7):
     """n G1 points k_i G, k_i random 31-bit from a numpy seed, in wire form
     (projective with Z = Montgomery 1).  The ladder runs on K1; the affine
-    conversion inverts every Z with the tree's batch inversion (K5, K6),
-    so n must be a multiple of 128 (no Z is 0)."""
+    conversion inverts every Z with the tree's batch inversion (K6) and
+    multiplies with K5 (no Z is 0)."""
     import numpy as np
     import torch
     from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
@@ -51,9 +54,34 @@ def make_points(n: int, device, seed: int = 7):
     scal[:, 0], scal[:, 1] = ks & 0xFFFF, ks >> 16
     gen = C.points_from_host(C.G1, [G1_GEN], device)
     X, Y, Z = C.scalar_mul(C.G1, torch.from_numpy(scal).to(device), gen, 32)
-    zinv = KT.invert_rows(C.G1, Z.T.contiguous())
+    zinv = KT.invert(C.G1, Z.T.contiguous())
     x, y = (KT.mul_rows(C.G1, c.T.contiguous(), zinv).T.contiguous() for c in (X, Y))
     return C.from_affine(C.G1, x, y)
+
+
+NARROW = 2048   # lanes of the narrow inversion of `invert_by_halvings`
+
+
+def invert_by_halvings(cv, tots):
+    """Inverses of uint32[R, M] lane totals by a product tree of K5 launches:
+    halve the row by pairwise products down to NARROW lanes, invert those
+    (K6), and multiply back up (two K5 launches a halving).  The route a tree
+    level took while K6 was one block of at most NARROW lanes; kept here to
+    be timed against the one wide K6 launch."""
+    import torch
+    from groth16_tpu_torch.ops import field as F, kernels_tree as KT
+    stack = []
+    x = tots
+    while x.shape[-1] > NARROW and x.shape[-1] % 2 == 0:
+        w = x.shape[-1] // 2
+        stack.append(x)
+        x = KT.mul_rows(cv, x[:, :w], x[:, w:])
+    inv = KT.invert(cv, x)
+    for lv in reversed(stack):
+        w = lv.shape[-1] // 2
+        inv = F.as_u32(torch.cat([F.as_i32(KT.mul_rows(cv, inv, lv[:, w:])),
+                                  F.as_i32(KT.mul_rows(cv, inv, lv[:, :w]))], -1))
+    return inv
 
 
 def noop_level(cv, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em):
@@ -150,10 +178,18 @@ def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
     a_cols, b_cols = cols[:, :half], cols[:, half:]
     mid = phase(f"kernels_tree.mid, level 1 (K={half})", lambda: KT.mid(cv, a_cols, b_cols))
     # K7's output against its plain version on the same planes and lane inverses
-    want = KT.phase_b_plain(cv, *KT.mid_planes(cv, a_cols, b_cols)).reshape(mid.shape[0], -1)
+    apr, bpl, tinv = KT.mid_planes(cv, a_cols, b_cols)
+    want = KT.phase_b_plain(cv, apr, bpl, tinv).reshape(mid.shape[0], -1)
     mid_err = int((F.i64(mid) - F.i64(want[:, :half])).abs().max())
     if mid_err:
         raise AssertionError(f"level-1 mid differs from the plain K7 (max abs err {mid_err})")
+    tots = KT.phase_a(cv, apr, bpl)
+    wide = phase(f"batch inversion, one K6 launch (M={tots.shape[1]})",
+                 lambda: KT.invert(cv, tots))
+    narrow = phase(f"halvings + narrow inversion (M={tots.shape[1]})",
+                   lambda: invert_by_halvings(cv, tots))
+    if not torch.equal(F.as_i32(wide), F.as_i32(narrow)):
+        raise AssertionError("halvings + narrow inversion differs from the one wide K6 launch")
     phase(f"one group ({G} windows), real levels", lambda: MT.group_buckets_tree(cv, sk, cols, nb))
     sums = phase("window_sums_tree (all windows)",
                  lambda: MT.window_sums_tree(cv, sc, P, c, group))

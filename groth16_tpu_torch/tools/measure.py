@@ -38,10 +38,45 @@ SMS = 132
 MUL_PER_SM_PER_CLOCK = 64
 FP_MUL_MULTIPLIES = 2 * 8 * 8 + 8     # widening a_j * b_i and m * p_j, low m = t_0 * n'
 
-# Fp products of one Fermat inverse in csrc/bn254_curve.cuh::field_inv: 256
-# squarings and one product per set bit of p - 2
 _P_FP = 21888242871839275222246405745257275088696311157297823662689037894645226208583
-FP_INV_PRODUCTS = 256 + bin(_P_FP - 2).count("1")
+INV_BLOCK = 128 * 4    # totals a K6 block inverts (bn254_curve.cuh INV_THREADS * INV_CHUNK)
+
+
+def euclid_ops(a: int) -> int:
+    """32-bit integer operations that the binary Euclid of
+    csrc/bn254_curve.cuh::field_inv needs at least for the residue a: its
+    steps replayed on host ints, 16 operations a halving (the eight words of
+    u and of x1 shifted) and 16 more a subtraction (u - v, x1 - x2).  The
+    compares, the conditional + p and the swaps are left out, which keeps the
+    count a least one; additions and shifts run at the multiplies' rate
+    (64 a clock per SM, the same table)."""
+    u, v, ops = a % _P_FP, _P_FP, 0
+    while u:
+        if u & 1:
+            if u < v:
+                u, v = v, u
+            u -= v
+            ops += 16
+        u >>= 1
+        ops += 16
+    return ops
+
+
+def invert_block_roots(tots) -> list:
+    """The values K6's blocks invert for G1 totals uint32[16, M] (a numpy
+    array, Montgomery limbs): per block of INV_BLOCK totals the Montgomery
+    residue of their product, zeros counted as one."""
+    from groth16_tpu_torch.ops.limbs import limbs_to_ints
+    vals = limbs_to_ints(tots.T)
+    r = (1 << 256) % _P_FP
+    rinv = pow(r, -1, _P_FP)
+    roots = []
+    for s in range(0, len(vals), INV_BLOCK):
+        acc = r
+        for a in vals[s:s + INV_BLOCK]:
+            acc = acc * (a or r) * rinv % _P_FP
+        roots.append(acc)
+    return roots
 
 
 def time_ms(fn, device, reps: int = 3, warmup: bool = True) -> float:
@@ -167,16 +202,21 @@ def _geom(curve: str):
 
 def work(name: str, curve: str = "G1", **shape) -> tuple:
     """(bytes, Fp products) of one launch of wrapper `name` at `shape`:
-    point_add / point_double (n), fold_level_kernel (affine, T, lanes),
-    ntt_inner_kernel (T, NB, twiddle), phase_a_kernel / phase_b_kernel (M),
-    phase_b_level_kernel (M, emit), mul_rows_kernel (W), invert_kernel (M),
+    point_add (n), point_double_n (n, k), horner (B, W, c), fold_level_kernel
+    (affine, T, lanes), ntt_inner_kernel (T, NB, twiddle), phase_a_kernel /
+    phase_b_kernel (M), phase_b_level_kernel (M, emit), mul_rows_kernel (W),
+    invert_kernel (M, inv_ops: the sum of `euclid_ops` over the run's block
+    roots, counted as inv_ops / FP_MUL_MULTIPLIES products),
     fp_mul_chain_kernel (k, n)."""
     nc, f = _geom(curve)
     s = shape
     if name == "point_add":                       # 6 coordinates in, 3 out
         return 4 * 9 * nc * s["n"], 14 * f * s["n"]
-    if name == "point_double":
-        return 4 * 6 * nc * s["n"], 9 * f * s["n"]
+    if name == "point_double_n":                  # k x 9 products a point
+        return 4 * 6 * nc * s["n"], s["k"] * 9 * f * s["n"]
+    if name == "horner":                          # W sums in, one point out
+        B, W, c = s["B"], s["W"], s["c"]
+        return 4 * 3 * nc * (W + 1) * B, (W - 1) * (9 * c + 14) * f * B
     if name == "fold_level_kernel":               # every slot runs the add
         T, lanes = s["T"], s["lanes"]
         rin = (2 if s["affine"] else 3) * nc
@@ -191,10 +231,14 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
         return 4 * (2 * 2 * nc * 16 * M + nc * M), 16 * f * M
     if name == "mul_rows_kernel":
         return 4 * 3 * nc * s["W"], f * s["W"]
-    if name == "invert_kernel":                   # chain, one inverse, walk back
+    if name == "invert_kernel":
+        # per total one product down and two back; per block the tree of its
+        # 128 thread products (127 up, 254 down), the product by R^3 (and the
+        # norm's 4 in Fp2) and the Euclid steps of its root
         M = s["M"]
-        inv = FP_INV_PRODUCTS + (4 if curve == "G2" else 0)
-        return 4 * 2 * nc * M, 128 * (3 * (M // 128) * f + inv)
+        blocks = -(-M // INV_BLOCK)
+        per_block = 3 * 127 * f + 1 + (4 if curve == "G2" else 0)
+        return 4 * 2 * nc * M, 3 * f * M + blocks * per_block + s["inv_ops"] / FP_MUL_MULTIPLIES
     if name == "phase_b_kernel":                  # 16 + 16 x 6 products a lane
         M = s["M"]
         return 4 * (3 * 2 * nc * 16 * M + nc * M), 112 * f * M

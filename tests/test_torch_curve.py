@@ -35,7 +35,7 @@ def _proj(cv, n, seed):
     """Projective batch with Z != 1 (sums of host points)."""
     a, fo = _host_points(cv, n, seed)
     b, _ = _host_points(cv, n, seed + 100)
-    A, B = C.points_from_host(cv, a), C.points_from_host(cv, b)
+    A, B = C.points_from_host(cv, a, "cpu"), C.points_from_host(cv, b, "cpu")
     return C.point_add(cv, A, B), [H.ec_add(fo, x, y) for x, y in zip(a, b)], fo
 
 
@@ -72,7 +72,7 @@ def test_g2_add_double_match_host():
 @pytest.mark.parametrize("cv,jcv", [(C.G1, JC.G1), (C.G2, JC.G2)], ids=["G1", "G2"])
 def test_affine_conversions_match_jax(cv, jcv):
     pts, _ = _host_points(cv, 6, 5)
-    P = C.points_from_host(cv, pts)
+    P = C.points_from_host(cv, pts, "cpu")
     JP = JC.points_from_host(jcv, pts)
     assert all(np.array_equal(a.numpy(), np.asarray(b)) for a, b in zip(P, JP))
     D = C.point_double(cv, P)
@@ -86,7 +86,7 @@ def test_affine_conversions_match_jax(cv, jcv):
 def test_scalar_mul_and_tree_sum_match_host(cv):
     pts, fo = _host_points(cv, 5, 6)
     ks = [0, 1, R - 1, 2**200 + 12345, 77]
-    S = C.scalar_mul(cv, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(cv, pts))
+    S = C.scalar_mul(cv, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(cv, pts, "cpu"))
     want = [H.ec_scalar_mul(fo, k, p) for k, p in zip(ks, pts)]
     assert C.points_to_host(cv, S) == want
     total = None

@@ -1,4 +1,5 @@
-"""Kernels K1-K9 on the card against their plain PyTorch versions, the
+"""Kernels K1-K9 on the card against their plain PyTorch versions (K1's
+chains and the wide K6 included), `to_affine` on the card against the CPU, the
 merge-tree MSM, the chunked MSM and one small proof on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
 machine (no JAX needed):
 
@@ -36,9 +37,13 @@ def _same(a, b):
 
 
 def test_wrappers_refuse_cpu_tensors():
-    P = C.inf_like(C.G1, (4,))
+    P = C.inf_like(C.G1, (4,), "cpu")
     with pytest.raises(ValueError):
         KN.point_add(C.G1, P, P)
+    with pytest.raises(ValueError):
+        KN.point_double_n(C.G1, P, 3)
+    with pytest.raises(ValueError):
+        KN.horner(C.G1, P, 3)
     with pytest.raises(ValueError):
         NT.ntt_inner_kernel(torch.zeros((16, 1, 4), dtype=torch.uint32), None,
                             NT.stage_roots(4, 1, "cpu"), False)
@@ -64,8 +69,62 @@ def test_point_kernel_matches_plain(dev, cv):
     P = C.point_select(cv, torch.arange(1000, device=dev) % 9 == 0, inf, P)
     Q = C.point_select(cv, torch.arange(1000, device=dev) % 7 == 0, P, Q)
     assert _same(KN.point_add(cv, P, Q), C.point_add_plain(cv, P, Q))
-    assert _same(KN.point_double(cv, P), C.point_double_plain(cv, P))
+    assert _same(KN.point_double_n(cv, P, 1), C.point_double_plain(cv, P))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_point_chain_kernels_match_plain(dev, cv):
+    """K1's doubling chain and Horner (one window axis and a batch of
+    Horners) with infinities and two equal windows, bit for bit."""
+    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
+    rng = np.random.default_rng(3)
+    n = 600
+    P = fixed_base_mul(cv, _scalars(rng, n, dev))
+    P = C.point_select(cv, torch.arange(n, device=dev) % 9 == 0, C.inf_like(cv, (n,), dev), P)
+    for k in (0, 1, 5):
+        assert _same(KN.point_double_n(cv, P, k), C.point_double_n_plain(cv, P, k))
+    B, W, c = 3, 6, 5
+    S = [x[:B * W].reshape((B, W) + cv.comp_shape).clone() for x in P]
+    for x in S:
+        F.as_i32(x)[:, 3] = F.as_i32(x)[:, 2]
+    S = tuple(S)
+    assert _same(KN.horner(cv, S, c), C.horner_plain(cv, S, c))
+    one = tuple(x[1] for x in S)
+    assert _same(KN.horner(cv, one, c), C.horner_plain(cv, one, c))
+    assert KN.horner(cv, one, c)[0].shape == cv.comp_shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cv,m", [(C.G1, 1), (C.G1, 127), (C.G1, 1300), (C.G2, 1), (C.G2, 300)],
+                         ids=["G1-1", "G1-127", "G1-1300", "G2-1", "G2-300"])
+def test_invert_kernel_any_width(dev, cv, m):
+    """The wide K6 at ragged M, zeros among the totals where M allows."""
+    rng = np.random.default_rng(m)
+    tots = _scalars(rng, m * KT.ncomp(cv) // 16, dev).reshape(m, -1).T.contiguous()
+    if m > 100:
+        F.as_i32(tots)[:, [7, m - 1]] = 0
+    assert torch.equal(F.as_i32(KT.invert_kernel(cv, tots)), F.as_i32(KT.invert_plain(cv, tots)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_to_affine_card_matches_cpu(dev, cv):
+    """`to_affine` on the card (its inversion is K6) against `to_affine` of
+    the same points on the CPU, an infinity among them."""
+    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
+    n = 50
+    P = fixed_base_mul(cv, _scalars(np.random.default_rng(4), n, dev))
+    P = C.point_select(cv, torch.arange(n, device=dev) == 7, C.inf_like(cv, (n,), dev), P)
+    before = KT.invert_kernel.launches
+    got = C.to_affine(cv, P)
+    assert KT.invert_kernel.launches == before + 1
+    want = C.to_affine(cv, tuple(c.cpu() for c in P))
+    assert _same(tuple(g.cpu() for g in got), want)
+    assert not F.as_i32(got[0][7]).any() and not F.as_i32(got[1][7]).any()
 
 
 @pytest.mark.gpu

@@ -77,7 +77,7 @@ def _points(cv, n, seed):
     g = H.G1_GEN if cv.name == "G1" else H.G2_GEN
     rng = np.random.default_rng(seed)
     ks = [int(k) for k in rng.integers(1, 1 << 62, size=2 * n)]
-    pts = C.points_from_host(cv, [H.ec_scalar_mul(fo, k, g) for k in ks])
+    pts = C.points_from_host(cv, [H.ec_scalar_mul(fo, k, g) for k in ks], "cpu")
     P = C.point_add_plain(cv, tuple(c[:n] for c in pts), tuple(c[n:] for c in pts))
     return P, fo
 
@@ -87,7 +87,7 @@ def test_point_header_matches_plain_and_host(shim, cv):
     n = 12
     P, fo = _points(cv, n, 5)
     Q, _ = _points(cv, n, 6)
-    inf = C.inf_like(cv, (1,))
+    inf = C.inf_like(cv, (1,), "cpu")
     P = tuple(torch.cat([i, c[1:]]) for i, c in zip(inf, P))               # P = inf
     Q = tuple(torch.cat([q[:1], i, q[2:]]) for i, q in zip(inf, Q))         # Q = inf
     Q = tuple(torch.cat([q[:2], p[2:3], q[3:]]) for p, q in zip(P, Q))      # P = Q

@@ -47,9 +47,9 @@ def _check(cv, n, case, affine=True, seed=0):
     pts[n // 3] = None                                  # an infinity in the stream
     logs = [0 if p is None else i + 1 for i, p in enumerate(pts)]
     ks = _scalars(case, n, rng)
-    P = C.points_from_host(cv, pts)
+    P = C.points_from_host(cv, pts, "cpu")
     if not affine:                                      # Z != 1 points
-        P = C.point_add(cv, P, C.inf_like(cv, (n,)))
+        P = C.point_add(cv, P, C.inf_like(cv, (n,), "cpu"))
     got = M.msm(cv, torch.from_numpy(ints_to_limbs(ks)), P, affine=affine)
     want = H.ec_scalar_mul(fo, sum(k * a for k, a in zip(ks, logs)) % R, g)
     assert C.points_to_host(cv, tuple(c[None] for c in got)) == [want]
@@ -78,7 +78,7 @@ def _host_case(cv, n, seed):
     pts[n // 3] = None
     logs = [0 if p is None else i + 1 for i, p in enumerate(pts)]
     ks = _scalars("random", n, np.random.default_rng(seed))
-    P = tuple(c.numpy() for c in C.points_from_host(cv, pts))
+    P = tuple(c.numpy() for c in C.points_from_host(cv, pts, "cpu"))
     want = H.ec_scalar_mul(fo, sum(k * a for k, a in zip(ks, logs)) % R, g)
     return ints_to_limbs(ks), P, want
 
@@ -147,7 +147,7 @@ def test_fold_msm_matches_jax_msm(cv_name):
     rng = np.random.default_rng(5)
     pts, _, _ = _multiples(cv, n)
     ks = ints_to_limbs(_scalars("random", n, rng))
-    got = M.msm(cv, torch.from_numpy(ks), C.points_from_host(cv, pts), affine=True)
+    got = M.msm(cv, torch.from_numpy(ks), C.points_from_host(cv, pts, "cpu"), affine=True)
     want = JM.msm(jcv, jnp.asarray(ks), JC.points_from_host(jcv, pts), 0, True)
     x, y = C.to_affine(cv, got)
     jx, jy = JC.to_affine(jcv, want)

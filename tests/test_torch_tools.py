@@ -23,7 +23,7 @@ def test_tree_phases_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(MT, "WINDOW_GROUP", 64)
     res = BT.run(8, 64, "cpu", reps=1)
     assert res["same_point"] and res["card"] == "cpu" and res["peak_gib_msm_tree"] is None
-    assert len(res["phases_ms"]) == 12
+    assert len(res["phases_ms"]) == 14
 
 
 def test_mul_kernels_run_on_the_cpu():
@@ -78,7 +78,16 @@ def test_kernel_work_and_bounds():
     assert measure.work("phase_b_kernel", "G2", M=M)[1] == 3 * 112 * M
     assert measure.work("phase_b_level_kernel", "G1", M=M, emit=False)[1] == 112 * M
     assert measure.work("fp_mul_chain_kernel", k=256, n=10) == (4 * 48 * 10, 2560)
-    assert measure.work("invert_kernel", "G1", M=2048)[1] == 128 * (48 + measure.FP_INV_PRODUCTS)
+    # K6: 3 products a total, per block the tree (3 x 127), the R^3 product and
+    # the Euclid steps of its root (16 operations a halving or subtraction)
+    assert measure.euclid_ops(0) == 0
+    assert all(0 < measure.euclid_ops(a) <= 16 * 3 * 256 and measure.euclid_ops(a) % 16 == 0
+               for a in (1, 6, measure._P_FP - 1))
+    assert measure.work("invert_kernel", "G1", M=2048, inv_ops=4 * 136 * 50)[1] == (
+        3 * 2048 + 4 * (3 * 127 + 1) + 4 * 50)
+    assert measure.work("invert_kernel", "G1", M=1, inv_ops=0)[1] == 3 + 3 * 127 + 1
+    assert measure.work("point_double_n", "G1", n=20, k=12)[1] == 12 * 9 * 20
+    assert measure.work("horner", "G2", B=1, W=20, c=13) == (4 * 3 * 32 * 21, 19 * (9 * 13 + 14) * 3)
     assert measure.FP_MUL_MULTIPLIES == 136
     ms, side = measure.bound_ms(3_350_000_000, 1, 1980)
     assert side == "bytes" and abs(ms - 1.0) < 1e-9

@@ -50,7 +50,7 @@ def tree_msm(cv, s, P, c, group):
 
 
 def _tree_msm(cv, ks, pts, c, group):
-    got = tree_msm(cv, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(cv, pts), c, group)
+    got = tree_msm(cv, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(cv, pts, "cpu"), c, group)
     return C.points_to_host(cv, tuple(x[None] for x in got))[0]
 
 
@@ -175,7 +175,7 @@ def test_window_sums_tree_explicit_level_fn():
     """`level_fn=KT.level` given explicitly is the default; a level that
     merges nothing changes the sums."""
     ks, pts, _ = adversarial_case(C.G1, 13, seed=8)
-    s, P = torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(C.G1, pts)
+    s, P = torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(C.G1, pts, "cpu")
     want = MT.window_sums_tree(C.G1, s, P, 8, 32)
     got = MT.window_sums_tree(C.G1, s, P, 8, 32, level_fn=KT.level)
     assert all(torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
@@ -188,12 +188,15 @@ def test_window_sums_tree_explicit_level_fn():
 
 
 def test_invert_rows_product_tree():
-    """Totals wider than INV_MAXW go through one K5 halving each way."""
+    """The phase tool's route, halvings + narrow inversion: totals wider
+    than its narrow row go through one K5 halving each way and equal
+    `invert`, the tree level's one batch inversion."""
+    from groth16_tpu_torch.tools import bench_tree_phases as BT
     rng = np.random.default_rng(5)
-    M_ = 2 * KT.INV_MAXW
+    M_ = 2 * BT.NARROW
     tots = KT._limb_major(C.G1, torch.from_numpy(ints_to_limbs(
         [int(x) % F.FP.modulus or 1 for x in rng.integers(1, 1 << 62, size=M_)])).long())
-    inv = KT.invert_rows(C.G1, tots)
+    inv = BT.invert_by_halvings(C.G1, tots)
     assert torch.equal(F.as_i32(inv), F.as_i32(KT.invert_plain(C.G1, tots)))
     one = KT._limb_major(C.G1, F.const(C.G1.one_limbs, "cpu").expand(M_, 16))
     assert torch.equal(F.as_i32(KT.mul_rows_plain(C.G1, inv, tots)), F.as_i32(one))
@@ -260,7 +263,7 @@ def test_tree_msm_matches_jax_msm_tree():
     import jax.numpy as jnp
     from groth16_tpu.ops import curve as JC, msm_tree as JMT
     ks, pts, _ = adversarial_case(C.G1, 13, seed=21)
-    got = tree_msm(C.G1, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(C.G1, pts), 8, 8)
+    got = tree_msm(C.G1, torch.from_numpy(ints_to_limbs(ks)), C.points_from_host(C.G1, pts, "cpu"), 8, 8)
     want = JMT.msm_tree(JC.G1, jnp.asarray(ints_to_limbs(ks)), JC.points_from_host(JC.G1, pts),
                         8, group=8)
     x, y = C.to_affine(C.G1, got)
