@@ -9,16 +9,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the kernels from csrc/ with nvcc (sm_90a) and print the build time;
   3. hold every kernel against its plain PyTorch version on the card at the
      main path's shapes, bit-exact (tolerance 0: exact integer arithmetic),
-     and time both with CUDA events: K1's add, doubling chain and Horner, K2,
-     K3, K4, K5, the batch inversion K6 at widths from 1 to 2^17 (a zero
-     among the totals), K8, and `to_affine` on the card against the CPU;
+     and time both with CUDA events: K1's add, doubling chain and Horner, K2
+     at every fold level of the main path's MSMs (G1 and G2, level 0 affine
+     through the sort order, the projective levels of `fold_schedule`), K3,
+     K4, K5, the batch inversion K6 at widths from 1 to 2^17 (a zero among
+     the totals), the fused tree level K8 at the H1 MSM's levels 1 and 2, a
+     narrow level, the 2^20 tree's level 1 and a G2 level, and `to_affine`
+     on the card against the CPU;
   4. the main path: synthetic_circuit(16) (65,533 constraints, domain 2^16),
      the port's fake setup on the card, write_zkey / write_witness to a temp
      directory, parse_zkey / parse_witness, generate_proof_with_mask with a
      fixed mask, in both flavours; each proof must pass verify_proof,
      every kernel of the proof path must have launched during the proofs,
-     and a proof may launch Horner 5 times, at most 10 doubling chains,
-     fewer than 400 K1 kernels in all and no K5;
+     and a proof must launch Horner 5 times, at most 10 doubling chains,
+     fewer than 400 K1 kernels in all, no K5 and no K4, the fused tree level
+     80 times, K6 5 times (`to_affine`) and K2 once a fold level of its
+     four fold MSMs;
   5. the H1 MSM (2^16 points) through the merge tree and through the fold,
      timed against each other; both must give the same point;
   6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
@@ -27,11 +33,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      version and host ints, timed, with the opcode mix of one product read
      from K9's SASS;
   8. the tree-phase path: tools/bench_tree_phases.run at 2^20 G1 points, the
-     merge tree's phases timed; its level-1 mid must equal the plain K7 on
-     the same inputs, the halvings (K5) + narrow inversion must equal the one
-     wide K6 launch on the level-1 totals, and the tree, the fold and
-     msm(path="auto") must give one point;
-  9. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
+     merge tree's phases timed (K4, K5, K7); its level-1 mid must equal the
+     plain K7 on the same inputs, the halvings (K5) + narrow inversion must
+     equal the one wide K6 launch on the level-1 totals, and the tree, the
+     fold and msm(path="auto") must give one point;
+  9. the fold-phase path: tools/bench_fold_phases at 2^20 G1 points (each K2
+     level, the bucket reduce, Horner, the fold MSM's peak memory; the
+     phases must give msm(path="fold")'s point);
+ 10. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
      equal to the unchunked MSM at 2^21.
 
 Each path (the two proofs, the tree-phase run, the Fp-product run) runs
@@ -55,16 +64,22 @@ MASK = (0x1234567890ABCDEF1234567890ABCDEF, 0xFEDCBA0987654321FEDCBA0987654321)
 TOXIC = dict(alpha=0x1DEA, beta=0xBEEF, gamma=0x6A33A, delta=0xDE17A, tau=0x7A0)
 LOG2 = 16
 K1_POINTS = 1 << 16
-# K2 launches of the fold MSMs at 2^16 - 1 points (A1, B1, C1 in G1, B2 in
-# G2): c = 13, 20 windows; level 0 is affine over 20 x 2048 lanes, level 1
-# projective over 20 x 64 lanes.  (curve, affine, lanes, digit bound)
-K2_SHAPES = (("G1", True, 20 * 2048, 1 << 12), ("G1", False, 20 * 64, 1 << 12),
-             ("G2", True, 20 * 2048, 1 << 12), ("G2", False, 20 * 64, 1 << 12))
+# K2 runs the fold MSMs at 2^16 - 1 points (A1, B1, C1 in G1, B2 in G2) as
+# c = 13, 20 windows, streams of 2^16: level 0 affine at T = FOLD_T, then
+# the projective levels of msm.fold_schedule
+FOLD_LOG2 = 16
+FOLD_MSMS_PER_PROOF = 4
 NTT_SIZES = (10, 15, 16, 17)
-# Merge-tree launches of the H1 MSM (2^16 points, c = 13, groups of 4
-# windows, 2^18 elements a group): level 1 is 2^17 additions = 8192 lanes of
-# 16, whose totals K6 inverts in one launch.
+# K4 and K7 at the H1 MSM's level 1 (2^16 points, c = 13, groups of 4
+# windows, 2^18 elements a group): 2^17 additions = 8192 lanes of 16
 TREE_M = 8192
+# The fused tree level (K8): (curve, K additions, emission); the H1 MSM's
+# levels 1 and 2, a narrow level, the 2^20 tree's level 1 (c = 16, groups of
+# 4 windows: 2^21 additions) and a G2 level
+LEVEL_SHAPES = (("G1", 1 << 17, False), ("G1", 1 << 16, True), ("G1", 64, True),
+                ("G1", 1 << 21, False), ("G2", 4096, True))
+LEVELS_PER_PROOF = 80     # H1: 5 groups of 2^18 elements, 16 levels each
+TO_AFFINE_PER_PROOF = 5
 # K6 widths held against the plain version (curve, M, a zero among the
 # totals); timed at 2048 (the widest row of the one-block K6 it replaced) and
 # at the 2^20 tree's level 1
@@ -79,14 +94,16 @@ HORNER_SHAPES = ((20, 13), (16, 16))
 K1_MAX_PER_PROOF = 400
 # level 1 of the 2^20-point tree (c = 16, groups of 4 windows): 2^21 additions
 TREE_M_2E20 = 1 << 17
+LOG2_FOLD_PHASES = 20  # the fold-phase run
 LOG2_PHASES = 20      # the tree-phase run
 LOG2_CHUNKED = 21     # msm_chunked: two segments of 2^20
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card, CUDA events, after one warm-up."""
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean milliseconds of fn() on the card, CUDA events, after one warm-up
+    (unless `warmup` is False)."""
     from groth16_tpu_torch.tools.measure import time_ms
-    return time_ms(fn, "cuda", reps)
+    return time_ms(fn, "cuda", reps, warmup)
 
 
 def max_abs_err(a, b) -> int:
@@ -180,42 +197,39 @@ def check_point_kernel(rng, dev, results):
                    dict(curve=cv.name, B=1, W=W, c=c))
 
 
-def _stream(rng, T, lanes, kmax, dev):
-    """int32[T, lanes] keys sorted by |key| per lane, with runs and signs."""
-    import numpy as np
-    import torch
-    start = rng.integers(0, kmax - T, size=(1, lanes))
-    steps = rng.integers(0, 2, size=(T, lanes)).cumsum(0)
-    sign = np.where(rng.integers(0, 2, size=(T, lanes)) > 0, 1, -1)
-    return torch.from_numpy(((start + steps) * sign).astype(np.int32)).to(dev)
-
-
-def check_fold_kernel(rng, dev, results):
-    """K2 at every template and stream shape the fold MSMs of the main path
-    launch (K2_SHAPES)."""
-    import torch
-    from groth16_tpu_torch.ops import curve as C, field as F, kernels as KN
-    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
-    T = KN.FOLD_T
-    for name, affine, lanes, kmax in K2_SHAPES:
-        cv = C.G1 if name == "G1" else C.G2
-        kT = _stream(rng, T, lanes, kmax, dev)
-        pts = fixed_base_mul(cv, random_scalars(rng, 4096, dev))
-        coords = C.to_affine(cv, pts) if affine else pts
-        rows = torch.cat([F.as_i32(c).reshape(4096, -1) for c in coords], -1)
-        if affine:
-            rows[:64] = 0                                     # (0, 0) = infinity
-        idx = torch.from_numpy(rng.integers(0, 4096, size=(T, lanes))).to(dev)
-        pT = F.as_u32(rows[idx].permute(0, 2, 1).contiguous())   # [T, Rin, lanes]
-        err = max_abs_err(KN.fold_level_kernel(cv, kT, pT, affine),
-                          KN.fold_level_plain(cv, kT, pT, affine))
-        t_k = cuda_ms(lambda: KN.fold_level_kernel(cv, kT, pT, affine), 5)
-        t_p = cuda_ms(lambda: KN.fold_level_plain(cv, kT, pT, affine), 1)
-        kind = "affine" if affine else "projective"
-        print(f"K2 {cv.name} {kind} T={T} lanes={lanes}: {t_k:.3f} ms "
-              f"(plain {t_p:.1f} ms), max_abs_err {err}")
-        record(results, "fold_level_kernel", f"{cv.name} {kind} lanes={lanes}", err, t_k, t_p,
-               dict(curve=cv.name, affine=affine, T=T, lanes=lanes))
+def check_fold_kernel(dev, results):
+    """K2 at every level the fold MSMs of the main path launch, G1 and G2
+    (bench_fold_phases.fold_case: 2^16 points, c = 13, 20 windows; level 0
+    affine through the sort order, then the projective levels of
+    `fold_schedule`, each fed by the one before): the bucket table, the
+    trail and its keys bit-exact against the plain version on the same
+    inputs, the table starting from the level before's sums; both timed."""
+    from groth16_tpu_torch.ops import curve as C, kernels as KN, msm as M
+    from groth16_tpu_torch.tools import bench_fold_phases as BF, measure
+    for cv in (C.G1, C.G2):
+        pts, order, keys, table = BF.fold_case(cv, FOLD_LOG2, dev)
+        W, m = keys.shape
+        Ts = M.fold_schedule(m)
+        for i, T in enumerate(Ts):
+            args = (pts, order, keys)
+            kw = dict(T=T, affine=i == 0, last=i == len(Ts) - 1)
+            tab_k, tab_p, scratch = table.clone(), table.clone(), table.clone()
+            got = KN.fold_level_kernel(cv, *args, tab_k, **kw)
+            err = max_abs_err((tab_k,) + got,
+                              (tab_p,) + KN.fold_level_plain(cv, *args, tab_p, **kw))
+            t_k = cuda_ms(lambda: KN.fold_level_kernel(cv, *args, scratch, **kw), 5)
+            t_p = cuda_ms(lambda: KN.fold_level_plain(cv, *args, scratch, **kw), 1)
+            closes = measure.fold_closes(keys.cpu().numpy(), T)
+            kind = "affine" if kw["affine"] else "projective"
+            lanes = W * (m // T)
+            print(f"K2 {cv.name} level {i} {kind} T={T} lanes={lanes} closes={closes}: "
+                  f"{t_k:.4f} ms (plain {t_p:.1f} ms), max_abs_err {err}")
+            record(results, "fold_level_kernel", f"{cv.name} level {i} {kind} T={T} lanes={lanes}",
+                   err, t_k, t_p, dict(curve=cv.name, affine=kw["affine"], T=T, lanes=lanes,
+                                       closes=closes, order=order is not None, last=kw["last"]))
+            table, (pts, keys), order, m = tab_k, got, None, m // T
+        if not all(x is None for x in got):
+            raise AssertionError("the last fold level must leave no trail")
 
 
 def check_ntt_kernel(rng, dev, results):
@@ -246,33 +260,12 @@ def check_ntt_kernel(rng, dev, results):
 
 
 def tree_planes(rng, cv, M, dev):
-    """A level of 16 * M affine additions on the card: uint32[R2, 16, M]
-    planes A.pL, A.pR, B.pL, B.pR with doubling, cancellation and infinity
-    lanes, and int32[16, M] random flags."""
-    import numpy as np
-    import torch
-    from groth16_tpu_torch.ops import curve as C, field as F, kernels_tree as KT
-    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
-    T, nc, npts = KT.T_SLOTS, KT.ncomp(cv), 256
-    x, y = C.to_affine(cv, fixed_base_mul(cv, random_scalars(rng, npts, dev)))
-    xr = F.as_i32(x).reshape(npts, nc)
-    yr = F.as_i32(y).reshape(npts, nc)
-    nyr = F.as_i32(F.neg_mod(F.FP, y)).reshape(npts, nc)
-    zero = torch.zeros((1, 2 * nc), dtype=torch.int32, device=dev)
-    pool = torch.cat([torch.cat([xr, yr], 1), torch.cat([xr, nyr], 1), zero], 0)
-    inf = 2 * npts
-    K = T * M
-    case = np.arange(K) % 7
-    ia, ib = rng.integers(0, npts, size=K), rng.integers(0, npts, size=K)
-    ib = np.where(case == 1, ia, ib)                          # doubling
-    ib = np.where(case == 2, ia + npts, ib)                   # P + (-P)
-    ia = np.where((case == 3) | (case == 5), inf, ia)
-    ib = np.where((case == 4) | (case == 5), inf, ib)
-    idx = [rng.integers(0, inf + 1, size=K), ia, ib, rng.integers(0, inf + 1, size=K)]
-    planes = [F.as_u32(pool[torch.from_numpy(i).to(dev)].T.reshape(2 * nc, T, M).contiguous())
-              for i in idx]
-    flg = torch.from_numpy(rng.integers(0, 8, size=(T, M)).astype(np.int32)).to(dev)
-    return planes, flg
+    """The planes uint32[R2, 16, M] of A.pR and B.pL that K4 and K7 take,
+    from a level of 16 * M additions (bench_tree_phases.level_case)."""
+    from groth16_tpu_torch.ops import kernels_tree as KT
+    from groth16_tpu_torch.tools.bench_tree_phases import level_case, level_views
+    _, apr, bpl, _ = level_views(*level_case(rng, cv, KT.T_SLOTS * M, dev)[:2])
+    return tuple(c.reshape(c.shape[0], KT.T_SLOTS, M).contiguous() for c in (apr, bpl))
 
 
 def check_invert_kernel(rng, dev, results):
@@ -316,10 +309,15 @@ def check_to_affine(rng, dev):
 
 
 def check_tree_kernels(rng, dev, results):
-    """K4, K5, K6 and K8 (G1) at the level shapes of the H1 MSM."""
+    """K4 and K5 (G1) at the H1 MSM's level-1 shape, K6 at its widths, and
+    the fused level K8 at every shape of LEVEL_SHAPES against `level_plain`
+    (in column slices at 2^21), operands as the tree's strided views; the
+    bound of K8 counts the Euclid steps of this run's block roots."""
     from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
+    from groth16_tpu_torch.tools import measure
+    from groth16_tpu_torch.tools.bench_tree_phases import level_case, level_views
     cv = C.G1
-    (apl, apr, bpl, bpr), flg = tree_planes(rng, cv, TREE_M, dev)
+    apr, bpl = tree_planes(rng, cv, TREE_M, dev)
 
     tot = KT.phase_a_kernel(cv, apr, bpl)
     err = max_abs_err(tot, KT.phase_a_plain(cv, apr, bpl))
@@ -338,17 +336,20 @@ def check_tree_kernels(rng, dev, results):
         record(results, "mul_rows_kernel", f"G1 W={W}", err, t_k, t_p, dict(W=W))
 
     check_invert_kernel(rng, dev, results)
-    tinv = KT.invert_kernel(cv, tot)
-    for M, want_em in ((TREE_M, False), (TREE_M // 2, True)):
-        args = [p[:, :, :M].contiguous() for p in (apl, apr, bpl, bpr)]
-        args += [flg[:, :M].contiguous(), tinv[:, :M].contiguous(), want_em]
-        err = max_abs_err(KT.phase_b_level_kernel(cv, *args), KT.phase_b_level_plain(cv, *args))
-        t_k = cuda_ms(lambda: KT.phase_b_level_kernel(cv, *args), 10)
-        t_p = cuda_ms(lambda: KT.phase_b_level_plain(cv, *args), 1)
-        print(f"K8 G1 M={M} emit={want_em}: {t_k:.4f} ms (plain {t_p:.2f} ms), "
+    for name, K, want_em in LEVEL_SHAPES:
+        cv = C.G1 if name == "G1" else C.G2
+        PL, PR, flags = level_case(rng, cv, K, dev)
+        args = level_views(PL, PR) + tuple(flags) + (want_em,)
+        got = KT.level_kernel(cv, *args)
+        t_p = cuda_ms(lambda: KT.level_plain(cv, *args), 1, warmup=False)
+        err = max_abs_err(got, KT.level_plain(cv, *args))
+        t_k = cuda_ms(lambda: KT.level_kernel(cv, *args), 10)
+        ops = sum(measure.euclid_ops(r) for r in measure.level_block_roots(
+            name, args[1].cpu().numpy(), args[2].cpu().numpy()))
+        print(f"K8 {name} K={K} emit={want_em}: {t_k:.4f} ms (plain {t_p:.2f} ms), "
               f"max_abs_err {err}")
-        record(results, "phase_b_level_kernel", f"G1 M={M} emit={want_em}", err, t_k, t_p,
-               dict(M=M, emit=want_em))
+        record(results, "level_kernel", f"{name} K={K} emit={want_em}", err, t_k, t_p,
+               dict(curve=name, K=K, emit=want_em, inv_ops=ops))
 
 
 def check_tree_mid_kernel(rng, dev, results):
@@ -358,7 +359,7 @@ def check_tree_mid_kernel(rng, dev, results):
     kernels_tree.PLAIN_LANES."""
     from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
     for cv, M in ((C.G1, TREE_M), (C.G2, 256), (C.G1, TREE_M_2E20)):
-        (_, apr, bpl, _), _ = tree_planes(rng, cv, M, dev)
+        apr, bpl = tree_planes(rng, cv, M, dev)
         tinv = KT.invert_kernel(cv, KT.phase_a_kernel(cv, apr, bpl))
         err = max_abs_err(KT.phase_b_kernel(cv, apr, bpl, tinv),
                           KT.phase_b_plain(cv, apr, bpl, tinv))
@@ -373,10 +374,10 @@ def check_tree_mid_kernel(rng, dev, results):
 WRAPPERS = (("point_add", "kernels", "proof"), ("point_double_n", "kernels", "proof"),
             ("horner", "kernels", "proof"),
             ("fold_level_kernel", "kernels", "proof"), ("ntt_inner_kernel", "ntt", "proof"),
-            ("phase_a_kernel", "kernels_tree", "proof"),
+            ("phase_a_kernel", "kernels_tree", "tree phases"),
             ("mul_rows_kernel", "kernels_tree", "tree phases"),
             ("invert_kernel", "kernels_tree", "proof"),
-            ("phase_b_level_kernel", "kernels_tree", "proof"),
+            ("level_kernel", "kernels_tree", "proof"),
             ("phase_b_kernel", "kernels_tree", "tree phases"),
             ("fp_mul_chain_kernel", "kernels", "fp products"))
 
@@ -411,7 +412,10 @@ def main_path(dev):
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
 
+    from groth16_tpu_torch.ops import msm as M
     r1cs, wtns = synthetic_circuit(LOG2)
+    m = 1 << FOLD_LOG2
+    fold_launches = FOLD_MSMS_PER_PROOF * len(M.fold_schedule(m))
     inputs = []
     with tempfile.TemporaryDirectory() as tmp:
         for flavour in (G.Flavour.Snarkjs, G.Flavour.JensGroth):
@@ -445,6 +449,11 @@ def main_path(dev):
             raise AssertionError(f"{flavour.value}: a proof launches Horner 5 times, at most 10 "
                                  f"doubling chains, fewer than {K1_MAX_PER_PROOF} K1 kernels "
                                  f"(got {k1}) and no K5")
+        want = {"level_kernel": LEVELS_PER_PROOF, "phase_a_kernel": 0,
+                "invert_kernel": TO_AFFINE_PER_PROOF, "fold_level_kernel": fold_launches}
+        if any(during[k] != v for k, v in want.items()):
+            raise AssertionError(f"{flavour.value}: a proof launches {want}, got "
+                                 + json.dumps({k: during[k] for k in want}))
     counts = read_counts()
 
     for flavour, zkey, prf in proofs:
@@ -500,6 +509,13 @@ def tree_phase_path(dev, results):
     record(results, "phase_b_kernel", f"G1 M={res['mid_lanes']} in the 2^20 run",
            res["mid_max_abs_err"], None, None)
     return counts
+
+
+def fold_phase_path(dev):
+    """tools/bench_fold_phases.run: the 2^20 fold MSM phase by phase (its
+    result must equal msm(path="fold")'s)."""
+    from groth16_tpu_torch.tools import bench_fold_phases as BF
+    return BF.run(LOG2_FOLD_PHASES, dev)
 
 
 def chunked_msm(rng, dev):
@@ -566,7 +582,7 @@ def main() -> int:
         return out
 
     phase("K1 check", lambda: check_point_kernel(rng, dev, results))
-    phase("K2 check", lambda: check_fold_kernel(rng, dev, results))
+    phase("K2 check", lambda: check_fold_kernel(dev, results))
     phase("K3 check", lambda: check_ntt_kernel(rng, dev, results))
     phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
     phase("to_affine check", lambda: check_to_affine(rng, dev))
@@ -575,6 +591,7 @@ def main() -> int:
     phase("K7 check", lambda: check_tree_mid_kernel(rng, dev, results))
     counts["fp products"], k9 = phase("K9 Fp-product run", lambda: fp_product_path(dev, results))
     counts["tree phases"] = phase("2^20 tree-phase run", lambda: tree_phase_path(dev, results))
+    phase("2^20 fold-phase run", lambda: fold_phase_path(dev))
     phase("msm_chunked 2^21", lambda: chunked_msm(rng, dev))
 
     clock = k9["sm_clock_max_mhz"]
@@ -601,7 +618,7 @@ def main() -> int:
              "phase_a_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:120"),
              "mul_rows_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:166"),
              "invert_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:202"),
-             "phase_b_level_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:370"),
+             "level_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:370"),
              "phase_b_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:292"),
              "fp_mul_chain_kernel": ("mul_chain.cu", "tools/bench_mul_kernels.py:30")}
     paths = {name: path for name, _, path in WRAPPERS}

@@ -1,13 +1,14 @@
 // BN254 G1 / G2 complete projective formulas, the segmented-fold lane body
-// and the merge-tree lane bodies.
+// and the merge-tree thread bodies.
 //
 // The group law is Renes-Costello-Batina 2015 (a = 0), the same operation
 // sequence as groth16_tpu/ops/curve.py::rcb_add / rcb_add_mixed / rcb_double,
 // so projective outputs are bit-identical to the plain PyTorch versions
 // (groth16_tpu_torch/ops/curve.py).  The fold lane body is what
-// groth16_tpu/ops/kernels.py::_fold_call computes for one lane; the tree
-// lane bodies are the affine additions of groth16_tpu/ops/kernels_tree.py.
-// All are __host__ __device__ so the CPU tests run them through a g++ build.
+// groth16_tpu/ops/kernels.py::_fold_call computes for one lane, closed
+// segments added straight into their buckets; the tree bodies are the
+// affine additions of groth16_tpu/ops/kernels_tree.py.  All are
+// __host__ __device__ so the CPU tests run them through a g++ build.
 
 #pragma once
 
@@ -195,69 +196,104 @@ BN_HD Proj<typename C::F> horner_lane(const uint32_t* x, const uint32_t* y,
 
 // ------------------------------------------------------------ fold lane ---
 //
-// One lane of the segmented fold over a digit-sorted stream (the body of
-// groth16_tpu/ops/kernels.py::_fold_call).  Layouts, with `lanes` minor so
-// that neighbouring lanes read neighbouring words:
-//   kT    int32 [T, lanes]        signed digits; bucket identity is |digit|
-//   pT    uint32[T, Rin, lanes]   Rin = 2*NC (affine x|y) or 3*NC (x|y|z)
-//   emit  uint32[T, 3*NC, lanes]  emit[t] = running segment before element t
-//                                 (emit[0] = infinity)
-//   trail uint32[3*NC, lanes]     the running segment after the last element
-// A negative digit negates y.  In the affine variant (0, 0) is infinity and
-// the add is the mixed one.
+// One lane of the segmented fold over a digit-sorted stream (what
+// groth16_tpu/ops/kernels.py::_fold_call computes for one lane, with the
+// routing of closed segments done in the lane itself).  Point-major layouts,
+// every row 16-byte aligned (four 128-bit accesses a coordinate):
+//   rows   uint32[*, Rin]     the level's points: Rin = 2*NC (affine x|y,
+//                             (0, 0) = infinity) or 3*NC (x|y|z)
+//   order  int32 [W, m]       the row of sorted position j of window w; null
+//                             at later levels, where the row is w*m + j
+//   keys   int32 [W, m]       the sorted signed digits; bucket identity |key|,
+//                             a negative key negates y
+//   table  uint32[W, nb, R]   bucket sums, R = 3*NC, updated in place
+//   trail  uint32[W*lanes, R] the lane's open segment after its last element,
+//   tkey   int32 [W*lanes]    and its |key| (both unused at the last level)
+// Lane l of window w walks sorted positions l*T .. l*T+T-1.  When |key|
+// changes at slot t >= 1, the segment that ran up to t-1 has closed: it is
+// added into table[w, |key(t-1)|].  No other lane of the launch touches that
+// bucket: a key's run ends at one position of the stream.  At the last level
+// (one lane a window) the open segment is added into its bucket the same
+// way; otherwise it is the next level's row.  Every slot runs ONE complete
+// add: (running segment + point), or, where a segment closes, (bucket +
+// segment), so the warp never diverges over the formula.
 
 template <class C>
-BN_HD void store_proj(uint32_t* base, long stride, const Proj<typename C::F>& P) {
-  P.X.store(base, stride);
-  P.Y.store(base + C::NC * stride, stride);
-  P.Z.store(base + 2 * C::NC * stride, stride);
+BN_HD Proj<typename C::F> load_proj_row(const uint32_t* row) {
+  typedef typename C::F F;
+  return Proj<F>{F::load_vec(row), F::load_vec(row + C::NC), F::load_vec(row + 2 * C::NC)};
+}
+
+template <class C>
+BN_HD void store_proj_row(uint32_t* row, const Proj<typename C::F>& P) {
+  P.X.store_vec(row);
+  P.Y.store_vec(row + C::NC);
+  P.Z.store_vec(row + 2 * C::NC);
 }
 
 template <class C, bool AFFINE>
-BN_HD void fold_lane(const int32_t* kT, const uint32_t* pT, uint32_t* emit,
-                     uint32_t* trail, int T, long lanes, long lane) {
+BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* keys,
+                     uint32_t* table, uint32_t* trail, int32_t* tkey, int T, long m,
+                     int nb, bool last, long w, long l, long lane) {
   typedef typename C::F F;
   const int Rin = AFFINE ? 2 * C::NC : 3 * C::NC;
   const int R = 3 * C::NC;
+  const long base = w * m + l * T;
+  uint32_t* buckets = table + w * nb * R;
 
-  int32_t prev = 0;
+  int32_t ap = 0;
   Proj<F> run = infinity<C>();
+#pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    store_proj<C>(emit + (long)t * R * lanes + lane, lanes, run);
-    const int32_t k = kT[(long)t * lanes + lane];
-    const uint32_t* src = pT + (long)t * Rin * lanes + lane;
-    F x = F::load(src, lanes);
-    F y = F::load(src + C::NC * lanes, lanes);
+    const int32_t k = keys[base + t];
+    const long row = order ? (long)order[base + t] : base + t;
+    const uint32_t* src = rows + row * Rin;
+    const F x = F::load_vec(src);
+    F y = F::load_vec(src + C::NC);
     y = F::select(k < 0, y.neg(), y);
-    Proj<F> fresh, added;
+    Proj<F> fresh;
     if (AFFINE) {
-      bool inf = x.is_zero() && y.is_zero();
-      Aff<F> q{x, y};
-      added = select(inf, run, rcb_add_mixed<C>(run, q));
+      const bool inf = x.is_zero() && y.is_zero();
       fresh = select(inf, infinity<C>(), Proj<F>{x, y, C::one()});
     } else {
-      fresh = Proj<F>{x, y, F::load(src + 2 * C::NC * lanes, lanes)};
-      added = rcb_add<C>(run, fresh);
+      fresh = Proj<F>{x, y, F::load_vec(src + 2 * C::NC)};
     }
     const int32_t ak = k < 0 ? -k : k;
-    const int32_t ap = prev < 0 ? -prev : prev;
-    run = select(t == 0 || ak != ap, fresh, added);
-    prev = k;
+    if (t == 0) {
+      run = fresh;
+    } else {
+      const bool close = ak != ap;
+      Proj<F> a = run, b = fresh;
+      if (close) {
+        a = load_proj_row<C>(buckets + (long)ap * R);
+        b = run;
+      }
+      const Proj<F> s = rcb_add<C>(a, b);
+      if (close) store_proj_row<C>(buckets + (long)ap * R, s);
+      run = select(close, fresh, s);
+    }
+    ap = ak;
   }
-  store_proj<C>(trail + lane, lanes, run);
+  if (last) {
+    uint32_t* bucket = buckets + (long)ap * R;
+    store_proj_row<C>(bucket, rcb_add<C>(load_proj_row<C>(bucket), run));
+  } else {
+    store_proj_row<C>(trail + lane * R, run);
+    tkey[lane] = ap;
+  }
 }
 
 // ----------------------------------------------------------- merge tree ---
 //
-// Lane bodies of the batched-affine merge-tree kernels (the bodies of
+// Thread bodies of the batched-affine merge-tree kernels (the bodies of
 // groth16_tpu/ops/kernels_tree.py::_phase_a_call, ::_invert_call,
-// ::_phase_b_call and ::_phase_b_level_call).  One tree level is a batch of affine additions
-// mid = A.pR + B.pL whose slope denominators share one batch inversion.
-// Layouts, with the lane axis M minor:
+// ::_phase_b_call and ::_phase_b_level_call).  One tree level is a batch of
+// affine additions mid = A.pR + B.pL whose slope denominators share one
+// batch inversion.  Layouts of K4 and K7, with the lane axis M minor:
 //   points  uint32[2*NC, T, M]  limb-major fused x|y, (0, 0) = infinity;
 //                               element (t, m) is addition t*M + m of the level
-//   flags   int32 [T, M]        bit 0 keys match, 1 A pure, 2 B pure
 //   totals  uint32[NC, M]       per-lane denominator products (and inverses)
+// The fused level (K8) reads its operands as columns instead (`LevelIO`).
 
 constexpr int TREE_T = 16;       // sequential additions per lane
 constexpr int INV_THREADS = 128;  // threads of a batch-inversion block (a power of two)
@@ -462,19 +498,19 @@ BN_HD void inv_walk_back(const uint32_t* tot, uint32_t* inv, long M, long e,
   }
 }
 
-// dst <- cond ? mid : src, one fused x|y point at stride `stride`.
+// dst <- cond ? mid : src, one fused x|y point; limb strides dstride, sstride.
 template <class C>
-BN_HD void tree_store_sel(uint32_t* dst, long stride, bool cond,
-                          const Aff<typename C::F>& mid, const uint32_t* src) {
+BN_HD void tree_store_sel(uint32_t* dst, long dstride, bool cond,
+                          const Aff<typename C::F>& mid, const uint32_t* src, long sstride) {
   if (cond) {
-    mid.x.store(dst, stride);
-    mid.y.store(dst + C::NC * stride, stride);
+    mid.x.store(dst, dstride);
+    mid.y.store(dst + C::NC * dstride, dstride);
   } else {
-    for (int r = 0; r < 2 * C::NC; ++r) dst[r * stride] = src[r * stride];
+    for (int r = 0; r < 2 * C::NC; ++r) dst[r * dstride] = src[r * sstride];
   }
 }
 
-// The sweep K7 and K8 share, lane m: a forward pass keeps the exclusive
+// K7's sweep, lane m: a forward pass keeps the exclusive
 // prefix products of the denominators, a reverse pass expands the lane
 // inverse tinv[:, m] to per-slot inverses and finishes each addition, handing
 // slot o's mid to `out(o, plane, mid)`.
@@ -512,23 +548,6 @@ struct TreeMidOut {
   }
 };
 
-// K8 output: the node updates
-//   PL' = match & aP ? mid : A.pL,  PR' = match & bP ? mid : B.pR,
-//   EM0 = match ? mid : A.pR  (only when oem != nullptr).
-template <class C>
-struct TreeNodeOut {
-  const uint32_t *apl, *apr, *bpr;
-  const int32_t* flg;
-  uint32_t *opl, *opr, *oem;
-  BN_HD void operator()(long o, long plane, const Aff<typename C::F>& mid) const {
-    const int32_t fl = flg[o];
-    const bool match = fl & 1;
-    tree_store_sel<C>(opl + o, plane, match && (fl & 2), mid, apl + o);
-    tree_store_sel<C>(opr + o, plane, match && (fl & 4), mid, bpr + o);
-    if (oem) tree_store_sel<C>(oem + o, plane, match, mid, apr + o);
-  }
-};
-
 // K7 lane m: mid = A.pR + B.pL of its T slots -> mid[:, t, m].
 template <class C>
 BN_HD void tree_mid_lane(const uint32_t* apr, const uint32_t* bpl, const uint32_t* tinv,
@@ -536,15 +555,65 @@ BN_HD void tree_mid_lane(const uint32_t* apr, const uint32_t* bpl, const uint32_
   tree_mid_sweep<C>(apr, bpl, tinv, M, m, TreeMidOut<C>{mid});
 }
 
-// K8 lane m: the sweep with the node updates.
+// ------------------------------------------------- fused tree level (K8) ---
+//
+// One whole merge-tree level in one launch, in K6's block shape: block b
+// takes additions b * INV_THREADS * INV_CHUNK onwards, and thread t of it
+// the additions e + i * INV_THREADS (e = its first, i < INV_CHUNK), so that
+// neighbouring threads read neighbouring columns.  Per thread:
+// `level_chain` (load the slot, its masked denominator, the exclusive
+// prefix products of the thread's chain), the block's product tree and one
+// inversion (csrc/tree.cu, with K6's `inv_tree_up` / `field_inv` /
+// `inv_tree_down`), then `level_finish` (the chain walked back to each
+// addition's own inverse, `tree_mid` and the node-update selects).
+// Additions past K count as a denominator of one.
+
+// A level's operands as they lie in the tree's arrays: the point columns
+// uint32[2*NC, K] of A.pL, A.pR, B.pL, B.pR at limb stride ld (views of the
+// previous level's outputs), flags uint8[K] (bit 0 keys match, 1 A pure, 2
+// B pure), and the outputs PL', PR' and EM0 (null: no emission) as
+// contiguous [2*NC, K].
+struct LevelIO {
+  const uint32_t *apl, *apr, *bpl, *bpr;
+  const uint8_t* flg;
+  uint32_t *opl, *opr, *oem;
+  long K, ld;
+};
+
 template <class C>
-BN_HD void tree_phase_b_lane(const uint32_t* apl, const uint32_t* apr,
-                             const uint32_t* bpl, const uint32_t* bpr,
-                             const int32_t* flg, const uint32_t* tinv,
-                             uint32_t* opl, uint32_t* opr, uint32_t* oem,
-                             long M, long m) {
-  tree_mid_sweep<C>(apr, bpl, tinv, M, m,
-                    TreeNodeOut<C>{apl, apr, bpr, flg, opl, opr, oem});
+BN_HD typename C::F level_chain(const LevelIO& io, long e, typename C::F pre[INV_CHUNK]) {
+  typedef typename C::F F;
+  F run = C::one();
+#pragma unroll
+  for (int i = 0; i < INV_CHUNK; ++i) {
+    const long idx = e + (long)i * INV_THREADS;
+    pre[i] = run;
+    if (idx < io.K) run = run * tree_den<C>(tree_slot<C>(io.apr + idx, io.bpl + idx, io.ld));
+  }
+  return run;
+}
+
+// rinv = 1 / (the chain's product): each addition's inverse, its mid and
+//   PL' = match & aP ? mid : A.pL,  PR' = match & bP ? mid : B.pR,
+//   EM0 = match ? mid : A.pR  (when io.oem is not null).
+template <class C>
+BN_HD void level_finish(const LevelIO& io, long e, const typename C::F pre[INV_CHUNK],
+                        typename C::F rinv) {
+  typedef typename C::F F;
+#pragma unroll
+  for (int i = INV_CHUNK - 1; i >= 0; --i) {
+    const long idx = e + (long)i * INV_THREADS;
+    if (idx >= io.K) continue;
+    const TreeSlot<F> s = tree_slot<C>(io.apr + idx, io.bpl + idx, io.ld);
+    const F inv = rinv * pre[i];
+    rinv = rinv * tree_den<C>(s);
+    const Aff<F> mid = tree_mid<C>(s, inv);
+    const int fl = io.flg[idx];
+    const bool match = fl & 1;
+    tree_store_sel<C>(io.opl + idx, io.K, match && (fl & 2), mid, io.apl + idx, io.ld);
+    tree_store_sel<C>(io.opr + idx, io.K, match && (fl & 4), mid, io.bpr + idx, io.ld);
+    if (io.oem) tree_store_sel<C>(io.oem + idx, io.K, match, mid, io.apr + idx, io.ld);
+  }
 }
 
 }  // namespace bn254

@@ -28,8 +28,8 @@
 
 // The Fp product is inlined unless a translation unit defines
 // BN254_NOINLINE_MUL before this header: then it is one function that every
-// caller branches to (csrc/point.cu does; tools/bench_point_variants.py
-// times both builds of K1 and K6).
+// caller branches to (csrc/point.cu, fold.cu and tree.cu do;
+// tools/bench_point_variants.py times both builds of their kernels).
 #if defined(__CUDACC__) && defined(BN254_NOINLINE_MUL)
 #define BN_MUL __host__ __device__ __noinline__
 #else

@@ -61,26 +61,50 @@ static void horner_op(long B, int W, int c, const uint32_t* const* in, uint32_t*
   }
 }
 
-// K6 as its kernel runs it, one block after the other and each phase over
-// the block's threads in turn (the loops stand where the kernel synchronises)
-template <class C>
-static void invert_blocks(const uint32_t* tot, uint32_t* inv, long M) {
+// The block part of K6 and K8 as their kernels run it, one block after the
+// other and each phase over the block's threads in turn (the loops stand
+// where the kernels synchronise): chain(t, pre) returns thread t's chain
+// product, finish(t, pre, rinv) takes 1 / that product.
+template <class C, class Chain, class Finish>
+static void blocks(long n, const Chain& chain, const Finish& finish) {
   typedef typename C::F F;
   const int T = INV_THREADS;
   std::vector<uint32_t> node(F::PACKED * 2 * T), invn(F::PACKED * 2 * T);
   std::vector<F> pre(T * INV_CHUNK);
-  for (long e0 = 0; e0 < M; e0 += (long)T * INV_CHUNK) {
-    for (int t = 0; t < T; ++t)
-      inv_chain<C>(tot, M, e0 + t, &pre[t * INV_CHUNK]).store_packed(&node[T + t], 2 * T);
+  for (long e0 = 0; e0 < n; e0 += (long)T * INV_CHUNK) {
+    for (int t = 0; t < T; ++t) chain(e0 + t, &pre[t * INV_CHUNK]).store_packed(&node[T + t], 2 * T);
     for (int s = T / 2; s >= 1; s >>= 1)
       for (int t = 0; t < s; ++t) inv_tree_up<F>(node.data(), s + t);
     field_inv(F::load_packed(&node[1], 2 * T)).store_packed(&invn[1], 2 * T);
     for (int s = 1; s < T; s <<= 1)
       for (int t = 0; t < 2 * s; ++t) inv_tree_down<F>(node.data(), invn.data(), 2 * s + t);
     for (int t = 0; t < T; ++t)
-      inv_walk_back<C>(tot, inv, M, e0 + t, &pre[t * INV_CHUNK],
-                       F::load_packed(&invn[T + t], 2 * T));
+      finish(e0 + t, &pre[t * INV_CHUNK], F::load_packed(&invn[T + t], 2 * T));
   }
+}
+
+template <class C>
+static void invert_blocks(const uint32_t* tot, uint32_t* inv, long M) {
+  typedef typename C::F F;
+  blocks<C>(M, [&](long e, F* pre) { return inv_chain<C>(tot, M, e, pre); },
+            [&](long e, const F* pre, F rinv) { inv_walk_back<C>(tot, inv, M, e, pre, rinv); });
+}
+
+template <class C>
+static void level_blocks(const LevelIO& io) {
+  typedef typename C::F F;
+  blocks<C>(io.K, [&](long e, F* pre) { return level_chain<C>(io, e, pre); },
+            [&](long e, const F* pre, F rinv) { level_finish<C>(io, e, pre, rinv); });
+}
+
+template <class C, bool AFFINE>
+static void fold_lanes(const uint32_t* rows, const int32_t* order, const int32_t* keys,
+                       uint32_t* table, uint32_t* trail, int32_t* tkey, int T, long m, int W,
+                       int nb, int last) {
+  const long lanes = m / T;
+  for (long lane = 0; lane < W * lanes; ++lane)
+    fold_lane<C, AFFINE>(rows, order, keys, table, trail, tkey, T, m, nb, last != 0,
+                         lane / lanes, lane % lanes, lane);
 }
 
 extern "C" {
@@ -100,20 +124,20 @@ void shim_point(int g2, int dbl, long n, const uint32_t* const* in,
   else point_op<G1>(dbl, n, in, out);
 }
 
-void shim_fold(int g2, int affine, const int32_t* kT, const uint32_t* pT,
-               uint32_t* emit, uint32_t* trail, int T, long lanes) {
-  for (long lane = 0; lane < lanes; ++lane) {
-    if (g2) {
-      if (affine) fold_lane<G2, true>(kT, pT, emit, trail, T, lanes, lane);
-      else fold_lane<G2, false>(kT, pT, emit, trail, T, lanes, lane);
-    } else {
-      if (affine) fold_lane<G1, true>(kT, pT, emit, trail, T, lanes, lane);
-      else fold_lane<G1, false>(kT, pT, emit, trail, T, lanes, lane);
-    }
+// K2, one level: every lane of every window, in order
+void shim_fold(int g2, int affine, const uint32_t* rows, const int32_t* order,
+               const int32_t* keys, uint32_t* table, uint32_t* trail, int32_t* tkey, int T,
+               long m, int W, int nb, int last) {
+  if (g2) {
+    if (affine) fold_lanes<G2, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
+    else fold_lanes<G2, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
+  } else {
+    if (affine) fold_lanes<G1, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
+    else fold_lanes<G1, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
   }
 }
 
-// merge tree: K4, K7 and K8 lanes m < M (oem may be null), K6 block by block
+// merge tree: K4 and K7 lanes m < M, K6 and K8 block by block
 void shim_tree_phase_a(int g2, const uint32_t* apr, const uint32_t* bpl,
                        uint32_t* tot, long M) {
   for (long m = 0; m < M; ++m) {
@@ -162,14 +186,13 @@ void shim_fp_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out, int 
   for (long i = 0; i < n; ++i) fp_mul_chain_lane(a, b, out, k, n, i);
 }
 
-void shim_tree_phase_b(int g2, const uint32_t* apl, const uint32_t* apr,
-                       const uint32_t* bpl, const uint32_t* bpr, const int32_t* flg,
-                       const uint32_t* tinv, uint32_t* opl, uint32_t* opr,
-                       uint32_t* oem, long M) {
-  for (long m = 0; m < M; ++m) {
-    if (g2) tree_phase_b_lane<G2>(apl, apr, bpl, bpr, flg, tinv, opl, opr, oem, M, m);
-    else tree_phase_b_lane<G1>(apl, apr, bpl, bpr, flg, tinv, opl, opr, oem, M, m);
-  }
+// K8, one fused level of K additions (oem may be null)
+void shim_tree_level(int g2, const uint32_t* apl, const uint32_t* apr, const uint32_t* bpl,
+                     const uint32_t* bpr, const uint8_t* flg, uint32_t* opl, uint32_t* opr,
+                     uint32_t* oem, long K, long ld) {
+  const LevelIO io{apl, apr, bpl, bpr, flg, opl, opr, oem, K, ld};
+  if (g2) level_blocks<G2>(io);
+  else level_blocks<G1>(io);
 }
 
 }  // extern "C"

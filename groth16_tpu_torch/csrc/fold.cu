@@ -1,14 +1,32 @@
-// K2: segmented lane fold, the MSM bucket-accumulation loop.
+// K2: one level of the segmented fold, the MSM bucket-accumulation loop.
 //
 // Replaces groth16_tpu/ops/kernels.py::_fold_call (fold_level).  One thread
-// per lane walks its T elements in order (bn254_curve.cuh::fold_lane); the
-// TPU kernel's [T, R, lanes] layout is kept, with lanes minor, so the 32
-// threads of a warp read 32 neighbouring words on every limb load and the
-// loads coalesce.  Bound on this card by integer multiply throughput (a mixed
-// add is 13 Fp products) and by registers: the running segment, the loaded
-// point and the formula temporaries stay live across the loop, so G2 uses
-// smaller blocks.  Nothing carries between blocks; the caller runs one launch
-// per fold level over every window's lanes at once.
+// per lane walks its T sorted positions (bn254_curve.cuh::fold_lane).  Where
+// the TPU kernel read a [T, R, lanes] copy of the stream and wrote the
+// running segment at every slot for a gather to route afterwards, a thread
+// here gathers its own points through the sort order (four 128-bit loads a
+// coordinate from the point-major rows) and adds each segment that closes
+// into its bucket in place.  The W x buckets table is then the only bucket
+// storage: the emission array grew with the stream (3.2 GB at 2^20 points)
+// and needed a point add a level to merge.  A level reads the keys, the
+// order and the points once, writes one trail point a lane, and reads and
+// writes one bucket a close: at level 0 of a 2^16-point G1 MSM that is about
+// 6 MB of points against the 252 MB the emission array took.  So the level
+// is bound by integer multiplies (one complete add, 14 Fp products, a slot)
+// where it is wide, and by one thread's chain of T adds where it is narrow:
+// the caller picks T per level (ops/msm.py::fold_schedule).  The block size
+// comes from the kernel's register count (the occupancy calculator), cut so
+// that a launch of less than a wave still spreads over every SM.
+//
+// The Fp product is built out of line (BN254_NOINLINE_MUL), in both curves:
+// inlined, the G2 instantiations needed 255 registers and spilled, and G1
+// ran slower too (level 0 of a 2^16-point G1 MSM: 0.8319 against 1.1932 ms
+// on an H100; tools/bench_point_variants.py builds and times both,
+// -DG16_INLINE_MUL inlines).
+
+#if !defined(G16_INLINE_MUL) && !defined(BN254_NOINLINE_MUL)
+#define BN254_NOINLINE_MUL
+#endif
 
 #include <cuda_runtime.h>
 
@@ -17,36 +35,56 @@
 using namespace bn254;
 
 template <class C, bool AFFINE>
-__global__ void fold_kernel(const int32_t* __restrict__ kT,
-                            const uint32_t* __restrict__ pT, uint32_t* emit,
-                            uint32_t* trail, int T, long lanes) {
-  long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  fold_lane<C, AFFINE>(kT, pT, emit, trail, T, lanes, lane);
+__global__ void fold_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ order,
+                            const int32_t* __restrict__ keys, uint32_t* table,
+                            uint32_t* __restrict__ trail, int32_t* __restrict__ tkey, int T,
+                            long m, int W, int nb, int last) {
+  const long lanes = m / T;
+  const long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= W * lanes) return;
+  fold_lane<C, AFFINE>(rows, order, keys, table, trail, tkey, T, m, nb, last != 0,
+                       lane / lanes, lane % lanes, lane);
+}
+
+// Threads a block: the occupancy calculator's size for this kernel's
+// registers, but no more than gives every SM about 8 blocks, so that a
+// launch of less than one wave is spread over all of them.  Read at every
+// launch, for the current device.
+template <class C, bool AFFINE>
+static cudaError_t fold_block(long threads, int* bs) {
+  int min_grid = 0, best = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxPotentialBlockSize(&min_grid, &best, fold_kernel<C, AFFINE>, 0, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long spread = (threads / (8L * sms) + 31) / 32 * 32;
+  *bs = (int)(spread < 32 ? 32 : spread < best ? spread : best);
+  return cudaSuccess;
 }
 
 template <class C, bool AFFINE>
-static void launch(const void* kT, const void* pT, void* emit, void* trail,
-                   int T, long lanes, cudaStream_t stream) {
-  int bs = C::NC == 16 ? 128 : 64;
-  long grid = (lanes + bs - 1) / bs;
-  fold_kernel<C, AFFINE><<<(unsigned)grid, bs, 0, stream>>>(
-      (const int32_t*)kT, (const uint32_t*)pT, (uint32_t*)emit,
-      (uint32_t*)trail, T, lanes);
+static cudaError_t fold_launch(const void* rows, const void* order, const void* keys, void* table,
+                               void* trail, void* tkey, int T, long m, int W, int nb, int last,
+                               cudaStream_t stream) {
+  const long threads = (long)W * (m / T);
+  int bs = 0;
+  const cudaError_t e = fold_block<C, AFFINE>(threads, &bs);
+  if (e != cudaSuccess) return e;
+  fold_kernel<C, AFFINE><<<(unsigned)((threads + bs - 1) / bs), bs, 0, stream>>>(
+      (const uint32_t*)rows, (const int32_t*)order, (const int32_t*)keys, (uint32_t*)table,
+      (uint32_t*)trail, (int32_t*)tkey, T, m, W, nb, last);
+  return cudaGetLastError();
 }
 
-extern "C" int g16_fold(int g2, int affine, const void* kT, const void* pT,
-                        void* emit, void* trail, int T, long lanes,
-                        void* stream) {
+extern "C" int g16_fold(int g2, int affine, const void* rows, const void* order,
+                        const void* keys, void* table, void* trail, void* tkey, int T, long m,
+                        int W, int nb, int last, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (T > 0 && lanes > 0) {
-    if (g2) {
-      if (affine) launch<G2, true>(kT, pT, emit, trail, T, lanes, s);
-      else launch<G2, false>(kT, pT, emit, trail, T, lanes, s);
-    } else {
-      if (affine) launch<G1, true>(kT, pT, emit, trail, T, lanes, s);
-      else launch<G1, false>(kT, pT, emit, trail, T, lanes, s);
-    }
+  if (T <= 0 || m < T || W <= 0) return (int)cudaGetLastError();
+  if (g2) {
+    return (int)(affine ? fold_launch<G2, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, s)
+                        : fold_launch<G2, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, s));
   }
-  return (int)cudaGetLastError();
+  return (int)(affine ? fold_launch<G1, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, s)
+                      : fold_launch<G1, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, s));
 }

@@ -29,7 +29,7 @@
 // add needed 255 registers and spilled, and ran three times as long
 // (tools/bench_point_variants.py builds and times both).
 
-#if !defined(G16_K1_INLINE_MUL) && !defined(BN254_NOINLINE_MUL)
+#if !defined(G16_INLINE_MUL) && !defined(BN254_NOINLINE_MUL)
 #define BN254_NOINLINE_MUL
 #endif
 

@@ -2,43 +2,56 @@
 //
 // Replace groth16_tpu/ops/kernels_tree.py::_phase_a_call (K4),
 // ::_mul_rows_call (K5), ::_invert_call (K6), ::_phase_b_call (K7) and
-// ::_phase_b_level_call (K8).
-// A level of K affine additions is viewed as [T = 16, M = K / 16] with the
-// lane axis M minor, so that one thread per lane walks its 16 additions and
-// the 32 threads of a warp read neighbouring words on every limb load:
+// ::_phase_b_level_call (K8, as ::level_pallas drives it).
 //
-//   K4  per lane, the product of its 16 slope denominators;
+//   K8  `g16_tree_level`: a whole tree level in ONE launch.  The TPU ran a
+//       level as three kernels (denominator products over lanes of 16
+//       additions, one batch inversion, the additions with the node
+//       updates), because its grid is sequential.  Here every block of 128
+//       threads owns 512 additions and does all of it: each thread loads 4
+//       slots and chains their masked denominators, the block multiplies the
+//       128 chain products in a tree in shared memory, ONE thread inverts the
+//       root by the binary extended Euclid, the way back mirrors the way down
+//       to each addition's own inverse, and each thread finishes its 4
+//       affine additions (7 Fp products each) and writes PL', PR' and EM0.
+//       Blocks share nothing, so a level of 2^17 additions is 256 blocks on
+//       the 132 SMs and a narrow level is one block; the serial path of a
+//       thread is 4 + 7 products, one inversion, 7 + 4 products and 4
+//       additions whatever the width.  Bound by that latency on the narrow
+//       levels, and on the wide ones by the waves of such blocks: 2^21
+//       additions are 4,096 inversions (a level of K4 + K6 + K8 took 256),
+//       where the bytes of the four operand points and two or three output
+//       points (512-640 bytes an addition in G1) would take a tenth of the
+//       time.  It reads the operands where they lie: four column views at
+//       one limb stride, so the level needs no padding, layout change or
+//       copy;
+//   K4  per lane of 16 additions, the product of their slope denominators
+//       (`kernels_tree.mid_planes`, which only the phase tool runs);
 //   K5  elementwise products of two total rows (the halvings of a product
-//       tree over the totals; the tree level no longer needs them, only
-//       tools/bench_tree_phases.py runs that route, beside K6);
+//       tree over the totals; only tools/bench_tree_phases.py runs them,
+//       beside K6);
 //   K6  the batch inversion of any number of totals in one launch.  Replaces
 //       groth16_tpu/ops/kernels_tree.py::_invert_call, whose one grid step of
-//       128 lanes with a Fermat ladder each was the TPU's shape.  Here every
-//       block of 128 threads takes 512 totals: a thread chains 4 of them, the
-//       block multiplies its 128 thread products in a tree in shared memory,
-//       ONE thread inverts the root by a binary extended Euclid (about a
-//       tenth of the ladder's serial instructions), and the way back mirrors
-//       the way down.  Blocks share nothing, so a level of 2^17 totals pays
-//       256 inversions, all at once on different SMs.  Bound by latency: one
-//       inversion plus two short product chains (4 + 7 products down, 7 + 8
-//       back), whatever M is; the design keeps every serial piece short
-//       rather than the work small.  curve.to_affine inverts its Z through
-//       the same launch;
-//   K8  per lane, recompute the denominators and their prefix products,
-//       expand the lane inverse to the 16 per-addition inverses, finish each
-//       affine addition (about 7 products against 13 for a projective mixed
-//       add) and write the tree's node updates;
-//   K7  K8's sweep without the node updates: it writes mid = A.pR + B.pL to
-//       every slot (the batched affine add of kernels_tree.mid, which only
-//       the phase tool calls).  Per addition it reads two points and writes
-//       one (384 bytes in G1) and does 7 Fp products (21 in G2); at the
-//       card's peak rates the bytes and the G1 products take about the same
-//       time, so which side bounds it depends on the instructions one product
-//       compiles to (PERF.md has the bound).
+//       128 lanes with a Fermat ladder each was the TPU's shape.  Every block
+//       of 128 threads takes 512 totals in K8's shape (a thread chains 4, the
+//       block's tree, one Euclid inversion, the way back).  curve.to_affine
+//       inverts its Z through it;
+//   K7  per lane of 16 additions, the mids alone (the batched affine add of
+//       kernels_tree.mid, which only the phase tool calls): a forward pass of
+//       prefix products and a reverse pass that expands the lane inverse.
+//       Per addition it reads two points and writes one (384 bytes in G1) and
+//       does 7 Fp products (21 in G2).
 //
-// Bound on this card by integer multiply throughput and, for K8, by
-// registers: the 16 prefix products of a lane live in local memory (L1),
-// and G2 launches use smaller blocks.
+// The Fp product is built out of line (BN254_NOINLINE_MUL): inlined, the
+// fused level needed 188 registers in G1 (128 out of line) and 255 with
+// spills in G2, and ran about a fifth slower (G1 at K = 2^17: 0.2511
+// against 0.1988 ms on an H100), where K6 gained 3-12 % from inlining;
+// tools/bench_point_variants.py builds and times both (-DG16_INLINE_MUL
+// inlines).
+
+#if !defined(G16_INLINE_MUL) && !defined(BN254_NOINLINE_MUL)
+#define BN254_NOINLINE_MUL
+#endif
 
 #include <cuda_runtime.h>
 
@@ -65,16 +78,13 @@ __global__ void tree_mul_rows_kernel(const uint32_t* __restrict__ a,
   (F::load(a + w, W) * F::load(b + w, W)).store(out + w, W);
 }
 
-template <class C>
-__global__ void __launch_bounds__(INV_THREADS)
-tree_invert_kernel(const uint32_t* __restrict__ tot, uint32_t* __restrict__ inv, long M) {
-  typedef typename C::F F;
-  __shared__ uint32_t node[F::PACKED * 2 * INV_THREADS];
-  __shared__ uint32_t invn[F::PACKED * 2 * INV_THREADS];
-  const int t = threadIdx.x;
-  const long e = (long)blockIdx.x * (INV_THREADS * INV_CHUNK) + t;
-  F pre[INV_CHUNK];
-  inv_chain<C>(tot, M, e, pre).store_packed(node + INV_THREADS + t, 2 * INV_THREADS);
+// The block's part of a batch inversion (K6, K8): thread t holds the
+// product of its chain; the block multiplies the INV_THREADS products in a
+// tree in shared scratch, thread 0 inverts the root, and the way back
+// returns 1 / (thread t's product).
+template <class F>
+__device__ F block_invert(uint32_t* node, uint32_t* invn, int t, const F& prod) {
+  prod.store_packed(node + INV_THREADS + t, 2 * INV_THREADS);
   __syncthreads();
   for (int s = INV_THREADS / 2; s >= 1; s >>= 1) {
     if (t < s) inv_tree_up<F>(node, s + t);
@@ -87,8 +97,32 @@ tree_invert_kernel(const uint32_t* __restrict__ tot, uint32_t* __restrict__ inv,
     if (t < 2 * s) inv_tree_down<F>(node, invn, 2 * s + t);
     __syncthreads();
   }
-  inv_walk_back<C>(tot, inv, M, e, pre,
-                   F::load_packed(invn + INV_THREADS + t, 2 * INV_THREADS));
+  return F::load_packed(invn + INV_THREADS + t, 2 * INV_THREADS);
+}
+
+template <class C>
+__global__ void __launch_bounds__(INV_THREADS)
+tree_invert_kernel(const uint32_t* __restrict__ tot, uint32_t* __restrict__ inv, long M) {
+  typedef typename C::F F;
+  __shared__ uint32_t node[F::PACKED * 2 * INV_THREADS];
+  __shared__ uint32_t invn[F::PACKED * 2 * INV_THREADS];
+  const int t = threadIdx.x;
+  const long e = (long)blockIdx.x * (INV_THREADS * INV_CHUNK) + t;
+  F pre[INV_CHUNK];
+  const F rinv = block_invert<F>(node, invn, t, inv_chain<C>(tot, M, e, pre));
+  inv_walk_back<C>(tot, inv, M, e, pre, rinv);
+}
+
+template <class C>
+__global__ void __launch_bounds__(INV_THREADS) tree_level_kernel(LevelIO io) {
+  typedef typename C::F F;
+  __shared__ uint32_t node[F::PACKED * 2 * INV_THREADS];
+  __shared__ uint32_t invn[F::PACKED * 2 * INV_THREADS];
+  const int t = threadIdx.x;
+  const long e = (long)blockIdx.x * (INV_THREADS * INV_CHUNK) + t;
+  F pre[INV_CHUNK];
+  const F rinv = block_invert<F>(node, invn, t, level_chain<C>(io, e, pre));
+  level_finish<C>(io, e, pre, rinv);
 }
 
 template <class C>
@@ -99,20 +133,6 @@ __global__ void tree_mid_kernel(const uint32_t* __restrict__ apr,
   long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
   tree_mid_lane<C>(apr, bpl, tinv, mid, M, m);
-}
-
-template <class C>
-__global__ void tree_phase_b_kernel(const uint32_t* __restrict__ apl,
-                                    const uint32_t* __restrict__ apr,
-                                    const uint32_t* __restrict__ bpl,
-                                    const uint32_t* __restrict__ bpr,
-                                    const int32_t* __restrict__ flg,
-                                    const uint32_t* __restrict__ tinv,
-                                    uint32_t* opl, uint32_t* opr, uint32_t* oem,
-                                    long M) {
-  long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  tree_phase_b_lane<C>(apl, apr, bpl, bpr, flg, tinv, opl, opr, oem, M, m);
 }
 
 static unsigned grid(long n, int bs) {
@@ -185,22 +205,20 @@ int g16_tree_mid(int g2, const void* apr, const void* bpl, const void* tinv, voi
   return (int)cudaGetLastError();
 }
 
-// em may be null: level 1 of the tree emits nothing
-int g16_tree_phase_b(int g2, const void* apl, const void* apr, const void* bpl,
-                     const void* bpr, const void* flg, const void* tinv, void* opl,
-                     void* opr, void* oem, long M, void* stream) {
+// K additions; em may be null (level 1 of the tree emits nothing)
+int g16_tree_level(int g2, const void* apl, const void* apr, const void* bpl, const void* bpr,
+                   const void* flg, void* opl, void* opr, void* oem, long K, long ld,
+                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (M > 0) {
+  if (K > 0) {
+    const LevelIO io{(const uint32_t*)apl, (const uint32_t*)apr, (const uint32_t*)bpl,
+                     (const uint32_t*)bpr, (const uint8_t*)flg,  (uint32_t*)opl,
+                     (uint32_t*)opr,       (uint32_t*)oem,       K, ld};
+    const unsigned blocks = grid(K, INV_THREADS * INV_CHUNK);
     if (g2)
-      tree_phase_b_kernel<G2><<<grid(M, block_size<G2>()), block_size<G2>(), 0, s>>>(
-          (const uint32_t*)apl, (const uint32_t*)apr, (const uint32_t*)bpl,
-          (const uint32_t*)bpr, (const int32_t*)flg, (const uint32_t*)tinv,
-          (uint32_t*)opl, (uint32_t*)opr, (uint32_t*)oem, M);
+      tree_level_kernel<G2><<<blocks, INV_THREADS, 0, s>>>(io);
     else
-      tree_phase_b_kernel<G1><<<grid(M, block_size<G1>()), block_size<G1>(), 0, s>>>(
-          (const uint32_t*)apl, (const uint32_t*)apr, (const uint32_t*)bpl,
-          (const uint32_t*)bpr, (const int32_t*)flg, (const uint32_t*)tinv,
-          (uint32_t*)opl, (uint32_t*)opr, (uint32_t*)oem, M);
+      tree_level_kernel<G1><<<blocks, INV_THREADS, 0, s>>>(io);
   }
   return (int)cudaGetLastError();
 }

@@ -39,12 +39,12 @@ _SIGNATURES = {
     "g16_point_add": [_I] + [_P] * 9 + [_L, _P],
     "g16_point_double_n": [_I] + [_P] * 6 + [_L, _I, _P],
     "g16_horner": [_I] + [_P] * 6 + [_L, _I, _I, _P],
-    "g16_fold": [_I, _I, _P, _P, _P, _P, _I, _L, _P],
+    "g16_fold": [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I, _P],
     "g16_ntt": [_P, _P, _P, _P, _I, _L, _I, _P],
     "g16_tree_phase_a": [_I, _P, _P, _P, _L, _P],
     "g16_tree_mul_rows": [_I, _P, _P, _P, _L, _P],
     "g16_tree_invert": [_I, _P, _P, _L, _P],
-    "g16_tree_phase_b": [_I] + [_P] * 9 + [_L, _P],
+    "g16_tree_level": [_I] + [_P] * 8 + [_L, _L, _P],
     "g16_tree_mid": [_I, _P, _P, _P, _P, _L, _P],
     "g16_fp_mul_chain": [_P, _P, _P, _I, _L, _P],
 }
@@ -180,14 +180,14 @@ def host_shim():
     L.shim_point_double_n.argtypes = [_I, _L, _I, _P, _P]
     L.shim_horner.argtypes = [_I, _L, _I, _I, _P, _P]
     L.shim_field_inv.argtypes = [_I, _L, _P, _P]
-    L.shim_fold.argtypes = [_I, _I, _P, _P, _P, _P, _I, _L]
+    L.shim_fold.argtypes = [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I]
     L.shim_tree_phase_a.argtypes = [_I, _P, _P, _P, _L]
     L.shim_tree_invert.argtypes = [_I, _P, _P, _L]
-    L.shim_tree_phase_b.argtypes = [_I] + [_P] * 9 + [_L]
+    L.shim_tree_level.argtypes = [_I] + [_P] * 8 + [_L, _L]
     L.shim_tree_mid.argtypes = [_I, _P, _P, _P, _P, _L]
     L.shim_fp_mul_chain.argtypes = [_P, _P, _P, _I, _L]
     for fn in (L.shim_field, L.shim_point, L.shim_fold, L.shim_tree_phase_a,
-               L.shim_tree_invert, L.shim_tree_phase_b, L.shim_tree_mid,
+               L.shim_tree_invert, L.shim_tree_level, L.shim_tree_mid,
                L.shim_fp_mul_chain, L.shim_point_double_n, L.shim_horner, L.shim_field_inv):
         fn.restype = None
     return L

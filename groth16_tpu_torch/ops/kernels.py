@@ -132,92 +132,126 @@ def fold_rows(cv) -> int:
     return 48 if cv.name == "G1" else 96
 
 
-def _fold_check(cv, kT, pT, affine):
-    T, lanes = kT.shape
-    nc = fold_rows(cv) // 3
-    rin = (2 if affine else 3) * nc
-    if pT.shape != (T, rin, lanes):
-        raise ValueError(f"pT must be [T={T}, {rin}, lanes={lanes}], got {tuple(pT.shape)}")
-    return T, lanes
-
-
-def fold_level_kernel(cv: C.CurveSpec, kT: torch.Tensor, pT: torch.Tensor,
-                      affine: bool = False):
-    """K2: one fold level over CUDA tensors (see `fold_level_plain`)."""
-    T, lanes = _fold_check(cv, kT, pT, affine)
-    (kT,) = _cuda_inputs([kT], torch.int32)
-    (pT,) = _cuda_inputs([pT])
+def _fold_check(cv, rows, order, keys, table, T, affine):
+    """(W, m, nb) of one fold level's operands, or raise."""
+    W, m = keys.shape
     R = fold_rows(cv)
-    emit = torch.empty((T, R, lanes), dtype=torch.uint32, device=pT.device)
-    trail = torch.empty((R, lanes), dtype=torch.uint32, device=pT.device)
-    rc = cuda.lib().g16_fold(int(cv.name == "G2"), int(affine), kT.data_ptr(), pT.data_ptr(),
-                             emit.data_ptr(), trail.data_ptr(), T, lanes,
-                             cuda.stream_ptr(pT.device))
+    rin = 2 * R // 3 if affine else R
+    if T < 1 or m % T:
+        raise ValueError(f"a fold level takes T >= 1 dividing the stream length {m}, got {T}")
+    if rows.ndim != 2 or rows.shape[1] != rin:
+        raise ValueError(f"rows must be [n, {rin}], got {tuple(rows.shape)}")
+    if order is None and rows.shape[0] != W * m:
+        raise ValueError(f"without an order the rows are the {W} x {m} stream, got {rows.shape[0]}")
+    if order is not None and order.shape != keys.shape:
+        raise ValueError(f"order must be [{W}, {m}] like the keys, got {tuple(order.shape)}")
+    if table.ndim != 3 or table.shape[0] != W or table.shape[2] != R:
+        raise ValueError(f"the bucket table must be [{W}, nb, {R}], got {tuple(table.shape)}")
+    return W, m, table.shape[1]
+
+
+def fold_level_kernel(cv: C.CurveSpec, rows, order, keys, table, T: int,
+                      affine: bool = False, last: bool = False):
+    """K2: one fold level over CUDA tensors (see `fold_level_plain`).
+    Replaces groth16_tpu/ops/kernels.py:416 `_fold_call`: one launch over
+    every window's lanes, each thread gathering its points through `order`
+    and adding the segments that close into `table` in place (csrc/fold.cu)."""
+    W, m, nb = _fold_check(cv, rows, order, keys, table, T, affine)
+    (rows,) = _cuda_inputs([rows])
+    keys = _cuda_inputs([keys], torch.int32)[0]
+    order = None if order is None else _cuda_inputs([order], torch.int32)[0]
+    if table.device != rows.device or table.dtype != torch.uint32 or not table.is_contiguous():
+        raise ValueError("the bucket table must be a contiguous uint32 tensor on the rows' device")
+    dev, lanes, R = rows.device, m // T, fold_rows(cv)
+    trail = None if last else torch.empty((W * lanes, R), dtype=torch.uint32, device=dev)
+    tkey = None if last else torch.empty((W, lanes), dtype=torch.int32, device=dev)
+    rows_p, table_p = _aligned([rows, table])
+    rc = cuda.lib().g16_fold(int(cv.name == "G2"), int(affine), rows_p,
+                             None if order is None else order.data_ptr(), keys.data_ptr(),
+                             table_p, None if last else _aligned([trail])[0],
+                             None if last else tkey.data_ptr(), T, m, W, nb, int(last),
+                             cuda.stream_ptr(dev))
     cuda.check(rc, "fold kernel")
     fold_level_kernel.launches += 1
-    return emit, trail
+    return trail, tkey
 
 
 fold_level_kernel.launches = 0
 
 
-def fold_level_plain(cv: C.CurveSpec, kT: torch.Tensor, pT: torch.Tensor,
-                     affine: bool = False):
-    """Plain PyTorch version of K2 (any device).
+def fold_level_plain(cv: C.CurveSpec, rows, order, keys, table, T: int,
+                     affine: bool = False, last: bool = False):
+    """Plain PyTorch version of K2 (any device): one level of the segmented
+    fold, closed segments added into their buckets.
 
-    kT int32[T, lanes]: digit-sorted signed keys per lane; bucket identity is
-    |key| and a negative key negates y.  pT uint32[T, Rin, lanes]: the lane
-    streams as fused limb rows, x|y (affine, (0, 0) = infinity, mixed
-    addition) or x|y|z.  Returns emit uint32[T, R, lanes], where emit[t] is
-    each lane's running segment just before element t (emit[0] = infinity),
-    and trail uint32[R, lanes], the running segment after the last element.
-    """
-    T, lanes = _fold_check(cv, kT, pT, affine)
-    K = cv.fops
-    comp = cv.comp_shape
-    nc = fold_rows(cv) // 3
-    pts = F.i64(pT).permute(0, 2, 1)                      # [T, lanes, Rin]
+    keys int32[W, m]: each window's signed digits, sorted by |digit| (bucket
+    identity; a negative digit negates y).  rows uint32[n, Rin]: the points,
+    point-major, x|y (affine, (0, 0) = infinity) or x|y|z; sorted position j
+    of window w is row order[w, j], or row w*m + j when `order` is None.
+    table uint32[W, nb, R]: bucket sums, updated IN PLACE.  Lane l of window
+    w takes positions l*T .. l*T+T-1; where |digit| changes at a slot t >= 1,
+    the bucket of digit t-1 becomes (bucket + segment), every other slot
+    (segment + point), one complete add each.  Returns the lanes' open
+    segments (trail uint32[W * m/T, R], their |digit| int32[W, m/T]), or, at
+    the `last` level, adds them into their buckets too and returns (None,
+    None)."""
+    W, m, nb = _fold_check(cv, rows, order, keys, table, T, affine)
+    K, comp, dev = cv.fops, cv.comp_shape, keys.device
+    R = fold_rows(cv)
+    nc = R // 3
+    lanes = m // T
+    lane = torch.arange(W * lanes, device=dev)
+    base = lane // lanes * m + lane % lanes * T
+    bucket0 = lane // lanes * nb
+    flat_k = keys.reshape(-1).to(torch.int64)
+    flat_o = None if order is None else order.reshape(-1).to(torch.int64)
+    tab = F.as_i32(table).view(W * nb, R)
+    b3 = F.const(cv.b3_limbs, dev)
 
-    def coord(j):
-        return pts[:, :, j * nc:(j + 1) * nc].reshape((T, lanes) + comp)
+    def split(r):      # int64 [n, R] -> (X, Y, Z) of [n, comp]
+        return tuple(r[:, j * nc:(j + 1) * nc].reshape((-1,) + comp) for j in range(r.shape[1] // nc))
 
-    x, y = coord(0), coord(1)
-    y = K.select(kT < 0, K.neg(y), y)
-    b3 = F.const(cv.b3_limbs, pT.device)
-    if affine:
-        inf = (pts[:, :, :2 * nc] == 0).all(-1)
-        one = F.const(cv.one_limbs, pT.device).expand(x.shape)
-        zero = torch.zeros_like(x)
-        fresh = (K.select(inf, zero, x), K.select(inf, one, y), K.select(inf, zero, one))
-    else:
-        fresh = (x, y, coord(2))
-    ak = kT.abs()
-    run = tuple(c[0] for c in fresh)
-    emit = [tuple(F.i64(c) for c in C.inf_like(cv, (lanes,), pT.device))]
-    for t in range(1, T):
-        emit.append(run)
+    def fuse(P):       # (X, Y, Z) -> int32 [n, R]
+        return torch.cat([F.i64(c).reshape(c.shape[0], -1) for c in P], -1).to(torch.int32)
+
+    run, ap = None, None
+    for t in range(T):
+        k = flat_k[base + t]
+        ak = k.abs()
+        p = F.i64(F.as_i32(rows)[base + t if flat_o is None else flat_o[base + t]])
+        x, y = split(p)[:2]
+        y = K.select(k < 0, K.neg(y), y)
         if affine:
-            added = C.rcb_add_mixed(K, run, (x[t], y[t]), b3)
-            added = tuple(K.select(inf[t], r, a) for r, a in zip(run, added))
+            inf = (p == 0).all(-1)
+            one = F.const(cv.one_limbs, dev).expand(x.shape)
+            zero = torch.zeros_like(x)
+            fresh = (K.select(inf, zero, x), K.select(inf, one, y), K.select(inf, zero, one))
         else:
-            added = C.rcb_add(K, run, tuple(c[t] for c in fresh), b3)
-        new = ak[t] != ak[t - 1]
-        run = tuple(K.select(new, f[t], a) for f, a in zip(fresh, added))
+            fresh = (x, y, split(p)[2])
+        if t == 0:
+            run = fresh
+        else:
+            close = ak != ap
+            dst = bucket0 + ap
+            old = split(F.i64(tab[dst]))
+            A = tuple(K.select(close, o, r) for o, r in zip(old, run))
+            B = tuple(K.select(close, r, f) for r, f in zip(run, fresh))
+            S = C.rcb_add(K, A, B, b3)
+            tab[dst[close]] = fuse(S)[close]
+            run = tuple(K.select(close, f, s) for f, s in zip(fresh, S))
+        ap = ak
+    if last:
+        dst = bucket0 + ap
+        tab[dst] = fuse(C.rcb_add(K, split(F.i64(tab[dst])), run, b3))
+        return None, None
+    return F.as_u32(fuse(run)), ap.to(torch.int32).reshape(W, lanes)
 
-    def rows(P):   # (X, Y, Z) [..., lanes, comp] -> [..., R, lanes]
-        fused = torch.cat([F.i64(c).flatten(-len(comp)) for c in P], -1)
-        return fused.transpose(-1, -2).to(torch.uint32)
 
-    emit_t = rows(tuple(torch.stack([e[j] for e in emit]) for j in range(3)))
-    return emit_t.contiguous(), rows(run).contiguous()
-
-
-def fold_level(cv: C.CurveSpec, kT: torch.Tensor, pT: torch.Tensor,
-               affine: bool = False):
+def fold_level(cv: C.CurveSpec, rows, order, keys, table, T: int,
+               affine: bool = False, last: bool = False):
     """One fold level: K2 on CUDA tensors, the plain version on CPU."""
-    if pT.device.type == "cpu":
-        return fold_level_plain(cv, kT, pT, affine)
-    return fold_level_kernel(cv, kT, pT, affine)
+    fn = fold_level_plain if keys.device.type == "cpu" else fold_level_kernel
+    return fn(cv, rows, order, keys, table, T, affine, last)
 
 
 def _chain_check(a: torch.Tensor, b: torch.Tensor, k: int) -> None:

@@ -2,29 +2,35 @@
 (csrc/tree.cu), their plain PyTorch versions, `level`, one whole tree level,
 and `mid`, one batch of affine additions.
 
-Counterpart of groth16_tpu/ops/kernels_tree.py.  A level of K affine
-additions mid = A.pR + B.pL is padded to a multiple of T_SLOTS and viewed as
-[R2, T_SLOTS, M] limb-major fused x|y columns (M = K / T_SLOTS lanes, lane
-axis minor); (0, 0) is infinity.  The slope denominators of the whole level
-share one batch inversion, so a level is three launches, K4, K6, K8:
+Counterpart of groth16_tpu/ops/kernels_tree.py.  A level is K affine
+additions mid = A.pR + B.pL on limb-major fused x|y columns uint32[R2, K]
+((0, 0) is infinity) whose slope denominators share one batch inversion:
 
-  K4 `phase_a`        per-lane product of the T_SLOTS masked denominators;
+  K8 `level_kernel`   the whole level in ONE launch: blocks of 128 threads x
+                      4 additions, each block its own batch inversion, then
+                      the additions and the node updates PL', PR' and EM0;
+                      it reads the four operand columns where they lie
+                      (views at one limb stride);
   K6 `invert`         inverses of any number M >= 1 of totals in one launch
                       (0 gives 0); `curve.to_affine` inverts its Z with it;
-  K8 `phase_b_level`  per-addition inverses, the affine additions and the
-                      node updates PL', PR' and EM0;
+  K4 `phase_a`        per-lane product of T_SLOTS masked denominators, on
+                      the additions padded and viewed as [R2, T_SLOTS, M]
+                      planes (M = K / T_SLOTS lanes, lane axis minor);
+  K7 `phase_b`        the mids alone on those planes, given the lane
+                      inverses (`mid`, which only tools/bench_tree_phases.py
+                      calls, through `mid_planes`: K4, K6, K7);
   K5 `mul_rows`       elementwise products of two rows of totals: the
                       halvings of a product tree, the route to a narrow
                       inversion that tools/bench_tree_phases.py times beside
-                      the one wide K6 launch (and its affine conversion);
-  K7 `phase_b`        K8 without the node updates: the mids alone (`mid`,
-                      which only tools/bench_tree_phases.py calls).
+                      the one wide K6 launch (and its affine conversion).
 
-Each kernel wrapper (`*_kernel`) takes CUDA tensors only and counts its
-launches (`<wrapper>.launches`); the dispatchers without the suffix run the
-plain version (`*_plain`) on CPU tensors.  Every value is a canonical
-residue and inverses are unique, so kernel and plain version agree bit for
-bit whatever order their products take.
+`level_plain` composes the plain K4, K6 and the plain additions with node
+updates (`phase_b_level_plain`) on the planes.  Each kernel wrapper
+(`*_kernel`) takes CUDA tensors only and counts its launches
+(`<wrapper>.launches`); the dispatchers without the suffix run the plain
+version (`*_plain`) on CPU tensors.  Every value is a canonical residue and
+inverses are unique, so kernel and plain version agree bit for bit whatever
+order their products take.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from .kernels import _cuda_inputs
 T_SLOTS = 16     # additions per lane (bn254_curve.cuh TREE_T)
 INV_W = 128      # threads of a K6 block (INV_THREADS); each chains 4 totals
 PLAIN_LANES = 8192  # lanes per slice of the plain K7 (`phase_b_plain`)
+PLAIN_COLS = T_SLOTS * PLAIN_LANES  # additions per slice of `level_plain`
 
 
 def ncomp(cv: CurveSpec) -> int:
@@ -150,10 +157,10 @@ def phase_b_plain(cv: CurveSpec, apr, bpl, tinv) -> torch.Tensor:
 
 
 def phase_b_level_plain(cv: CurveSpec, apl, apr, bpl, bpr, flg, tinv, want_em: bool):
-    """Plain K8: the level's affine additions (`phase_b_plain`) and node
-    updates.  Point planes uint32[R2, T, M], flg int32[T, M] (bit 0 keys
-    match, 1 A pure, 2 B pure), tinv uint32[R, M].  Returns (PL', PR', EM0),
-    EM0 None unless `want_em`."""
+    """The level's affine additions (`phase_b_plain`) and node updates, on
+    point planes uint32[R2, T, M], flg int32[T, M] (bit 0 keys match, 1 A
+    pure, 2 B pure), tinv uint32[R, M].  Returns (PL', PR', EM0), EM0 None
+    unless `want_em`."""
     mid = F.as_i32(phase_b_plain(cv, apr, bpl, tinv))
     match, aP, bP = (flg & 1) != 0, (flg & 2) != 0, (flg & 4) != 0
 
@@ -162,6 +169,39 @@ def phase_b_level_plain(cv: CurveSpec, apl, apr, bpl, bpr, flg, tinv, want_em: b
 
     return (sel(match & aP, apl), sel(match & bP, bpr),
             sel(match, apr) if want_em else None)
+
+
+def _tiles(K: int) -> int:
+    """K additions padded to whole lanes of T_SLOTS."""
+    return -(-K // T_SLOTS) * T_SLOTS
+
+
+def _planes(x: torch.Tensor, Kp: int) -> torch.Tensor:
+    """uint32[R2, K] columns -> [R2, T_SLOTS, Kp / T_SLOTS] planes, padded
+    with (0, 0) additions (den 1, mid (0, 0))."""
+    R2, K = x.shape
+    return F.as_u32(tnf.pad(F.as_i32(x), (0, Kp - K)).reshape(R2, T_SLOTS, Kp // T_SLOTS))
+
+
+def level_plain(cv: CurveSpec, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em: bool):
+    """Plain K8 (any device): one tree level (see `level`) as the plain K4,
+    K6 and `phase_b_level_plain` on planes padded to whole lanes.  Levels
+    wider than PLAIN_COLS run in column slices (each slice's lanes invert on
+    their own), which bounds the int64 intermediates."""
+    R2, K = A_pl.shape
+    if K > PLAIN_COLS:
+        parts = [level_plain(cv, *(x[:, s:s + PLAIN_COLS] for x in (A_pl, A_pr, B_pl, B_pr)),
+                             *(f[s:s + PLAIN_COLS] for f in (match, aP, bP)), want_em)
+                 for s in range(0, K, PLAIN_COLS)]
+        return tuple(None if p[0] is None else F.as_u32(torch.cat([F.as_i32(x) for x in p], 1))
+                     for p in zip(*parts))
+    Kp = _tiles(K)
+    flg = match.to(torch.int32) | (aP.to(torch.int32) << 1) | (bP.to(torch.int32) << 2)
+    flg = tnf.pad(flg, (0, Kp - K)).reshape(T_SLOTS, Kp // T_SLOTS)
+    apl, apr, bpl, bpr = (_planes(x, Kp) for x in (A_pl, A_pr, B_pl, B_pr))
+    tinv = invert_plain(cv, phase_a_plain(cv, apr, bpl))
+    outs = phase_b_level_plain(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
+    return tuple(None if o is None else o.reshape(R2, Kp)[:, :K].contiguous() for o in outs)
 
 
 # ---------------------------------------------------------------------------
@@ -250,28 +290,43 @@ def phase_b_kernel(cv: CurveSpec, apr, bpl, tinv) -> torch.Tensor:
 phase_b_kernel.launches = 0
 
 
-def phase_b_level_kernel(cv: CurveSpec, apl, apr, bpl, bpr, flg, tinv, want_em: bool):
-    """K8 (see `phase_b_level_plain`)."""
-    shape = _plane_check(cv, apl, apr, bpl, bpr)
-    M = shape[2]
-    _tinv_check(cv, tinv, M)
-    if tuple(flg.shape) != (T_SLOTS, M):
-        raise ValueError(f"flags must be [{T_SLOTS}, {M}], got {tuple(flg.shape)}")
-    apl, apr, bpl, bpr, tinv = _cuda_inputs([apl, apr, bpl, bpr, tinv])
-    (flg,) = _cuda_inputs([flg], torch.int32)
-    outs = [torch.empty(shape, dtype=torch.uint32, device=apl.device)
+def _level_cols(cv: CurveSpec, cols) -> tuple:
+    """(K, limb stride) of a level's four operand columns: uint32[R2, K]
+    views of one column stride 1 and one limb stride, 16-bit limbs in
+    32-bit words (the previous level's outputs, sliced in halves)."""
+    R2, K = 2 * ncomp(cv), cols[0].shape[-1]
+    ld = cols[0].stride(0)
+    for c in cols:
+        if c.dtype != torch.uint32 or tuple(c.shape) != (R2, K) or c.stride() != (ld, 1):
+            raise ValueError(f"{cv.name} level operands must be uint32[{R2}, {K}] views of one "
+                             f"limb stride, got {c.dtype} {tuple(c.shape)} strides {c.stride()}")
+    return K, ld
+
+
+def level_kernel(cv: CurveSpec, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em: bool):
+    """K8: one whole tree level in one launch (see `level`).  Replaces
+    groth16_tpu/ops/kernels_tree.py:370 `_phase_b_level_call` as
+    `level_pallas` drives it (with K4 and K6 before it); bound on this card
+    by one block's latency (its inversion and chains) on narrow levels and
+    by the waves of such blocks on wide ones (csrc/tree.cu)."""
+    cols = (A_pl, A_pr, B_pl, B_pr)
+    K, ld = _level_cols(cv, cols)
+    dev = A_pl.device
+    if dev.type != "cuda" or any(c.device != dev for c in cols):
+        raise ValueError(f"kernel inputs must be CUDA tensors on one device, got {dev}")
+    flg = match.to(torch.uint8).add_(aP, alpha=2).add_(bP, alpha=4)
+    outs = [torch.empty((2 * ncomp(cv), K), dtype=torch.uint32, device=dev)
             for _ in range(3 if want_em else 2)]
     em = outs[2].data_ptr() if want_em else None
-    rc = cuda.lib().g16_tree_phase_b(_g2(cv), apl.data_ptr(), apr.data_ptr(), bpl.data_ptr(),
-                                     bpr.data_ptr(), flg.data_ptr(), tinv.data_ptr(),
-                                     outs[0].data_ptr(), outs[1].data_ptr(), em, M,
-                                     cuda.stream_ptr(apl.device))
-    cuda.check(rc, "tree phase B kernel")
-    phase_b_level_kernel.launches += 1
+    rc = cuda.lib().g16_tree_level(_g2(cv), *(c.data_ptr() for c in cols), flg.data_ptr(),
+                                   outs[0].data_ptr(), outs[1].data_ptr(), em, K, ld,
+                                   cuda.stream_ptr(dev))
+    cuda.check(rc, "tree level kernel")
+    level_kernel.launches += 1
     return outs[0], outs[1], (outs[2] if want_em else None)
 
 
-phase_b_level_kernel.launches = 0
+level_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -298,35 +353,16 @@ def phase_b(cv, apr, bpl, tinv):
     return phase_b_plain(cv, apr, bpl, tinv) if _on_cpu(apr) else phase_b_kernel(cv, apr, bpl, tinv)
 
 
-def phase_b_level(cv, apl, apr, bpl, bpr, flg, tinv, want_em):
-    fn = phase_b_level_plain if _on_cpu(apl) else phase_b_level_kernel
-    return fn(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
-
-
-def _tiles(K: int) -> int:
-    """K additions padded to whole lanes of T_SLOTS."""
-    return -(-K // T_SLOTS) * T_SLOTS
-
-
-def _planes(x: torch.Tensor, Kp: int) -> torch.Tensor:
-    """uint32[R2, K] columns -> [R2, T_SLOTS, Kp / T_SLOTS] planes, padded
-    with (0, 0) additions (den 1, mid (0, 0))."""
-    R2, K = x.shape
-    return F.as_u32(tnf.pad(F.as_i32(x), (0, Kp - K)).reshape(R2, T_SLOTS, Kp // T_SLOTS))
-
-
 def level(cv: CurveSpec, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em: bool):
-    """One tree level (groth16_tpu/ops/kernels_tree.py::level_pallas): point
-    columns uint32[R2, K], bool[K] flag planes.  Returns (PL', PR', EM0) as
-    uint32[R2, K], EM0 None unless `want_em` (level 1 never emits)."""
-    R2, K = A_pl.shape
-    Kp = _tiles(K)
-    flg = match.to(torch.int32) | (aP.to(torch.int32) << 1) | (bP.to(torch.int32) << 2)
-    flg = tnf.pad(flg, (0, Kp - K)).reshape(T_SLOTS, Kp // T_SLOTS)
-    apl, apr, bpl, bpr = (_planes(x, Kp) for x in (A_pl, A_pr, B_pl, B_pr))
-    tinv = invert(cv, phase_a(cv, apr, bpl))
-    outs = phase_b_level(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
-    return tuple(None if o is None else o.reshape(R2, Kp)[:, :K] for o in outs)
+    """One tree level (groth16_tpu/ops/kernels_tree.py::level_pallas): the
+    operand columns A.pL, A.pR, B.pL, B.pR uint32[R2, K] (views of one limb
+    stride on CUDA), bool[K] flags (keys match, A pure, B pure).  Returns
+    (PL', PR', EM0) as uint32[R2, K]: PL' = match & aP ? mid : A.pL, PR' =
+    match & bP ? mid : B.pR, EM0 = match ? mid : A.pR, or None unless
+    `want_em` (level 1 never emits); mid = A.pR + B.pL.  K8 on CUDA tensors,
+    `level_plain` on CPU."""
+    fn = level_plain if _on_cpu(A_pl) else level_kernel
+    return fn(cv, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em)
 
 
 def mid_planes(cv: CurveSpec, a_cols: torch.Tensor, b_cols: torch.Tensor) -> tuple:

@@ -9,11 +9,13 @@ segmented fold:
   1. signed (wNAF-style) window digits, |d| <= 2^(c-1), so a window has
      2^(c-1) + 1 buckets and a negative digit negates the point;
   2. per window, the points sorted by |digit|; every window's stream is cut
-     into lanes of FOLD_T elements and ONE fold launch (kernel K2) per level
-     accumulates the running segments of all windows' lanes at once; the
-     segments that close inside a lane are routed to their bucket from the
-     keys alone (an index scatter, then one row gather), the lanes' trailing
-     partials form the next, FOLD_T-times shorter level;
+     into lanes of T elements and ONE fold launch (kernel K2) per level
+     walks all windows' lanes at once, gathering its points through the
+     sort order and adding every segment that closes inside a lane into
+     its bucket of a [W, buckets] table in place; the lanes' open segments
+     form the next, T-times shorter level, and the last level (one lane a
+     window) adds them into the table too.  T is FOLD_T at level 0 and
+     FOLD_T_PROJECTIVE after it (`fold_schedule`);
   3. the weighted bucket sum sum_b b * B_b of all windows at once through the
      [Q, L] factorization b = q*L + l (tree sums and log-depth suffix sums);
   4. Horner over the windows.
@@ -110,58 +112,51 @@ def _split_rows(cv: CurveSpec, rows: torch.Tensor):
                  for j in range(3))
 
 
-def _window_buckets(cv: CurveSpec, keys: torch.Tensor, rows: torch.Tensor,
-                    n_buckets: int, affine: bool):
+# T of the fold's projective levels (tools/bench_fold_phases.py sweeps T over
+# them on the card).  They are latency-bound at the main path's shapes (2,048
+# elements a window after level 0 at 2^16, 32,768 at 2^20), so the chain of
+# T complete adds a thread runs decides: T = 4 was fastest in G1 at both
+# sizes, and in G2 (whose add is three times as long) T = 2 and T = 4 tied,
+# T = 4 with fewer launches.
+FOLD_T_PROJECTIVE = 4
+
+
+def fold_schedule(m: int) -> list:
+    """T of every fold level of sorted streams of m elements (m a power of
+    two): FOLD_T at level 0, whose lanes fill the card, then
+    FOLD_T_PROJECTIVE; the last level takes what is left in one lane a
+    window."""
+    Ts = [min(FOLD_T, m)]
+    m //= Ts[0]
+    while m > 1:
+        Ts.append(min(FOLD_T_PROJECTIVE, m))
+        m //= Ts[-1]
+    return Ts
+
+
+def bucket_table(cv: CurveSpec, W: int, n_buckets: int, device) -> torch.Tensor:
+    """uint32[W, n_buckets, R] point-major bucket sums, all at infinity."""
+    inf_row = _rows(C.inf_like(cv, (1,), device))
+    return F.as_u32(inf_row.expand(W * n_buckets, -1).reshape(W, n_buckets, -1).contiguous())
+
+
+def window_buckets(cv: CurveSpec, keys: torch.Tensor, rows: torch.Tensor, n_buckets: int,
+                   affine: bool):
     """Bucket sums of every window: keys int64[W, m] signed digits (m a power
-    of two >= FOLD_T), rows int32[m, Rin] the points (x|y affine with (0, 0)
-    = infinity, or x|y|z).  Returns (X, Y, Z) of [n_buckets, W, comp]."""
+    of two), rows int32[m, Rin] the points (x|y affine with (0, 0) =
+    infinity, or x|y|z).  One fold level (`kernels.fold_level`) per entry of
+    `fold_schedule`, all adding into one bucket table.  Returns (X, Y, Z) of
+    [n_buckets, W, comp]."""
     W, m = keys.shape
-    R = fold_rows(cv)
-    dev = keys.device
+    Ts = fold_schedule(m)
     order = torch.argsort(keys.abs(), dim=1, stable=True)
-    cur_k = torch.gather(keys, 1, order)            # signed, sorted by |d|
-    inf_row = _rows(C.inf_like(cv, (1,), dev))      # [1, R]
-    win_base = torch.arange(W, device=dev) * (n_buckets + 1)
-    total = None
-    trail = None
-    first = True
-    while True:
-        T = min(FOLD_T, m)
-        lanes = m // T
-        kT = cur_k.reshape(W, lanes, T).permute(2, 0, 1).reshape(T, W * lanes)
-        if first:
-            idx = order.reshape(W, lanes, T).permute(2, 0, 1).reshape(-1)
-            pT = rows[idx].reshape(T, W * lanes, -1).transpose(1, 2)
-        else:
-            pT = trail.reshape(R, W, lanes, T).permute(3, 0, 1, 2).reshape(T, R, W * lanes)
-        emit, trail = fold_level(cv, kT.to(torch.int32).contiguous(),
-                                 F.as_u32(pT.contiguous()), affine=affine and first)
-        emit, trail = F.as_i32(emit), F.as_i32(trail)
-        ak = kT.abs()
-
-        # route closed segments: slot t of a lane holds the segment of key
-        # ak[t-1] when the key changes at t; one real write per bucket
-        dst = torch.full((T, W * lanes), n_buckets, dtype=torch.int64, device=dev)
-        dst[1:] = torch.where(ak[1:] != ak[:-1], ak[:-1], n_buckets)
-        dst = dst + win_base.repeat_interleave(lanes)
-        n_emit = T * W * lanes
-        slot = torch.full((W * (n_buckets + 1),), n_emit, dtype=torch.int64, device=dev)
-        slot.scatter_(0, dst.reshape(-1), torch.arange(n_emit, device=dev))
-        emit_rows = torch.cat([emit.permute(0, 2, 1).reshape(n_emit, R), inf_row], 0)
-        level = _split_rows(cv, emit_rows[slot].reshape(W, n_buckets + 1, R))
-        total = level if total is None else C.point_add(cv, total, level)
-
-        if lanes == 1:   # one trailing segment per window: scatter it directly
-            slot = torch.full((W * (n_buckets + 1),), W, dtype=torch.int64, device=dev)
-            slot.scatter_(0, ak[-1] + win_base, torch.arange(W, device=dev))
-            trail_rows = torch.cat([trail.T, inf_row], 0)
-            last = _split_rows(cv, trail_rows[slot].reshape(W, n_buckets + 1, R))
-            total = C.point_add(cv, total, last)
-            break
-        cur_k = ak[-1].reshape(W, lanes)
-        m = lanes
-        first = False
-    return tuple(c[:, :n_buckets].transpose(0, 1) for c in total)
+    sk = torch.gather(keys, 1, order).to(torch.int32)
+    table = bucket_table(cv, W, n_buckets, keys.device)
+    pts, order = F.as_u32(rows), order.to(torch.int32)
+    for i, T in enumerate(Ts):
+        pts, sk = fold_level(cv, pts, order if i == 0 else None, sk, table, T,
+                             affine=affine and i == 0, last=i == len(Ts) - 1)
+    return tuple(c.transpose(0, 1) for c in _split_rows(cv, F.as_i32(table)))
 
 
 def _tri_sum(cv: CurveSpec, seq):
@@ -222,7 +217,7 @@ def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
     rows = torch.cat([rows, pad], 0)
     keys = torch.nn.functional.pad(keys, (0, m - n))
     n_buckets = (1 << (c - 1)) + 1
-    buckets = _window_buckets(cv, keys, rows, n_buckets, affine)
+    buckets = window_buckets(cv, keys, rows, n_buckets, affine)
     return _weighted_bucket_reduce(cv, buckets, n_buckets)
 
 

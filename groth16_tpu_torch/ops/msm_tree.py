@@ -4,8 +4,9 @@ Counterpart of groth16_tpu/ops/msm_tree.py, the bucket phase of affine MSMs
 from TREE_MIN_N (2^16) points up (`msm.tree_path`).  Per window the points
 are sorted by |digit|; a binary segmented merge tree over the sorted stream
 keeps every partial sum affine, so each addition is a chord / tangent at
-about 7 field products and one batch inversion per level serves all of the
-level's additions (kernels K4, K5, K6 and K8, ops/kernels_tree.py).
+about 7 field products and one batch inversion per block of 512 serves the
+level's additions: one launch of kernel K8 a level (`kernels_tree.level`,
+which reads the four operand halves below as views, without a copy).
 
 Tree invariants, per window over its sorted stream of length m:
 

@@ -1,23 +1,29 @@
-"""Build options of the point kernels (K1) and the batch inversion (K6),
-timed against each other on one card in one run.
+"""Build options of the point kernels (K1), the fold (K2), the batch
+inversion (K6) and the fused tree level (K8), timed against each other on
+one card in one run.
 
     python3 -m groth16_tpu_torch.tools.bench_point_variants
 
-csrc/point.cu and csrc/tree.cu are built once per option set (all builds
-started together), each with `-Xptxas -v`:
+csrc/point.cu, csrc/tree.cu and csrc/fold.cu are built once per option
+set (both builds started together), each with `-Xptxas -v`:
 
   default        the flags of ops/cuda.py: the Fp product is one function
-                 that K1's formulas branch to, and inlined in the tree's
-                 kernels;
-  inline-mul     -DG16_K1_INLINE_MUL: inlined in K1 too;
-  noinline-mul   -DBN254_NOINLINE_MUL: one function in the tree's kernels too.
+                 that the formulas branch to (BN254_NOINLINE_MUL, which the
+                 three sources define);
+  inline-mul     -DG16_INLINE_MUL: the Fp product inlined everywhere.
 
-For each build it prints the registers and spill bytes ptxas reports for the
-K1 and K6 kernels, then times, with CUDA events through the package's own
-wrappers: K1 add and doubling at 2^16 points, the doubling chain (k = 12 on
-20 points) and Horner (W = 20, c = 13) in G1 and G2, and K6 in G1 at M =
-2,048 and 2^17.  Every build's outputs must equal the default's.  One JSON
-line at the end.  Needs one CUDA card; imports nothing of JAX.
+For each build it prints the registers and spill bytes ptxas reports for
+every instantiation of those kernels, and the times, with CUDA events
+through the package's own wrappers, of: K1 add and doubling at 2^16 points,
+the doubling chain (k = 12 on 20 points) and Horner (W = 20, c = 13) in G1
+and G2, K6 in G1 at M = 2,048 and 2^17, K2 at every fold level of the main
+path's MSMs in G1 and G2 (bench_fold_phases.fold_case: 2^16 points, c = 13,
+the levels of `fold_schedule`), and K8 at the smoke's shapes (LEVEL_SHAPES),
+on operands as the tree hands them over (bench_tree_phases.level_case).
+The builds are timed in turn, PASSES times, so that neither is alone in
+meeting a cold card; each time printed is the least of its passes.  Every
+build's outputs must equal the default's.  One JSON line at the end.  Needs
+one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,10 +33,15 @@ import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-VARIANTS = {"default": (), "inline-mul": ("-DG16_K1_INLINE_MUL",),
-            "noinline-mul": ("-DBN254_NOINLINE_MUL",)}
-SOURCES = ("point.cu", "tree.cu")
-KERNELS = ("point_add_kernel", "point_double_n_kernel", "horner_kernel", "tree_invert_kernel")
+VARIANTS = {"default": (), "inline-mul": ("-DG16_INLINE_MUL",)}
+PASSES = 2     # the builds are timed in turn, this many times; each keeps its least time
+# K8: (curve, K additions, emission), as chip_smoke.LEVEL_SHAPES: the H1
+# MSM's levels 1 and 2, a narrow level, the 2^20 tree's level 1, a G2 level
+LEVEL_SHAPES = (("G1", 1 << 17, False), ("G1", 1 << 16, True), ("G1", 64, True),
+                ("G1", 1 << 21, False), ("G2", 4096, True))
+SOURCES = ("point.cu", "tree.cu", "fold.cu")
+KERNELS = ("point_add_kernel", "point_double_n_kernel", "horner_kernel", "tree_invert_kernel",
+           "tree_level_kernel", "fold_kernel")
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _USED = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -45,7 +56,8 @@ def ptxas_table(log: str) -> dict:
         if m:
             sym = m.group(1)
             kern = next((k for k in KERNELS if k in sym), None)
-            name = None if kern is None else f"{kern} {'G2' if 'G2' in sym else 'G1'}"
+            kind = " affine" if "Lb1E" in sym else " projective" if "Lb0E" in sym else ""
+            name = None if kern is None else f"{kern} {'G2' if 'G2' in sym else 'G1'}{kind}"
             continue
         m = _SPILL.search(line)
         if m:
@@ -58,11 +70,14 @@ def ptxas_table(log: str) -> dict:
 
 
 def measure_variant(dev) -> tuple:
-    """(times in ms, outputs) of the loaded library's K1 and K6 at the
-    shapes in the module docstring."""
+    """(times in ms, outputs) of the loaded library's K1, K6, K8 and K2 at
+    the shapes in the module docstring."""
     import numpy as np
     import torch
     from groth16_tpu_torch.ops import curve as C, kernels as KN, kernels_tree as KT
+    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.tools.bench_fold_phases import fold_case
+    from groth16_tpu_torch.tools.bench_tree_phases import level_case, level_views
     from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
     from groth16_tpu_torch.tools.measure import time_ms
     rng = np.random.default_rng(11)
@@ -85,9 +100,27 @@ def measure_variant(dev) -> tuple:
         run(f"{cv.name} double 2^16", lambda: KN.point_double_n(cv, P, 1), 20)
         run(f"{cv.name} double_n k=12 n=20", lambda: KN.point_double_n(cv, S, 12), 20)
         run(f"{cv.name} horner W=20 c=13", lambda: KN.horner(cv, S, 13), 5)
-    for M in (2048, 1 << 17):
-        tots = scalars(M).T.contiguous()
-        run(f"G1 invert M={M}", lambda: (KT.invert_kernel(C.G1, tots),), 10)
+    for width in (2048, 1 << 17):
+        tots = scalars(width).T.contiguous()
+        run(f"G1 invert M={width}", lambda: (KT.invert_kernel(C.G1, tots),), 10)
+    for name, K, want_em in LEVEL_SHAPES:
+        cv = C.G1 if name == "G1" else C.G2
+        PL, PR, flags = level_case(rng, cv, K, dev)
+        args = level_views(PL, PR) + tuple(flags) + (want_em,)
+        run(f"{cv.name} level K={K} emit={want_em}",
+            lambda: tuple(o for o in KT.level_kernel(cv, *args) if o is not None), 10)
+    for cv in (C.G1, C.G2):
+        pts, order, keys, table = fold_case(cv, 16, dev)
+        m = keys.shape[1]
+        Ts = M.fold_schedule(m)
+        for i, T in enumerate(Ts):
+            kw = dict(T=T, affine=i == 0, last=i == len(Ts) - 1)
+            tab, scratch = table.clone(), table.clone()
+            out = KN.fold_level_kernel(cv, pts, order, keys, tab, **kw)
+            outs.append((tab,) + tuple(x for x in out if x is not None))
+            ms[f"{cv.name} K2 level {i} T={T}"] = time_ms(
+                lambda: KN.fold_level_kernel(cv, pts, order, keys, scratch, **kw), dev, 5)
+            table, (pts, keys), order = tab, out, None
     return ms, outs
 
 
@@ -105,21 +138,26 @@ def main() -> int:
             lambda flags: cuda.compile_library(SOURCES, flags + ("-Xptxas", "-v")),
             VARIANTS.values())))
     res, ref = {}, None
-    for name, (path, log, seconds) in builds.items():
-        cuda.use_library(path)
-        regs = ptxas_table(log)
-        ms, outs = measure_variant(dev)
-        torch.cuda.synchronize()
-        if ref is None:
-            ref = outs
-        elif not all(torch.equal(F.as_i32(a), F.as_i32(b))
-                     for x, y in zip(outs, ref) for a, b in zip(x, y)):
-            raise AssertionError(f"build {name!r} gives other results than the default build")
-        res[name] = {"build_s": seconds, "registers_spill": regs, "ms": ms}
-        print(f"{name} (built in {seconds:.1f} s)")
-        for k, v in regs.items():
+    for _ in range(PASSES):
+        for name, (path, log, seconds) in builds.items():
+            cuda.use_library(path)
+            ms, outs = measure_variant(dev)
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = outs
+            elif not all(torch.equal(F.as_i32(a), F.as_i32(b))
+                         for x, y in zip(outs, ref) for a, b in zip(x, y)):
+                raise AssertionError(f"build {name!r} gives other results than the default build")
+            del outs
+            best = res.setdefault(name, {"build_s": seconds, "registers_spill": ptxas_table(log),
+                                         "ms": ms})["ms"]
+            for k, v in ms.items():
+                best[k] = min(best[k], v)
+    for name, r in res.items():
+        print(f"{name} (built in {r['build_s']:.1f} s)")
+        for k, v in r["registers_spill"].items():
             print(f"  ptxas {k:32s} {v[0]:4d} registers, spill {v[1]} / {v[2]} bytes")
-        for k, v in ms.items():
+        for k, v in r["ms"].items():
             print(f"  {k:32s} {v:10.4f} ms")
     print(json.dumps({"tool": "bench_point_variants", "card": measure.card_line(dev),
                       "variants": res}))

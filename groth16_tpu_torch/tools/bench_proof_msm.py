@@ -12,7 +12,9 @@ host-bound times differ from one machine to the next, and only times taken
 in one run compare.
 
 Prints, each a mean after one warm-up: msm(path="tree") and msm(path="fold")
-at 2^16 points (5 runs, CUDA events) and at 2^20 (3 runs); Horner alone on
+at 2^16 points (5 runs, CUDA events) and at 2^20 (3 runs), each with the
+peak device memory one call allocates above what was allocated before it
+(`max_memory_allocated`); Horner alone on
 the 2^16 tree's window sums; three Snarkjs proofs of synthetic_circuit(16)
 on the host clock around a synchronize, with the phase times of the last.
 One JSON line at the end.  Needs one CUDA card; imports nothing of JAX.
@@ -50,6 +52,11 @@ def main() -> int:
         for path in ("tree", "fold"):
             res[f"msm_{path}_2^{log2n}_ms"] = measure.time_ms(
                 lambda: M.msm(C.G1, s, P, affine=True, path=path), dev, reps)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            M.msm(C.G1, s, P, affine=True, path=path)
+            res[f"msm_{path}_2^{log2n}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
         if log2n == 16:
             c = M.pick_window_bits_tree(n)
             sums = M.window_sums(C.G1, s, P, c, True, "tree")

@@ -19,7 +19,7 @@ phase is timed with CUDA events, mean of 3 after a warm-up:
   the level-1 totals' batch inversion two ways: one wide K6 launch, and
   halvings + narrow inversion (`invert_by_halvings`: K5 products down to
   2,048 lanes, K6 on those, K5 back up); the outputs must be equal;
-  one group through the real levels (K4, K6, K8);
+  one group through the real levels (K8, one launch a level);
   window_sums_tree over all windows;
   Horner;
   msm(path="tree");
@@ -57,6 +57,49 @@ def make_points(n: int, device, seed: int = 7):
     zinv = KT.invert(C.G1, Z.T.contiguous())
     x, y = (KT.mul_rows(C.G1, c.T.contiguous(), zinv).T.contiguous() for c in (X, Y))
     return C.from_affine(C.G1, x, y)
+
+
+def level_case(rng, cv, K: int, device) -> tuple:
+    """A merge-tree level of K affine additions of `cv` as the tree hands it
+    over: PL = A.pL | B.pL and PR = A.pR | B.pR, uint32[R2, 2K], from 256
+    random points, their negations and the infinity (0, 0), with doubling,
+    cancellation and infinity slots between A.pR and B.pL, and three random
+    bool[K] flags (keys match, A pure, B pure).  `rng` is a numpy Generator."""
+    import numpy as np
+    import torch
+    from groth16_tpu_torch.ops import curve as C, field as F, kernels_tree as KT
+    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
+    nc, npts = KT.ncomp(cv), 256
+    limbs = rng.integers(0, 1 << 16, size=(npts, 16), dtype=np.uint32)
+    limbs[:, 15] &= 0x2FFF            # < r
+    x, y = C.to_affine(cv, fixed_base_mul(cv, torch.from_numpy(limbs).to(device)))
+    xr = F.as_i32(x).reshape(npts, nc)
+    yr = F.as_i32(y).reshape(npts, nc)
+    nyr = F.as_i32(F.neg_mod(F.FP, y)).reshape(npts, nc)
+    zero = torch.zeros((1, 2 * nc), dtype=torch.int32, device=device)
+    pool = torch.cat([torch.cat([xr, yr], 1), torch.cat([xr, nyr], 1), zero], 0)
+    inf = 2 * npts
+    case = np.arange(K) % 7
+    ia, ib = rng.integers(0, npts, size=K), rng.integers(0, npts, size=K)
+    ib = np.where(case == 1, ia, ib)                          # doubling
+    ib = np.where(case == 2, ia + npts, ib)                   # P + (-P)
+    ia = np.where((case == 3) | (case == 5), inf, ia)
+    ib = np.where((case == 4) | (case == 5), inf, ib)
+    apl, bpr = rng.integers(0, inf + 1, size=K), rng.integers(0, inf + 1, size=K)
+
+    def cols(i, j):
+        idx = torch.from_numpy(np.concatenate([i, j])).to(device)
+        return F.as_u32(pool[idx].T.contiguous())
+
+    flags = [torch.from_numpy(rng.integers(0, 2, size=K).astype(bool)).to(device)
+             for _ in range(3)]
+    return cols(apl, ib), cols(ia, bpr), flags
+
+
+def level_views(PL, PR) -> tuple:
+    """A.pL, A.pR, B.pL, B.pR: the halves of a level's PL and PR, as views."""
+    K = PL.shape[1] // 2
+    return PL[:, :K], PR[:, :K], PL[:, K:], PR[:, K:]
 
 
 NARROW = 2048   # lanes of the narrow inversion of `invert_by_halvings`

@@ -79,6 +79,64 @@ def invert_block_roots(tots) -> list:
     return roots
 
 
+def _ints(limbs) -> list:
+    """uint32[N, 16] wire limbs (16 bits a word) -> N Python ints."""
+    import numpy as np
+    a = np.ascontiguousarray(limbs, dtype=np.uint32)
+    buf = (a[:, 0::2] | (a[:, 1::2] << 16)).astype("<u4").tobytes()
+    return [int.from_bytes(buf[i:i + 32], "little") for i in range(0, len(buf), 32)]
+
+
+def level_block_roots(curve: str, apr, bpl) -> list:
+    """The values the fused tree level's blocks invert (csrc/tree.cu
+    `g16_tree_level`) for operand columns A.pR, B.pL uint32[R2, K] (numpy):
+    per block of INV_BLOCK additions the Montgomery residue of the product of
+    their masked slope denominators (`tree_den`: 2 y1 when doubling, x2 - x1
+    otherwise, one on the cancellation and infinity slots); in G2 the norm
+    of that Fp2 product, which `field_inv` inverts."""
+    p, r = _P_FP, (1 << 256) % _P_FP
+    rinv = pow(r, -1, p)
+    nc = 16 if curve == "G1" else 32
+
+    def elems(cols, j):     # coordinate j of every column, a tuple per Fp component
+        comps = [_ints(cols[j * nc + 16 * c:j * nc + 16 * (c + 1)].T) for c in range(nc // 16)]
+        return list(zip(*comps))
+
+    x1, y1, x2, y2 = elems(apr, 0), elems(apr, 1), elems(bpl, 0), elems(bpl, 1)
+    one = (r,) + (0,) * (nc // 16 - 1)
+    zero = (0,) * (nc // 16)
+
+    def mul(a, b):          # Montgomery product in Fp or Fp2 = Fp[u]/(u^2 + 1)
+        if len(a) == 1:
+            return (a[0] * b[0] * rinv % p,)
+        return ((a[0] * b[0] - a[1] * b[1]) * rinv % p, (a[0] * b[1] + a[1] * b[0]) * rinv % p)
+
+    roots = []
+    for s in range(0, len(x1), INV_BLOCK):
+        acc = one
+        for i in range(s, min(s + INV_BLOCK, len(x1))):
+            eqx, eqy = x1[i] == x2[i], y1[i] == y2[i]
+            i1, i2 = x1[i] == zero and y1[i] == zero, x2[i] == zero and y2[i] == zero
+            if (eqx and not eqy) or i1 or i2:
+                continue
+            if eqx and eqy:
+                den = tuple(2 * v % p for v in y1[i])
+            else:
+                den = tuple((b - a) % p for a, b in zip(x1[i], x2[i]))
+            acc = mul(acc, den)
+        roots.append(acc[0] if len(acc) == 1 else (acc[0] * acc[0] + acc[1] * acc[1]) * rinv % p)
+    return roots
+
+
+def fold_closes(keys, T: int) -> int:
+    """Segments that close inside the lanes of one fold level: slots t >= 1
+    of a lane of T whose |key| differs from slot t-1's, over sorted keys
+    [W, m] (numpy)."""
+    import numpy as np
+    ak = np.abs(np.asarray(keys)).reshape(-1, T)
+    return int((ak[:, 1:] != ak[:, :-1]).sum())
+
+
 def time_ms(fn, device, reps: int = 3, warmup: bool = True) -> float:
     """Mean milliseconds of fn(): on a CUDA device CUDA events over `reps`
     calls after one warm-up call (unless `warmup` is False); on the CPU the
@@ -203,11 +261,12 @@ def _geom(curve: str):
 def work(name: str, curve: str = "G1", **shape) -> tuple:
     """(bytes, Fp products) of one launch of wrapper `name` at `shape`:
     point_add (n), point_double_n (n, k), horner (B, W, c), fold_level_kernel
-    (affine, T, lanes), ntt_inner_kernel (T, NB, twiddle), phase_a_kernel /
-    phase_b_kernel (M), phase_b_level_kernel (M, emit), mul_rows_kernel (W),
-    invert_kernel (M, inv_ops: the sum of `euclid_ops` over the run's block
-    roots, counted as inv_ops / FP_MUL_MULTIPLIES products),
-    fp_mul_chain_kernel (k, n)."""
+    (affine, T, lanes: of all windows, closes: `fold_closes` of the level's
+    keys, order: level 0 gathers through one, last), ntt_inner_kernel (T, NB,
+    twiddle), phase_a_kernel / phase_b_kernel (M), level_kernel (K, emit,
+    inv_ops), mul_rows_kernel (W), invert_kernel (M, inv_ops), where inv_ops
+    is the sum of `euclid_ops` over the run's block roots, counted as
+    inv_ops / FP_MUL_MULTIPLIES products; fp_mul_chain_kernel (k, n)."""
     nc, f = _geom(curve)
     s = shape
     if name == "point_add":                       # 6 coordinates in, 3 out
@@ -217,11 +276,21 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     if name == "horner":                          # W sums in, one point out
         B, W, c = s["B"], s["W"], s["c"]
         return 4 * 3 * nc * (W + 1) * B, (W - 1) * (9 * c + 14) * f * B
-    if name == "fold_level_kernel":               # every slot runs the add
-        T, lanes = s["T"], s["lanes"]
+    if name == "fold_level_kernel":
+        # keys (and the order's indices) and points read once; a lane's open
+        # segment and its key written once, or added into its bucket at the
+        # last level; a close reads and writes its bucket.  A slot that
+        # joins a running segment is one add (mixed in the affine level), a
+        # close one complete add, a slot that opens a segment none.
+        T, lanes, closes = s["T"], s["lanes"], s["closes"]
+        slots = T * lanes
         rin = (2 if s["affine"] else 3) * nc
-        words = T * lanes + T * rin * lanes + T * 3 * nc * lanes + 3 * nc * lanes
-        return 4 * words, (13 if s["affine"] else 14) * f * T * lanes
+        adds = closes + (lanes if s["last"] else 0)
+        words = slots * (1 + int(s["order"]) + rin) + 2 * 3 * nc * adds
+        if not s["last"]:
+            words += lanes * (3 * nc + 1)
+        joins = slots - lanes - closes
+        return 4 * words, ((13 if s["affine"] else 14) * joins + 14 * adds) * f
     if name == "ntt_inner_kernel":
         T, NB, tw = s["T"], s["NB"], int(s["twiddle"])
         words = 16 * NB * T * (2 + tw) + 16 * (T // 2)
@@ -242,10 +311,15 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     if name == "phase_b_kernel":                  # 16 + 16 x 6 products a lane
         M = s["M"]
         return 4 * (3 * 2 * nc * 16 * M + nc * M), 112 * f * M
-    if name == "phase_b_level_kernel":
-        M = s["M"]
-        planes = 4 + 2 + int(s["emit"])
-        return 4 * (planes * 2 * nc * 16 * M + 16 * M + nc * M), 112 * f * M
+    if name == "level_kernel":
+        # per addition four operand points and a flag byte read, two or
+        # three points written, 7 products (1 down the chain, 2 back, 4 in
+        # the affine add); per block K6's tree, its root's inversion
+        K = s["K"]
+        blocks = -(-K // INV_BLOCK)
+        per_block = 3 * 127 * f + 1 + (4 if curve == "G2" else 0)
+        nbytes = 4 * (4 + 2 + int(s["emit"])) * 2 * nc * K + K
+        return nbytes, 7 * f * K + blocks * per_block + s["inv_ops"] / FP_MUL_MULTIPLIES
     if name == "fp_mul_chain_kernel":
         return 4 * 3 * 16 * s["n"], s["k"] * s["n"]
     raise ValueError(f"no work count for {name!r}")

@@ -1,5 +1,5 @@
 """Kernels K1-K9 on the card against their plain PyTorch versions (K1's
-chains and the wide K6 included), `to_affine` on the card against the CPU, the
+chains, the wide K6, K2's levels and the fused tree level K8 included), `to_affine` on the card against the CPU, the
 merge-tree MSM, the chunked MSM and one small proof on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
 machine (no JAX needed):
 
@@ -56,6 +56,16 @@ def test_wrappers_refuse_cpu_tensors():
         KT.phase_b_kernel(C.G1, planes, planes, torch.zeros((16, 128), dtype=torch.uint32))
     with pytest.raises(ValueError):
         KN.fp_mul_chain_kernel(planes[:16, 0], planes[:16, 0], 4)
+    keys = torch.zeros((2, 64), dtype=torch.int32)
+    table = torch.zeros((2, 5, 48), dtype=torch.uint32)
+    with pytest.raises(ValueError):
+        KN.fold_level_kernel(C.G1, torch.zeros((64, 32), dtype=torch.uint32), keys, keys, table,
+                             32, affine=True)
+    cols = torch.zeros((32, 256), dtype=torch.uint32)
+    flag = torch.zeros(128, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        KT.level_kernel(C.G1, cols[:, :128], cols[:, :128], cols[:, 128:], cols[:, 128:],
+                        flag, flag, flag, True)
 
 
 @pytest.mark.gpu
@@ -131,19 +141,23 @@ def test_to_affine_card_matches_cpu(dev, cv):
 @pytest.mark.parametrize("affine", [True, False], ids=["affine", "projective"])
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_fold_kernel_matches_plain(dev, cv, affine):
-    from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
-    rng = np.random.default_rng(2)
-    T, lanes = 32, 300
-    keys = np.sort(rng.integers(0, 40, size=(T, lanes)), axis=0)
-    keys = keys * np.where(rng.integers(0, 2, size=(T, lanes)) > 0, 1, -1)
-    kT = torch.from_numpy(keys.astype(np.int32)).to(dev)
-    P = fixed_base_mul(cv, _scalars(rng, T * lanes, dev))
-    coords = C.to_affine(cv, P) if affine else P
-    rows = torch.cat([F.as_i32(c).reshape(T * lanes, -1) for c in coords], -1)
-    if affine:
-        rows[::11] = 0
-    pT = F.as_u32(rows.reshape(T, lanes, -1).permute(0, 2, 1).contiguous())
-    assert _same(KN.fold_level_kernel(cv, kT, pT, affine), KN.fold_level_plain(cv, kT, pT, affine))
+    """K2 against `fold_level_plain` at T = 1, 4 and 32 (and the last level,
+    one lane a window): the table (holding sums already), the trail and its
+    keys, with runs across lanes, negative digits, (0, 0) points and, in
+    the projective case, rows without an order."""
+    from test_torch_fold import fold_case
+    W, m, n, nb = 4, 256, 300, 40
+    rows, order, keys, table = (x.to(dev) for x in fold_case(cv, affine, W, m, n, nb, seed=2))
+    for T, last in ((1, False), (4, False), (32, False), (m, True)):
+        for o in ([order] if affine else [order, None]):
+            r = rows if o is not None else F.as_u32(
+                F.as_i32(rows)[torch.arange(W * m, device=dev) % n].contiguous())
+            tk, tp = table.clone(), table.clone()
+            got = KN.fold_level_kernel(cv, r, o, keys, tk, T, affine, last)
+            want = KN.fold_level_plain(cv, r, o, keys, tp, T, affine, last)
+            assert torch.equal(F.as_i32(tk), F.as_i32(tp))
+            assert all(g is w or torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -165,23 +179,29 @@ def test_ntt_kernel_matches_plain(dev, log2n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_tree_kernels_match_plain(dev, cv):
-    from test_torch_tree import level_case
+    """K4, K6, K5 and K7 on planes of 2 x INV_W lanes, and the fused level K8
+    at ragged widths (operands as strided views, all flag combinations)
+    against their plain versions."""
+    from test_torch_tree import level_case, level_flags, level_views
     T, M = KT.T_SLOTS, 2 * KT.INV_W
-    _, cols, flags = level_case(cv, T * M, seed=12)
-    apl, apr, bpl, bpr = (c.reshape(c.shape[0], T, M).to(dev) for c in cols)
-    flg = (flags[0].int() | flags[1].int() << 1 | flags[2].int() << 2).reshape(T, M).to(dev)
+    _, cols, _ = level_case(cv, T * M, seed=12)
+    apr, bpl = (c.reshape(c.shape[0], T, M).to(dev) for c in cols[1:3])
     tot = KT.phase_a_kernel(cv, apr, bpl)
     assert torch.equal(F.as_i32(tot), F.as_i32(KT.phase_a_plain(cv, apr, bpl)))
     tinv = KT.invert_kernel(cv, tot)
     assert torch.equal(F.as_i32(tinv), F.as_i32(KT.invert_plain(cv, tot)))
     assert torch.equal(F.as_i32(KT.mul_rows_kernel(cv, tinv, tot)),
                        F.as_i32(KT.mul_rows_plain(cv, tinv, tot)))
-    for want_em in (True, False):
-        got = KT.phase_b_level_kernel(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
-        want = KT.phase_b_level_plain(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
-        assert all(g is w or torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
     assert torch.equal(F.as_i32(KT.phase_b_kernel(cv, apr, bpl, tinv)),
                        F.as_i32(KT.phase_b_plain(cv, apr, bpl, tinv)))
+    for K in (1, 37, 512, 600, 1030, T * M):
+        views = level_views([c[:, :K].to(dev) for c in cols])
+        flags = [f.to(dev) for f in level_flags(K)]
+        for want_em in (True, False):
+            got = KT.level_kernel(cv, *views, *flags, want_em)
+            want = KT.level_plain(cv, *views, *flags, want_em)
+            assert all(g is w or torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

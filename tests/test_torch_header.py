@@ -107,28 +107,35 @@ def test_point_header_matches_plain_and_host(shim, cv):
     assert all(np.array_equal(o, p.numpy()) for o, p in zip(outs, plain))
 
 
+def _shim_fold(shim, cv, rows, order, keys, table, T, affine, last):
+    W, m = keys.shape
+    tab = table.clone()
+    trail = torch.zeros((W * (m // T), KN.fold_rows(cv)), dtype=torch.uint32)
+    tkey = torch.zeros((W, m // T), dtype=torch.int32)
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    shim.shim_fold(int(cv.name == "G2"), int(affine), ptr(rows), ptr(order), ptr(keys), ptr(tab),
+                   ptr(trail), ptr(tkey), T, m, W, table.shape[1], int(last))
+    return tab, (None, None) if last else (trail, tkey)
+
+
 @pytest.mark.parametrize("cv,affine", [(C.G1, True), (C.G1, False), (C.G2, True), (C.G2, False)],
                          ids=["G1-affine", "G1-proj", "G2-affine", "G2-proj"])
 def test_fold_lane_header_matches_plain(shim, cv, affine):
-    """K2's lane body vs `fold_level_plain`: emit and trail bit-exact, with
-    runs of equal |digit|, negative digits and (0, 0) points."""
-    T, lanes = 8, 5
-    rng = np.random.default_rng(9)
-    keys = np.sort(rng.integers(0, 6, size=(T, lanes)), axis=0)
-    keys = (keys * np.where(rng.integers(0, 2, size=(T, lanes)) > 0, 1, -1)).astype(np.int32)
-    P, _ = _points(cv, T * lanes, 10)
-    if affine:
-        P = C.to_affine(cv, P)
-    rows = torch.cat([F.as_i32(c).reshape(T * lanes, -1) for c in P], -1)
-    if affine:
-        rows[::7] = 0
-    pT = F.as_u32(rows.reshape(T, lanes, -1).permute(0, 2, 1).contiguous())
-    kT = torch.from_numpy(keys)
-    emit, trail = KN.fold_level_plain(cv, kT, pT, affine)
-    e = np.zeros(emit.shape, np.uint32)
-    t = np.zeros(trail.shape, np.uint32)
-    pT_np, k_np = pT.numpy(), kT.numpy()
-    shim.shim_fold(int(cv.name == "G2"), int(affine), _ptr(k_np), _ptr(pT_np), _ptr(e), _ptr(t),
-                   T, lanes)
-    assert np.array_equal(e, emit.numpy())
-    assert np.array_equal(t, trail.numpy())
+    """K2's lane body vs `fold_level_plain` at T = 1, 2, 4 and 32 (the last,
+    one lane a window, adding the open segments into the table too): the
+    bucket table, the trail and its keys bit-exact, with key runs that cross
+    lanes, negative digits, (0, 0) points, a table that already holds sums,
+    and, projective, the later levels' rows without an order."""
+    W, m, n, nb = 3, 32, 40, 6
+    from test_torch_fold import fold_case
+    rows, order, keys, table = fold_case(cv, affine, W, m, n, nb, seed=9)
+    for T in (1, 2, 4, 32):
+        last = T == m
+        for o in ([order] if affine else [order, None]):
+            r = rows if o is not None else rows[torch.arange(W * m) % n].contiguous()
+            tab, got = _shim_fold(shim, cv, r, o, keys, table, T, affine, last)
+            want_tab = table.clone()
+            want = KN.fold_level_plain(cv, r, o, keys, want_tab, T, affine, last)
+            assert torch.equal(F.as_i32(tab), F.as_i32(want_tab)), (T, o is None)
+            assert all(g is w or torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
+            assert torch.equal(F.as_i32(tab), F.as_i32(table)) == (T == 1)   # T = 1: nothing closes

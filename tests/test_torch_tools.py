@@ -1,14 +1,18 @@
-"""The port's tools on the CPU: bench_tree_phases and bench_mul_kernels run
-end to end through the plain versions at 2^8 points (the tree, the fold and
-the "auto" MSM give one point; K9's plain version agrees with host ints),
-their command lines refuse to run without CUDA, and tools/measure.py's SASS
-reading and kernel bounds.  Tolerance 0: exact integer arithmetic."""
+"""The port's tools on the CPU: bench_tree_phases, bench_fold_phases and
+bench_mul_kernels run end to end through the plain versions at 2^8 points
+(the tree, the fold and the "auto" MSM give one point; the fold's phases give
+the fold MSM's point; K9's plain version agrees with host ints), their
+command lines refuse to run without CUDA, bench_point_variants' reading of
+ptxas, and tools/measure.py's SASS reading, work counts and kernel bounds.
+Tolerance 0: exact integer arithmetic."""
 
+import numpy as np
 import pytest
 import torch
 
 from groth16_tpu_torch.ops import msm_tree as MT
-from groth16_tpu_torch.tools import bench_mul_kernels as BM, bench_tree_phases as BT
+from groth16_tpu_torch.tools import bench_fold_phases as BF, bench_mul_kernels as BM
+from groth16_tpu_torch.tools import bench_point_variants as BV, bench_tree_phases as BT
 from groth16_tpu_torch.tools import measure
 
 # The suite runs six worker processes on a few cores: one intra-op thread
@@ -31,7 +35,38 @@ def test_mul_kernels_run_on_the_cpu():
     assert res["max_abs_err"] == 0 and "sass_multiplies" not in res
 
 
-@pytest.mark.parametrize("tool", [BT, BM], ids=["bench_tree_phases", "bench_mul_kernels"])
+def test_fold_phases_run_on_the_cpu():
+    """Every phase once, the levels of `fold_schedule` with their closes."""
+    res = BF.run(8, "cpu", reps=1)
+    assert res["same_point"] and res["card"] == "cpu" and res["peak_gib_msm_fold"] is None
+    assert [lv["T"] for lv in res["levels"]] == res["schedule"]
+    assert len(res["phases_ms"]) == 7 + len(res["schedule"])
+    assert res["levels"][0]["affine"] and res["levels"][-1]["last"]
+
+
+def test_level_case_slots():
+    """bench_tree_phases.level_case, the operands the smoke and
+    bench_point_variants hand K8: PL and PR differ, and A.pR / B.pL hold a
+    doubling, a cancellation and the three infinity cases every 7 slots."""
+    from groth16_tpu_torch.ops import curve as C, field as F
+    K = 21
+    PL, PR, flags = BT.level_case(np.random.default_rng(2), C.G1, K, "cpu")
+    assert PL.shape == PR.shape == (32, 2 * K) and [f.shape for f in flags] == [(K,)] * 3
+    _, apr, bpl, _ = (F.as_i32(v) for v in BT.level_views(PL, PR))
+    x, y = slice(0, 16), slice(16, 32)
+    assert not torch.equal(F.as_i32(PL), F.as_i32(PR))
+    for s in range(K):
+        case = s % 7
+        a_inf, b_inf = not apr[:, s].any(), not bpl[:, s].any()
+        assert (a_inf, b_inf) == (case in (3, 5), case in (4, 5)), s
+        if case == 1:
+            assert torch.equal(apr[:, s], bpl[:, s])
+        if case == 2:
+            assert torch.equal(apr[x, s], bpl[x, s]) and not torch.equal(apr[y, s], bpl[y, s])
+
+
+@pytest.mark.parametrize("tool", [BT, BM, BF],
+                         ids=["bench_tree_phases", "bench_mul_kernels", "bench_fold_phases"])
 def test_main_needs_cuda(tool, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -76,7 +111,8 @@ def test_kernel_work_and_bounds():
     M = 8192
     assert measure.work("phase_b_kernel", "G1", M=M)[1] == 112 * M
     assert measure.work("phase_b_kernel", "G2", M=M)[1] == 3 * 112 * M
-    assert measure.work("phase_b_level_kernel", "G1", M=M, emit=False)[1] == 112 * M
+    assert measure.work("level_kernel", "G1", K=16 * M, emit=False, inv_ops=0)[1] == (
+        7 * 16 * M + 16 * M // 512 * (3 * 127 + 1))
     assert measure.work("fp_mul_chain_kernel", k=256, n=10) == (4 * 48 * 10, 2560)
     # K6: 3 products a total, per block the tree (3 x 127), the R^3 product and
     # the Euclid steps of its root (16 operations a halving or subtraction)
@@ -93,3 +129,70 @@ def test_kernel_work_and_bounds():
     assert side == "bytes" and abs(ms - 1.0) < 1e-9
     ms, side = measure.bound_ms(0, 132 * 64 * 1980 * 1000 // 136, 1980)
     assert side == "operations" and abs(ms - 1.0) < 1e-6
+
+
+def test_fold_and_level_work_counts():
+    """K2: a slot that joins a segment is one add (13 products mixed, 14
+    complete), a close one complete add that reads and writes its bucket;
+    the last level adds every lane's segment into its bucket.  K8: four
+    points and a flag byte read, two or three points written, 7 products an
+    addition, K6's tree and the Euclid steps a block."""
+    keys = np.array([[1, 1, 2, -2, 3, 3, 3, 4]])
+    assert measure.fold_closes(keys, 4) == 2 and measure.fold_closes(keys, 8) == 3
+    assert measure.fold_closes(keys, 1) == 0
+    b, p = measure.work("fold_level_kernel", "G1", affine=True, T=4, lanes=2, closes=2,
+                        order=True, last=False)
+    assert p == 13 * (8 - 2 - 2) + 14 * 2
+    assert b == 4 * (8 * (1 + 1 + 32) + 2 * 48 * 2 + 2 * (48 + 1))
+    b, p = measure.work("fold_level_kernel", "G2", affine=False, T=8, lanes=1, closes=3,
+                        order=False, last=True)
+    assert p == 3 * (14 * (8 - 1 - 3) + 14 * 4)
+    assert b == 4 * (8 * (1 + 96) + 2 * 96 * 4)
+    b, p = measure.work("level_kernel", "G2", K=600, emit=True, inv_ops=136 * 2)
+    assert b == 4 * 7 * 64 * 600 + 600
+    assert p == 7 * 3 * 600 + 2 * (3 * 127 * 3 + 1 + 4) + 2
+
+
+@pytest.mark.parametrize("cv_name", ["G1", "G2"])
+def test_level_block_roots(cv_name):
+    """The fused level's block roots multiply to the product of every masked
+    denominator of the level, which the plain K4 gives lane by lane (in G2
+    the norms multiply, the norm being multiplicative)."""
+    from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
+    from test_torch_tree import level_case
+    cv = getattr(C, cv_name)
+    K = 600
+    _, cols, _ = level_case(cv, K, seed=5)
+    roots = measure.level_block_roots(cv_name, cols[1].numpy(), cols[2].numpy())
+    assert len(roots) == 2
+    p = measure._P_FP
+    rinv = pow(1 << 256, -1, p)
+    tots = KT.phase_a_plain(cv, *(KT._planes(c, KT._tiles(K)) for c in cols[1:3]))
+    vals = measure._ints(tots.T.reshape(-1, 16).numpy())
+    prod = (1 << 256) % p if cv_name == "G1" else ((1 << 256) % p, 0)
+    for i in range(tots.shape[1]):
+        if cv_name == "G1":
+            prod = prod * vals[i] * rinv % p
+        else:
+            a, b = vals[2 * i], vals[2 * i + 1]
+            prod = ((prod[0] * a - prod[1] * b) * rinv % p, (prod[0] * b + prod[1] * a) * rinv % p)
+    if cv_name == "G2":
+        prod = (prod[0] * prod[0] + prod[1] * prod[1]) * rinv % p
+    assert roots[0] * roots[1] * rinv % p == prod
+
+
+PTXAS = """
+ptxas info    : Compiling entry function '_ZN5bn25411fold_kernelINS_2G2ELb1EEEvPKjPKiS5_PjS6_Piilii' for 'sm_90a'
+ptxas info    : Function properties for _ZN5bn25411fold_kernelINS_2G2ELb1EEEvPKjPKiS5_PjS6_Piilii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 0 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z17tree_level_kernelI2G1EvN5bn2547LevelIOE' for 'sm_90a'
+ptxas info    : Function properties for _Z17tree_level_kernelI2G1EvN5bn2547LevelIOE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem
+"""
+
+
+def test_ptxas_table_names_every_instantiation():
+    assert BV.ptxas_table(PTXAS) == {"fold_kernel G2 affine": (168, 4, 4),
+                                     "tree_level_kernel G1": (128, 0, 0)}

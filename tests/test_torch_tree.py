@@ -1,7 +1,7 @@
 """The port's merge-tree MSM (groth16_tpu_torch.ops.msm_tree, kernels_tree):
 whole MSMs against host ints, one tree level and K7's batched mids against
-host affine additions and JAX `msm_tree.mid_jnp`, the batch inversion's
-product tree, and the kernels' lane bodies built with g++
+host affine additions and JAX `msm_tree.level_jnp` / `mid_jnp`, the batch
+inversion's product tree, and the kernels' thread bodies built with g++
 (csrc/bn254_host_shim.cpp) against the plain PyTorch versions.  Tolerance 0
 throughout: exact integer arithmetic.  The port vs JAX `msm_tree` runs in the
 slow lane."""
@@ -171,6 +171,22 @@ def test_mid_matches_jax_mid_jnp():
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("K", [40, 600])
+def test_level_matches_jax_level_jnp(K):
+    """`KT.level` on the CPU (the plain K4, K6 and additions with node
+    updates) against the JAX package's portable `msm_tree.level_jnp`, with
+    the emission, on every group-law case and flag combination.  Tolerance
+    0: the values are canonical and inverses unique."""
+    import jax.numpy as jnp
+    from groth16_tpu.ops import curve as JC, msm_tree as JMT
+    _, cols, _ = level_case(C.G1, K, seed=K + 1)
+    views, flags = level_views(cols), level_flags(K)
+    got = KT.level(C.G1, *views, *flags, True)
+    want = JMT.level_jnp(JC.G1, *(jnp.asarray(v.contiguous().numpy()) for v in views),
+                         *(jnp.asarray(f.numpy()) for f in flags), True)
+    assert all(np.array_equal(g.numpy(), np.asarray(w)) for g, w in zip(got, want, strict=True))
+
+
 def test_window_sums_tree_explicit_level_fn():
     """`level_fn=KT.level` given explicitly is the default; a level that
     merges nothing changes the sums."""
@@ -218,14 +234,44 @@ def _p(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def level_flags(K):
+    """bool[K] flags (keys match, A pure, B pure) running through all eight
+    combinations, each against every group-law case of `level_case`."""
+    combo = torch.arange(K) // 7 % 8
+    return [(combo >> b & 1).bool() for b in range(3)]
+
+
+def level_views(cols):
+    """The four operand columns as the tree hands them to a level: halves
+    of PL = A.pL | B.pL and PR = A.pR | B.pR, views at limb stride 2K."""
+    apl, apr, bpl, bpr = cols
+    K = apl.shape[1]
+    PL, PR = torch.cat([apl, bpl], 1), torch.cat([apr, bpr], 1)
+    return PL[:, :K], PR[:, :K], PL[:, K:], PR[:, K:]
+
+
+def _shim_level(shim, cv, views, flags, want_em):
+    K, ld = KT._level_cols(cv, views)
+    flg = (flags[0].to(torch.uint8) + 2 * flags[1].to(torch.uint8) + 4 * flags[2].to(torch.uint8))
+    outs = [torch.zeros((2 * KT.ncomp(cv), K), dtype=torch.uint32) for _ in range(3)]
+    shim.shim_tree_level(int(cv.name == "G2"), *(_p(v) for v in views), _p(flg.contiguous()),
+                         _p(outs[0]), _p(outs[1]), _p(outs[2]) if want_em else None, K, ld)
+    return outs[0], outs[1], (outs[2] if want_em else None)
+
+
+def _same_level(got, want):
+    return all((g is None and w is None) or torch.equal(F.as_i32(g), F.as_i32(w))
+               for g, w in zip(got, want, strict=True))
+
+
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_tree_lane_header_matches_plain(shim, cv):
-    """K4, K6 and K8 lane bodies vs `phase_a_plain`, `invert_plain` and
-    `phase_b_level_plain` on one tile (M = INV_W lanes of T_SLOTS)."""
+    """K4's lane body and K6 block by block vs `phase_a_plain` and
+    `invert_plain` on one tile (M = INV_W lanes of T_SLOTS), and the fused
+    level (K8) on the same 2,048 additions vs `level_plain`."""
     T, M_ = KT.T_SLOTS, KT.INV_W
     _, cols, flags = level_case(cv, T * M_, seed=11)
     apl, apr, bpl, bpr = (c.reshape(c.shape[0], T, M_).contiguous() for c in cols)
-    flg = (flags[0].int() | flags[1].int() << 1 | flags[2].int() << 2).reshape(T, M_).contiguous()
     g2 = int(cv.name == "G2")
 
     tot = torch.zeros((KT.ncomp(cv), M_), dtype=torch.uint32)
@@ -236,14 +282,24 @@ def test_tree_lane_header_matches_plain(shim, cv):
     shim.shim_tree_invert(g2, _p(tot), _p(tinv), M_)
     assert torch.equal(F.as_i32(tinv), F.as_i32(KT.invert_plain(cv, tot)))
 
+    views = level_views(cols)
     for want_em in (True, False):
-        outs = [torch.zeros_like(apl) for _ in range(3)]
-        shim.shim_tree_phase_b(g2, _p(apl), _p(apr), _p(bpl), _p(bpr), _p(flg), _p(tinv),
-                               _p(outs[0]), _p(outs[1]), _p(outs[2]) if want_em else None, M_)
-        plain = KT.phase_b_level_plain(cv, apl, apr, bpl, bpr, flg, tinv, want_em)
-        for o, p in zip(outs, plain):
-            if p is not None:
-                assert torch.equal(F.as_i32(o), F.as_i32(p))
+        assert _same_level(_shim_level(shim, cv, views, flags, want_em),
+                           KT.level_plain(cv, *views, *flags, want_em))
+
+
+@pytest.mark.parametrize("K", [1, 37, 512, 600, 1030])
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_tree_level_header_matches_plain(shim, cv, K):
+    """The fused level (K8) block by block vs `level_plain` at widths of one
+    addition, part of a block, one block, and ragged blocks: doubling,
+    cancellation and infinity slots under all eight flag combinations,
+    operands read as strided views, with and without the emission."""
+    _, cols, _ = level_case(cv, K, seed=K)
+    views, flags = level_views(cols), level_flags(K)
+    for want_em in (True, False):
+        assert _same_level(_shim_level(shim, cv, views, flags, want_em),
+                           KT.level_plain(cv, *views, *flags, want_em))
 
 
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
