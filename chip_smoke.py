@@ -11,11 +11,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      main path's shapes, bit-exact (tolerance 0: exact integer arithmetic),
      and time both with CUDA events: K1's add, doubling chain and Horner, K2
      at every fold level of the main path's MSMs (G1 and G2, level 0 affine
-     through the sort order, the projective levels of `fold_schedule`), K3,
-     K4, K5, the batch inversion K6 at widths from 1 to 2^17 (a zero among
-     the totals), the fused tree level K8 at the H1 MSM's levels 1 and 2, a
-     narrow level, the 2^20 tree's level 1 and a G2 level, and `to_affine`
-     on the card against the CPU;
+     through the sort order, the projective levels of `fold_schedule`), K3
+     at every step of every plan (the quotient's batched coset shift and
+     un-shift, the forward and inverse NTT) and the quotient's pointwise
+     kernel at 2^10-2^20, K4, K5, the batch inversion K6 at widths from 1
+     to 2^17 (a zero among the totals), the fused tree level K8 at the H1
+     MSM's levels 1 and 2, a narrow level, the 2^20 tree's level 1 and a G2
+     level, and `to_affine` on the card against the CPU;
   4. the main path: synthetic_circuit(16) (65,533 constraints, domain 2^16),
      the port's fake setup on the card, write_zkey / write_witness to a temp
      directory, parse_zkey / parse_witness, generate_proof_with_mask with a
@@ -23,8 +25,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      every kernel of the proof path must have launched during the proofs,
      and a proof must launch Horner 5 times, at most 10 doubling chains,
      fewer than 400 K1 kernels in all, no K5 and no K4, the fused tree level
-     80 times, K6 5 times (`to_affine`) and K2 once a fold level of its
-     four fold MSMs;
+     80 times, K6 5 times (`to_affine`), K2 once a fold level of its four
+     fold MSMs, and K3 4 times (Snarkjs) or 6 times (JensGroth) with one
+     pointwise kernel; then torch.profiler around one 2^16 quotient per
+     flavour: no `cummax` and no plain field-arithmetic kernel may run, and
+     the quotient on the card against its plain version on the card at 2^16
+     and 2^20, both flavours, timed beside its bound;
   5. the H1 MSM (2^16 points) through the merge tree and through the fold,
      timed against each other; both must give the same point;
   6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
@@ -69,7 +75,11 @@ K1_POINTS = 1 << 16
 # the projective levels of msm.fold_schedule
 FOLD_LOG2 = 16
 FOLD_MSMS_PER_PROOF = 4
-NTT_SIZES = (10, 15, 16, 17)
+NTT_SIZES = (10, 15, 16, 17, 20)
+NTT_TIMED = (16, 20)
+QUOTIENT_SIZES = (16, 20)
+# K3 launches and pointwise launches of one proof's quotient, per flavour
+QUOTIENT_LAUNCHES = {"snarkjs": (4, 1), "jens-groth": (6, 1)}
 # K4 and K7 at the H1 MSM's level 1 (2^16 points, c = 13, groups of 4
 # windows, 2^18 elements a group): 2^17 additions = 8192 lanes of 16
 TREE_M = 8192
@@ -233,30 +243,120 @@ def check_fold_kernel(dev, results):
 
 
 def check_ntt_kernel(rng, dev, results):
-    """K3 at each of the four inner-transform calls of a forward and an
-    inverse NTT at 2^10, 2^15, 2^16 and 2^17, plus the round trip through
-    forward_ntt / inverse_ntt."""
+    """K3 at every step of every plan (the quotient's coset shift on a batch
+    of three and its un-shift, the forward and the inverse NTT) and the
+    quotient's pointwise kernel in both of its uses, at 2^10, 2^15, 2^16,
+    2^17 and 2^20, against their plain versions on the same inputs; timed at
+    2^16 and 2^20.  Each plan's steps run on the previous step's output, and
+    the forward / inverse round trip must give the input back."""
     from groth16_tpu_torch.ops import ntt as NT
     for log2n in NTT_SIZES:
-        err = 0
-        for inverse in (False, True):
-            for NB, T, tw, roots, dit in NT.inner_calls(log2n, inverse, dev):
-                x = random_scalars(rng, NB * T, dev).T.contiguous().reshape(16, NB, T)
-                e = max_abs_err(NT.ntt_inner_kernel(x, tw, roots, dit),
-                                NT.ntt_inner_plain(x, tw, roots, dit))
+        n, err = 1 << log2n, 0
+        timed = log2n in NTT_TIMED
+        eta = NT.Domain(log2n + 1).gen
+        for kind in ("to_coset", "from_coset_std", "forward", "inverse"):
+            B = 3 if kind == "to_coset" else 1
+            x = random_scalars(rng, B * n, dev).reshape(B, n, 16)
+            if kind == "from_coset_std":
+                x = NT.pack(x)                 # as the pointwise kernel leaves it
+            steps = NT.inner_calls(log2n, kind, dev, eta)
+            for j, st in enumerate(steps):
+                wire_out = kind != "to_coset" and j == len(steps) - 1
+                got = NT.ntt_inner_kernel(x, st, wire_out)
+                plain = {}
+                t_p = cuda_ms(lambda: plain.setdefault("out", NT.ntt_inner_plain(x, st, wire_out)),
+                              1, warmup=False)
+                e = max_abs_err(got, plain["out"])
                 err = max(err, e)
-                if log2n == LOG2:
-                    t_k = cuda_ms(lambda: NT.ntt_inner_kernel(x, tw, roots, dit), 20)
-                    t_p = cuda_ms(lambda: NT.ntt_inner_plain(x, tw, roots, dit), 2)
-                    kind = ("DIT" if dit else "DIF") + (" +twiddle" if tw is not None else "")
-                    print(f"K3 2^{log2n} {kind} T={T} NB={NB}: {t_k:.4f} ms (plain {t_p:.2f} ms)")
-                    record(results, "ntt_inner_kernel", f"2^{log2n} {kind}", e, t_k, t_p,
-                           dict(T=T, NB=NB, twiddle=tw is not None))
+                if timed:
+                    t_k = cuda_ms(lambda: NT.ntt_inner_kernel(x, st, wire_out), 20)
+                    tabs = "+pre" * (st.pre is not None) + "+post" * (st.post is not None)
+                    fmt = ("wire" if x.shape[2] == 16 else "packed") + "->" + (
+                        "wire" if wire_out else "packed")
+                    name = (f"2^{log2n} {kind} step {j + 1} {'DIT' if st.dit else 'DIF'}{tabs} "
+                            f"T={st.T} NB={st.NB} B={B} {fmt}")
+                    print(f"K3 {name}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {e}")
+                    record(results, "ntt_inner_kernel", name, e, t_k, t_p,
+                           dict(T=st.T, NB=st.NB, B=B, pre=st.pre is not None,
+                                post=st.post is not None, wire_in=x.shape[2] == 16,
+                                wire_out=wire_out))
+                x = got
+        for scale, standard in ((None, True), (0x1234567, False)):
+            ev = NT.pack(random_scalars(rng, 3 * n, dev).reshape(3, n, 16))
+            e = max_abs_err(NT.quotient_pointwise_kernel(ev, scale, standard),
+                            NT.quotient_pointwise_plain(ev, scale, standard))
+            err = max(err, e)
+            if timed:
+                t_k = cuda_ms(lambda: NT.quotient_pointwise_kernel(ev, scale, standard), 20)
+                t_p = cuda_ms(lambda: NT.quotient_pointwise_plain(ev, scale, standard), 2)
+                use = "Snarkjs (out of Montgomery form)" if standard else "JensGroth (x 1/Z)"
+                print(f"pointwise 2^{log2n} {use}: {t_k:.4f} ms (plain {t_p:.2f} ms), "
+                      f"max_abs_err {e}")
+                record(results, "quotient_pointwise_kernel", f"2^{log2n} {use}", e, t_k, t_p,
+                       dict(n=n, scale=scale is not None, standard=standard))
         dom = NT.Domain(log2n)
-        x = random_scalars(rng, dom.size, dev)
+        x = random_scalars(rng, n, dev)
         max_abs_err(NT.inverse_ntt(dom, NT.forward_ntt(dom, x)), x)   # round trip
-        print(f"K3 2^{log2n}: four inner calls bit-exact (max_abs_err {err}), round trip exact")
-        record(results, "ntt_inner_kernel", f"2^{log2n} all calls", err, None, None)
+        print(f"K3 2^{log2n}: every step of every plan and the pointwise kernel bit-exact "
+              f"(max_abs_err {err}), round trip exact")
+        record(results, "ntt_inner_kernel", f"2^{log2n} all steps", err, None, None)
+
+
+def quotient_phase(rng, dev, results):
+    """prover.quotient_scalars on the card (the kernels) against its plain
+    versions on the card, both flavours, at 2^16 and 2^20 on random Az, Bz,
+    Cz: bit-exact; both timed with CUDA events, the kernels' time beside the
+    bound of the whole quotient (tools/measure.py `work("quotient")`)."""
+    import torch
+    from groth16_tpu_torch.protocol.prover import quotient_scalars
+    from groth16_tpu_torch.protocol.types import Flavour
+    for log2n in QUOTIENT_SIZES:
+        abc = [random_scalars(rng, 1 << log2n, dev).to(torch.int64) for _ in range(3)]
+        for flavour in (Flavour.Snarkjs, Flavour.JensGroth):
+            got = quotient_scalars(flavour, *abc, log2n)
+            plain = {}
+            t_p = cuda_ms(lambda: plain.setdefault("out", quotient_scalars(flavour, *abc, log2n,
+                                                                           plain=True)),
+                          1, warmup=False)
+            err = max_abs_err(got, plain["out"])
+            t_k = cuda_ms(lambda: quotient_scalars(flavour, *abc, log2n), 10)
+            print(f"quotient 2^{log2n} {flavour.value}: {t_k:.4f} ms (plain {t_p:.1f} ms), "
+                  f"max_abs_err {err}")
+            record(results, "quotient", f"2^{log2n} {flavour.value}", err, t_k, t_p,
+                   dict(log2n=log2n, flavour=flavour.value))
+
+
+def profile_quotient(rng, dev):
+    """torch.profiler around one 2^16 quotient per flavour (tables already
+    built by the proofs), each kernel's launches and device time printed:
+    the device must run only the two quotient kernels
+    and copies (the stack and cast of Az, Bz, Cz); a `cummax` or any other
+    plain field-arithmetic kernel fails the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from groth16_tpu_torch.protocol.prover import quotient_scalars
+    from groth16_tpu_torch.protocol.types import Flavour
+    abc = [random_scalars(rng, 1 << LOG2, dev).to(torch.int64) for _ in range(3)]
+    ours = ("ntt_step_kernel", "quotient_pointwise_kernel")
+    for flavour in (Flavour.Snarkjs, Flavour.JensGroth):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            quotient_scalars(flavour, *abc, LOG2)
+            torch.cuda.synchronize()
+        names: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = names.get(e.name, (0, 0.0))
+                names[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if not any(k.startswith(ours) for k in names):
+            raise AssertionError("the profiler traced no quotient kernel on the device")
+        print(f"profiled quotient 2^{LOG2} {flavour.value}, device kernels (launches, device "
+              f"ms): " + "; ".join(f"{n} x {k[:60]} {us / 1e3:.4f}" for k, (n, us) in names.items()))
+        bad = [k for k in names if "cummax" in k
+               or not (k.startswith(ours) or "copy" in k.lower() or "memset" in k.lower())]
+        if bad:
+            raise AssertionError(f"{flavour.value}: the quotient ran plain kernels: {bad}")
 
 
 def tree_planes(rng, cv, M, dev):
@@ -374,6 +474,7 @@ def check_tree_mid_kernel(rng, dev, results):
 WRAPPERS = (("point_add", "kernels", "proof"), ("point_double_n", "kernels", "proof"),
             ("horner", "kernels", "proof"),
             ("fold_level_kernel", "kernels", "proof"), ("ntt_inner_kernel", "ntt", "proof"),
+            ("quotient_pointwise_kernel", "ntt", "proof"),
             ("phase_a_kernel", "kernels_tree", "tree phases"),
             ("mul_rows_kernel", "kernels_tree", "tree phases"),
             ("invert_kernel", "kernels_tree", "proof"),
@@ -449,8 +550,10 @@ def main_path(dev):
             raise AssertionError(f"{flavour.value}: a proof launches Horner 5 times, at most 10 "
                                  f"doubling chains, fewer than {K1_MAX_PER_PROOF} K1 kernels "
                                  f"(got {k1}) and no K5")
+        k3, pointwise = QUOTIENT_LAUNCHES[flavour.value]
         want = {"level_kernel": LEVELS_PER_PROOF, "phase_a_kernel": 0,
-                "invert_kernel": TO_AFFINE_PER_PROOF, "fold_level_kernel": fold_launches}
+                "invert_kernel": TO_AFFINE_PER_PROOF, "fold_level_kernel": fold_launches,
+                "ntt_inner_kernel": k3, "quotient_pointwise_kernel": pointwise}
         if any(during[k] != v for k, v in want.items()):
             raise AssertionError(f"{flavour.value}: a proof launches {want}, got "
                                  + json.dumps({k: during[k] for k in want}))
@@ -587,6 +690,8 @@ def main() -> int:
     phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
     phase("to_affine check", lambda: check_to_affine(rng, dev))
     counts["proof"], zkey = phase("proofs", lambda: main_path(dev))
+    phase("quotient profile", lambda: profile_quotient(rng, dev))
+    phase("quotient 2^16 and 2^20", lambda: quotient_phase(rng, dev, results))
     phase("H1 tree vs fold", lambda: h1_tree_vs_fold(rng, dev, zkey))
     phase("K7 check", lambda: check_tree_mid_kernel(rng, dev, results))
     counts["fp products"], k9 = phase("K9 Fp-product run", lambda: fp_product_path(dev, results))
@@ -615,6 +720,7 @@ def main() -> int:
              "horner": ("point.cu", "groth16_tpu/ops/kernels.py:288"),
              "fold_level_kernel": ("fold.cu", "groth16_tpu/ops/kernels.py:416"),
              "ntt_inner_kernel": ("ntt.cu", "groth16_tpu/ops/ntt_pallas.py:232"),
+             "quotient_pointwise_kernel": ("ntt.cu", "groth16_tpu/protocol/prover.py:150"),
              "phase_a_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:120"),
              "mul_rows_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:166"),
              "invert_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:202"),

@@ -3,13 +3,15 @@
 // g++ compiles the same __host__ __device__ field, point, fold-lane and
 // merge-tree lane functions the CUDA kernels run (bn254_field.cuh,
 // bn254_curve.cuh), and this file loops them over wire-layout arrays, so the
-// arithmetic of K1 (chains included), K2, K4, K6, K7, K8 and K9 is checked
-// without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
+// arithmetic of K1 (chains included), K2, K3 (block by block, bn254_ntt.cuh),
+// K4, K6, K7, K8, K9 and the quotient's pointwise step is checked without a
+// GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254shim.so bn254_host_shim.cpp
 
 #include <vector>
 
 #include "bn254_curve.cuh"
+#include "bn254_ntt.cuh"
 
 using namespace bn254;
 
@@ -193,6 +195,33 @@ void shim_tree_level(int g2, const uint32_t* apl, const uint32_t* apr, const uin
   const LevelIO io{apl, apr, bpl, bpr, flg, opl, opr, oem, K, ld};
   if (g2) level_blocks<G2>(io);
   else level_blocks<G1>(io);
+}
+
+// K3, one launch: every block in turn, each phase over the block's threads
+// in turn (the loops stand where the kernel synchronises)
+void shim_ntt_step(const uint32_t* x, uint32_t* out, const uint32_t* pre, const uint32_t* post,
+                   const uint32_t* roots, const long* strides, int T, long NB, int B, int dit,
+                   int wire_in, int wire_out) {
+  int log_t = 0;
+  while ((1 << log_t) < T) ++log_t;
+  const NttStep s{x, out, pre, post, roots, strides[0], strides[1], strides[2], strides[3],
+                  strides[4], strides[5], T, log_t, dit, wire_in, wire_out};
+  std::vector<uint32_t> sm(8 * T);
+  for (long b = 0; b < B; ++b) {
+    for (long i = 0; i < NB; ++i) {
+      for (int q = 0; q < T; ++q) ntt_load(s, b, i, q, sm.data());
+      for (int k = 1; k < T; k <<= 1) {
+        const int h = dit ? k : T / (2 * k);
+        for (int t = 0; t < T / 2; ++t) ntt_butterfly(s, h, t, sm.data());
+      }
+      for (int p = 0; p < T; ++p) ntt_store(s, b, i, p, sm.data());
+    }
+  }
+}
+
+void shim_quotient_pointwise(const uint32_t* ev, long n, const uint32_t* scale, int standard,
+                             uint32_t* out) {
+  for (long e = 0; e < n; ++e) quotient_point(ev, n, e, scale, standard, out);
 }
 
 }  // extern "C"

@@ -26,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 
 KERNEL_SOURCES = ("point.cu", "fold.cu", "ntt.cu", "tree.cu", "mul_chain.cu")
-HEADERS = ("bn254_field.cuh", "bn254_curve.cuh")
+HEADERS = ("bn254_field.cuh", "bn254_curve.cuh", "bn254_ntt.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -40,7 +40,8 @@ _SIGNATURES = {
     "g16_point_double_n": [_I] + [_P] * 6 + [_L, _I, _P],
     "g16_horner": [_I] + [_P] * 6 + [_L, _I, _I, _P],
     "g16_fold": [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I, _P],
-    "g16_ntt": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "g16_ntt_step": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _P],
+    "g16_quotient_pointwise": [_P, _L, _P, _I, _P, _P],
     "g16_tree_phase_a": [_I, _P, _P, _P, _L, _P],
     "g16_tree_mul_rows": [_I, _P, _P, _P, _L, _P],
     "g16_tree_invert": [_I, _P, _P, _L, _P],
@@ -186,8 +187,11 @@ def host_shim():
     L.shim_tree_level.argtypes = [_I] + [_P] * 8 + [_L, _L]
     L.shim_tree_mid.argtypes = [_I, _P, _P, _P, _P, _L]
     L.shim_fp_mul_chain.argtypes = [_P, _P, _P, _I, _L]
+    L.shim_ntt_step.argtypes = [_P] * 6 + [_I, _L, _I, _I, _I, _I]
+    L.shim_quotient_pointwise.argtypes = [_P, _L, _P, _I, _P]
     for fn in (L.shim_field, L.shim_point, L.shim_fold, L.shim_tree_phase_a,
                L.shim_tree_invert, L.shim_tree_level, L.shim_tree_mid,
-               L.shim_fp_mul_chain, L.shim_point_double_n, L.shim_horner, L.shim_field_inv):
+               L.shim_fp_mul_chain, L.shim_point_double_n, L.shim_horner, L.shim_field_inv,
+               L.shim_ntt_step, L.shim_quotient_pointwise):
         fn.restype = None
     return L

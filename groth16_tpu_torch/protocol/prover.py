@@ -6,9 +6,10 @@ Counterpart of the staged path of groth16_tpu/protocol/prover.py
   1. SpMV: gather witness columns, one Montgomery multiply, an int64
      segment sum into rows (exact for up to 2^46 terms a row), Cz = Az .* Bz
      (`abc_core`, reference prover.nim:56-73);
-  2. quotient scalars: three coset shifts (iNTT, scale by eta^i, NTT, each
-     NTT through kernel K3), then A .* B - C; JensGroth also scales by 1/Z,
-     interpolates and un-shifts (reference prover.nim:118-181);
+  2. quotient scalars: the three coset shifts (iNTT, scale by eta^i, NTT)
+     as four batched K3 launches, then A .* B - C in one pointwise kernel;
+     JensGroth also scales by 1/Z there, interpolates and un-shifts in two
+     more K3 launches (reference prover.nim:118-181);
   3. five MSMs: G1 over A1, B1, H1 and C1, G2 over B2, each on the path the
      JAX package picks: H1 (as many points as the domain, 2^16 and up at
      real sizes) through the merge tree (kernels K4-K6, K8), the others
@@ -103,29 +104,28 @@ def build_abc(zkey: ZKey, witness_mont: torch.Tensor):
 # quotient scalars
 # ---------------------------------------------------------------------------
 
-def _mont_const(x: int, device) -> torch.Tensor:
-    return F.const(FR.to_mont_limbs(x), device)
-
-
-def quotient_scalars(flavour: Flavour, az, bz, cz, log2n: int) -> torch.Tensor:
+def quotient_scalars(flavour: Flavour, az, bz, cz, log2n: int, plain: bool = False) -> torch.Tensor:
     """The H-points MSM scalars, per flavour (reference prover.nim:118-181),
-    int64 Montgomery [N, 16]."""
-    dom = NT.Domain(log2n)
+    in standard form, uint32 [N, 16].  A, B and C go through the coset
+    shift together (four K3 steps), then one pointwise pass takes A * B - C
+    out of Montgomery form (Snarkjs), or scales it by 1/Z for JensGroth's
+    interpolation and un-shift (two more K3 steps, eta^-i in standard form
+    as the last post-multiply).  `plain` runs the plain versions on any
+    device, to hold the kernels against them."""
     eta = NT.Domain(log2n + 1).gen
-    dev = az.device
-    eta_m = _mont_const(eta, dev)
-    a1, b1, c1 = (NT.shift_eval_domain(dom, x.to(torch.uint32), eta_m) for x in (az, bz, cz))
-    ys = F.sub_mod(FR, F.mont_mul(FR, F.i64(a1), F.i64(b1)), F.i64(c1))
+    inner = NT.ntt_inner_plain if plain else NT.ntt_inner
+    pointwise = NT.quotient_pointwise_plain if plain else NT.quotient_pointwise
+    x = torch.stack([az, bz, cz]).to(torch.uint32)
+    ev = NT.transform(x, log2n, "to_coset", eta, wire_out=False, inner=inner)
     if flavour == Flavour.Snarkjs:
         # H points are shifted Lagrange bases: the coset values ARE the scalars
-        return ys
+        return pointwise(ev, None, True)
     # JensGroth: divide by Z on the coset, (eta w^j)^N - 1 = eta^N - 1, then
     # interpolate and un-shift
     r = FR.modulus
-    inv_z1 = pow(pow(eta, dom.size, r) - 1, -1, r)
-    ys = F.mont_mul(FR, ys, _mont_const(inv_z1, dev))
-    q1 = NT.inverse_ntt(dom, ys.to(torch.uint32))
-    return F.i64(NT.mul_by_powers(dom, q1, _mont_const(pow(eta, -1, r), dev)))
+    inv_z1 = pow(pow(eta, 1 << log2n, r) - 1, -1, r)
+    ys = pointwise(ev, inv_z1, False)
+    return NT.transform(ys, log2n, "from_coset_std", eta, inner=inner)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +163,7 @@ def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torc
     _sync(device)
     t1 = time.perf_counter()
 
-    qs_std = F.from_mont(FR, quotient_scalars(hdr.flavour, az, bz, cz,
-                                              hdr.log_domain_size)).to(torch.uint32)
+    qs_std = quotient_scalars(hdr.flavour, az, bz, cz, hdr.log_domain_size)
     _sync(device)
     t2 = time.perf_counter()
 

@@ -263,7 +263,9 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     point_add (n), point_double_n (n, k), horner (B, W, c), fold_level_kernel
     (affine, T, lanes: of all windows, closes: `fold_closes` of the level's
     keys, order: level 0 gathers through one, last), ntt_inner_kernel (T, NB,
-    twiddle), phase_a_kernel / phase_b_kernel (M), level_kernel (K, emit,
+    B, pre, post, wire_in, wire_out), quotient_pointwise_kernel (n, scale,
+    standard), quotient (log2n, flavour: the whole of
+    `prover.quotient_scalars`), phase_a_kernel / phase_b_kernel (M), level_kernel (K, emit,
     inv_ops), mul_rows_kernel (W), invert_kernel (M, inv_ops), where inv_ops
     is the sum of `euclid_ops` over the run's block roots, counted as
     inv_ops / FP_MUL_MULTIPLIES products; fp_mul_chain_kernel (k, n)."""
@@ -292,9 +294,25 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
         joins = slots - lanes - closes
         return 4 * words, ((13 if s["affine"] else 14) * joins + 14 * adds) * f
     if name == "ntt_inner_kernel":
-        T, NB, tw = s["T"], s["NB"], int(s["twiddle"])
-        words = 16 * NB * T * (2 + tw) + 16 * (T // 2)
-        return 4 * words, NB * ((T // 2) * (T.bit_length() - 1) + tw * T)
+        # B x NB transforms: each element read and written once (64 bytes
+        # wire, 32 packed), the packed tables read once (pre, post [NB, T],
+        # the stage roots [T]); log2(T) stages of T/2 products, one product
+        # an element for each table
+        T, NB, B, tabs = s["T"], s["NB"], s["B"], int(s["pre"]) + int(s["post"])
+        elem = (64 if s["wire_in"] else 32) + (64 if s["wire_out"] else 32)
+        nbytes = B * NB * T * elem + 32 * (tabs * NB * T + T)
+        return nbytes, B * NB * ((T // 2) * (T.bit_length() - 1) + tabs * T)
+    if name == "quotient_pointwise_kernel":
+        # A, B, C packed in; the result out (wire if standard, else packed);
+        # A * B, the scale and the product that leaves Montgomery form
+        n, sc, std = s["n"], int(s["scale"]), int(s["standard"])
+        return 3 * 32 * n + 32 * sc + (64 if std else 32) * n, n * (1 + sc + std)
+    if name == "quotient":
+        # prover.quotient_scalars: Az, Bz, Cz in (int64 [N, 16]), the
+        # scalars out (wire); the products of its launches
+        N = 1 << s["log2n"]
+        prods = sum(work(n, **sh)[1] for n, sh in quotient_launches(s["log2n"], s["flavour"]))
+        return 3 * 128 * N + 64 * N, prods
     if name == "phase_a_kernel":                  # 16 denominators a lane
         M = s["M"]
         return 4 * (2 * 2 * nc * 16 * M + nc * M), 16 * f * M
@@ -323,6 +341,28 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     if name == "fp_mul_chain_kernel":
         return 4 * 3 * 16 * s["n"], s["k"] * s["n"]
     raise ValueError(f"no work count for {name!r}")
+
+
+def quotient_launches(log2n: int, flavour: str) -> list:
+    """(wrapper, shape) of every launch of `prover.quotient_scalars` at
+    2^log2n: the coset shift's four K3 steps (A, B and C in one batch), the
+    pointwise step, and for JensGroth the two steps of the un-shift."""
+    from groth16_tpu_torch.ops import ntt as NT
+    eta = NT.Domain(log2n + 1).gen
+    jens = flavour == "jens-groth"
+
+    def steps(kind, B, wire_in, wire_out):
+        calls = NT.inner_calls(log2n, kind, "cpu", eta)
+        return [("ntt_inner_kernel", dict(T=c.T, NB=c.NB, B=B, pre=c.pre is not None,
+                                          post=c.post is not None, wire_in=wire_in and j == 0,
+                                          wire_out=wire_out and j == len(calls) - 1))
+                for j, c in enumerate(calls)]
+
+    out = steps("to_coset", 3, True, False)
+    out.append(("quotient_pointwise_kernel", dict(n=1 << log2n, scale=jens, standard=not jens)))
+    if jens:
+        out += steps("from_coset_std", 1, False, True)
+    return out
 
 
 def bound_ms(nbytes: int, products: int, clock_mhz: float) -> tuple:

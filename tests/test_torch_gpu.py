@@ -1,5 +1,6 @@
 """Kernels K1-K9 on the card against their plain PyTorch versions (K1's
-chains, the wide K6, K2's levels and the fused tree level K8 included), `to_affine` on the card against the CPU, the
+chains, the wide K6, K2's levels, the fused tree level K8, every K3 step of
+every plan and the quotient's pointwise kernel included), `to_affine` on the card against the CPU, the
 merge-tree MSM, the chunked MSM and one small proof on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
 machine (no JAX needed):
 
@@ -45,8 +46,10 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         KN.horner(C.G1, P, 3)
     with pytest.raises(ValueError):
-        NT.ntt_inner_kernel(torch.zeros((16, 1, 4), dtype=torch.uint32), None,
-                            NT.stage_roots(4, 1, "cpu"), False)
+        NT.ntt_inner_kernel(torch.zeros((1, 4, 16), dtype=torch.uint32),
+                            NT.inner_calls(2, "forward", "cpu")[0], True)
+    with pytest.raises(ValueError):
+        NT.quotient_pointwise_kernel(torch.zeros((3, 4, 8), dtype=torch.uint32), None, True)
     planes = torch.zeros((32, KT.T_SLOTS, 128), dtype=torch.uint32)
     with pytest.raises(ValueError):
         KT.phase_a_kernel(C.G1, planes, planes)
@@ -163,17 +166,43 @@ def test_fold_kernel_matches_plain(dev, cv, affine):
 @pytest.mark.gpu
 @pytest.mark.parametrize("log2n", [3, 10, 15])
 def test_ntt_kernel_matches_plain(dev, log2n):
+    """K3 at every step of every plan (the quotient's coset shift with a batch
+    of three), wire or packed in, against its plain version; the NTT API on
+    the card against the CPU."""
     rng = np.random.default_rng(log2n)
-    for inverse in (False, True):
-        for NB, T, tw, roots, dit in NT.inner_calls(log2n, inverse, dev):
-            x = _scalars(rng, NB * T, dev).T.contiguous().reshape(16, NB, T)
-            assert torch.equal(F.as_i32(NT.ntt_inner_kernel(x, tw, roots, dit)),
-                               F.as_i32(NT.ntt_inner_plain(x, tw, roots, dit)))
+    eta = NT.Domain(log2n + 1).gen
+    for kind in NT.KINDS:
+        B = 3 if kind == "to_coset" else 1
+        x = _scalars(rng, B << log2n, dev).reshape(B, 1 << log2n, 16)
+        for j, s in enumerate(NT.inner_calls(log2n, kind, dev, eta)):
+            xin = x if j == 0 else NT.pack(x)
+            for wire_out in (False, True):
+                assert torch.equal(F.as_i32(NT.ntt_inner_kernel(xin, s, wire_out)),
+                                   F.as_i32(NT.ntt_inner_plain(xin, s, wire_out)))
     dom = NT.Domain(log2n)
     x = _scalars(rng, dom.size, dev)
     fwd = NT.forward_ntt(dom, x)
     assert torch.equal(F.as_i32(fwd).cpu(), F.as_i32(NT.forward_ntt(dom, x.cpu())))
     assert torch.equal(F.as_i32(NT.inverse_ntt(dom, fwd)), F.as_i32(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log2n", [3, 10, 16])
+def test_quotient_kernels_match_plain(dev, log2n):
+    """The quotient on the card (K3 four or six times, the pointwise kernel
+    once) against the plain versions on the card, both flavours."""
+    from groth16_tpu_torch.protocol.prover import quotient_scalars
+    from groth16_tpu_torch.protocol.types import Flavour
+    rng = np.random.default_rng(20 + log2n)
+    abc = [_scalars(rng, 1 << log2n, dev).to(torch.int64) for _ in range(3)]
+    for flavour, steps in ((Flavour.Snarkjs, 4), (Flavour.JensGroth, 6)):
+        before = (NT.ntt_inner_kernel.launches, NT.quotient_pointwise_kernel.launches)
+        got = quotient_scalars(flavour, *abc, log2n)
+        after = (NT.ntt_inner_kernel.launches, NT.quotient_pointwise_kernel.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == (steps, 1)
+        want = quotient_scalars(flavour, *abc, log2n, plain=True)
+        assert torch.equal(F.as_i32(got), F.as_i32(want))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -3,7 +3,8 @@ bench_mul_kernels run end to end through the plain versions at 2^8 points
 (the tree, the fold and the "auto" MSM give one point; the fold's phases give
 the fold MSM's point; K9's plain version agrees with host ints), their
 command lines refuse to run without CUDA, bench_point_variants' reading of
-ptxas, and tools/measure.py's SASS reading, work counts and kernel bounds.
+ptxas, and tools/measure.py's SASS reading, work counts (the quotient's
+launches included) and kernel bounds.
 Tolerance 0: exact integer arithmetic."""
 
 import numpy as np
@@ -151,6 +152,42 @@ def test_fold_and_level_work_counts():
     b, p = measure.work("level_kernel", "G2", K=600, emit=True, inv_ops=136 * 2)
     assert b == 4 * 7 * 64 * 600 + 600
     assert p == 7 * 3 * 600 + 2 * (3 * 127 * 3 + 1 + 4) + 2
+
+
+def test_ntt_step_and_pointwise_work_counts():
+    """K3: every element read and written once (64 bytes wire, 32 packed),
+    the packed tables once, log2(T) stages of T/2 products and one product
+    an element a table; the pointwise step: A * B, the scale, the product
+    out of Montgomery form."""
+    b, p = measure.work("ntt_inner_kernel", T=256, NB=256, B=3, pre=True, post=True,
+                        wire_in=False, wire_out=False)
+    assert p == 3 * 256 * (128 * 8 + 2 * 256)
+    assert b == 3 * 65536 * 64 + 32 * (2 * 65536 + 256)
+    b, p = measure.work("ntt_inner_kernel", T=512, NB=256, B=1, pre=False, post=False,
+                        wire_in=True, wire_out=False)
+    assert (b, p) == (2**17 * 96 + 32 * 512, 256 * 256 * 9)
+    assert measure.work("ntt_inner_kernel", T=1, NB=4, B=1, pre=False, post=False,
+                        wire_in=True, wire_out=True) == (4 * 128 + 32, 0)
+    assert measure.work("quotient_pointwise_kernel", n=10, scale=True, standard=False) == (
+        960 + 32 + 320, 20)
+    assert measure.work("quotient_pointwise_kernel", n=10, scale=False, standard=True) == (
+        960 + 640, 20)
+
+
+def test_quotient_work_and_bound():
+    """The whole quotient at 2^16: four K3 steps (A, B, C in one batch) and
+    the pointwise step, JensGroth two more steps; its bound (about 0.03 ms,
+    operations) counts the products of every launch."""
+    kinds = [(n, sh.get("B")) for n, sh in measure.quotient_launches(16, "snarkjs")]
+    assert kinds == [("ntt_inner_kernel", 3)] * 4 + [("quotient_pointwise_kernel", None)]
+    assert len(measure.quotient_launches(16, "jens-groth")) == 7
+    N, butterflies = 1 << 16, 2 * (1 << 15) * 16
+    b, p = measure.work("quotient", log2n=16, flavour="snarkjs")
+    assert (b, p) == (3 * 128 * N + 64 * N, 3 * (butterflies + 3 * N) + 2 * N)
+    _, pj = measure.work("quotient", log2n=16, flavour="jens-groth")
+    assert pj == 3 * (butterflies + 3 * N) + 2 * N + butterflies // 2 + 2 * N
+    ms, side = measure.bound_ms(b, p, 1980)
+    assert side == "operations" and 0.03 < ms < 0.033
 
 
 @pytest.mark.parametrize("cv_name", ["G1", "G2"])
