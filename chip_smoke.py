@@ -37,7 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      level-1 shape and at the 2^20 one, G2 at a small one;
   7. the Fp-product path: tools/bench_mul_kernels.run, K9 against its plain
      version and host ints, timed, with the opcode mix of one product read
-     from K9's SASS;
+     from K9's SASS, the multiply issue rates an SM a clock that the bound
+     rests on (mad.lo, mad.wide, the carry-chain pair, mad.hi);
   8. the tree-phase path: tools/bench_tree_phases.run at 2^20 G1 points, the
      merge tree's phases timed (K4, K5, K7); its level-1 mid must equal the
      plain K7 on the same inputs, the halvings (K5) + narrow inversion must
@@ -458,6 +459,7 @@ def check_tree_mid_kernel(rng, dev, results):
     additions), where the plain version runs in lane slices of
     kernels_tree.PLAIN_LANES."""
     from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
+    from groth16_tpu_torch.tools import measure
     for cv, M in ((C.G1, TREE_M), (C.G2, 256), (C.G1, TREE_M_2E20)):
         apr, bpl = tree_planes(rng, cv, M, dev)
         tinv = KT.invert_kernel(cv, KT.phase_a_kernel(cv, apr, bpl))
@@ -467,7 +469,7 @@ def check_tree_mid_kernel(rng, dev, results):
         t_p = cuda_ms(lambda: KT.phase_b_plain(cv, apr, bpl, tinv), 1)
         print(f"K7 {cv.name} M={M}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
         record(results, "phase_b_kernel", f"{cv.name} M={M}", err, t_k, t_p,
-               dict(curve=cv.name, M=M))
+               dict(curve=cv.name, M=M, dbl=measure.mid_doublings(apr, bpl)))
 
 
 # (wrapper, module, the path that must launch it)
@@ -590,13 +592,19 @@ def h1_tree_vs_fold(rng, dev, zkey):
 
 def fp_product_path(dev, results):
     """tools/bench_mul_kernels.run with the launch counts around it."""
-    from groth16_tpu_torch.tools import bench_mul_kernels as BM
+    from groth16_tpu_torch.tools import bench_mul_kernels as BM, measure
     reset_counts()
     res = BM.run(256, device=dev)
     counts = read_counts()
     check_launched(counts, "fp products")
     record(results, "fp_mul_chain_kernel", f"k={res['k']} n={res['n']}", res["max_abs_err"],
            res["ms"], res["plain_ms"], dict(k=res["k"], n=res["n"]))
+    print(f"K9 phase: {res['gproducts_per_s']:.2f} G products/s; one product is "
+          f"{res['sass_imad_class']} IMAD-class opcodes ({res['sass_multiplies']} multiplies) of "
+          f"{res['sass_instructions']}; issues an SM a clock "
+          + json.dumps({k: round(v, 2) for k, v in res["issue_rates_per_sm_clock"].items()})
+          + f", widening products {res['wide_per_sm_clock']:.2f} (the bound takes "
+          f"{measure.WIDE_PER_SM_PER_CLOCK})")
     return counts, res
 
 
@@ -700,9 +708,10 @@ def main() -> int:
     phase("msm_chunked 2^21", lambda: chunked_msm(rng, dev))
 
     clock = k9["sm_clock_max_mhz"]
-    print(f"bounds: {measure.FP_MUL_MULTIPLIES} multiplies an Fp product at "
-          f"{measure.SMS} x {measure.MUL_PER_SM_PER_CLOCK} a clock, SM clock {clock:.0f} MHz; "
-          f"{measure.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    print(f"bounds: an Fp product {measure.FP_MUL_WIDE} widening multiplies at "
+          f"{measure.WIDE_PER_SM_PER_CLOCK} and {measure.FP_MUL_LOW} low ones at "
+          f"{measure.MUL_PER_SM_PER_CLOCK} an SM a clock ({measure.FP_MUL_MULTIPLIES} issue slots), "
+          f"{measure.SMS} SMs, SM clock {clock:.0f} MHz; {measure.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
     def bound(name, shape):
         return measure.bound_ms(*measure.work(name, **shape), clock)

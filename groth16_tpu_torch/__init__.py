@@ -16,9 +16,10 @@ The main path is one proof from a zkey and a witness on one device:
     prf = generate_proof_with_mask(zkey, wtns, Mask(r, s), torch.device("cuda"))
     assert verify_proof(extract_vkey(zkey), prf)
 
-On CUDA tensors the point, fold, NTT and merge-tree steps run kernels K1-K6
-and K8 (groth16_tpu_torch/csrc, built by nvcc at first use); on CPU tensors
-their plain PyTorch versions run.
+On CUDA tensors a proof runs these kernels (groth16_tpu_torch/csrc, built by
+nvcc at first use): K1 (point adds, doubling chains, Horner), K2 (the fold
+MSMs), K3 and the quotient's pointwise kernel, K8 (the merge tree's levels),
+and K6 only in `to_affine`; on CPU tensors their plain PyTorch versions run.
 """
 
 from .protocol.types import Flavour, VKey, ZKey, Witness, R1CS, extract_vkey, zkey_from_numpy

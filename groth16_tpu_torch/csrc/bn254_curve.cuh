@@ -231,6 +231,30 @@ BN_HD void store_proj_row(uint32_t* row, const Proj<typename C::F>& P) {
   P.Z.store_vec(row + 2 * C::NC);
 }
 
+// Sorted position's point: the row at src, y negated for a negative key k;
+// an affine (0, 0) row is infinity.
+template <class C, bool AFFINE>
+BN_HD Proj<typename C::F> fold_point(const uint32_t* src, int32_t k) {
+  typedef typename C::F F;
+  const F x = F::load_vec(src);
+  F y = F::load_vec(src + C::NC);
+  y = F::select(k < 0, y.neg(), y);
+  if (AFFINE) {
+    const bool inf = x.is_zero() && y.is_zero();
+    return select(inf, infinity<C>(), Proj<F>{x, y, C::one()});
+  }
+  return Proj<F>{x, y, F::load_vec(src + 2 * C::NC)};
+}
+
+// p, opaque to the optimiser: a load through it is not merged with an
+// earlier load of the same address.
+BN_HD const uint32_t* opaque(const uint32_t* p) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("" : "+l"(p));
+#endif
+  return p;
+}
+
 template <class C, bool AFFINE>
 BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* keys,
                      uint32_t* table, uint32_t* trail, int32_t* tkey, int T, long m,
@@ -248,16 +272,7 @@ BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* 
     const int32_t k = keys[base + t];
     const long row = order ? (long)order[base + t] : base + t;
     const uint32_t* src = rows + row * Rin;
-    const F x = F::load_vec(src);
-    F y = F::load_vec(src + C::NC);
-    y = F::select(k < 0, y.neg(), y);
-    Proj<F> fresh;
-    if (AFFINE) {
-      const bool inf = x.is_zero() && y.is_zero();
-      fresh = select(inf, infinity<C>(), Proj<F>{x, y, C::one()});
-    } else {
-      fresh = Proj<F>{x, y, F::load_vec(src + 2 * C::NC)};
-    }
+    const Proj<F> fresh = fold_point<C, AFFINE>(src, k);
     const int32_t ak = k < 0 ? -k : k;
     if (t == 0) {
       run = fresh;
@@ -270,7 +285,9 @@ BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* 
       }
       const Proj<F> s = rcb_add<C>(a, b);
       if (close) store_proj_row<C>(buckets + (long)ap * R, s);
-      run = select(close, fresh, s);
+      // a close starts the next segment at this slot's point, read again
+      // rather than kept live across the add (which spilled in G2)
+      run = close ? fold_point<C, AFFINE>(opaque(src), k) : s;
     }
     ap = ak;
   }
@@ -467,19 +484,21 @@ BN_HD typename C::F inv_chain(const uint32_t* tot, long M, long e,
   return run;
 }
 
+// node i = node 2i * node 2i+1.  Word w of node i lies at node[w * s + i * q]:
+// K6 and K8 keep one tree a block (s = 2 * INV_THREADS, q = 1), K7 one a
+// lane, interleaved (`MID_STRIDE`, q = MID_LANES).
 template <class F>
-BN_HD void inv_tree_up(uint32_t* node, int i) {
-  const long s = 2 * INV_THREADS;
-  (F::load_packed(node + 2 * i, s) * F::load_packed(node + 2 * i + 1, s))
-      .store_packed(node + i, s);
+BN_HD void inv_tree_up(uint32_t* node, int i, long s = 2 * INV_THREADS, long q = 1) {
+  (F::load_packed(node + 2 * i * q, s) * F::load_packed(node + (2 * i + 1) * q, s))
+      .store_packed(node + i * q, s);
 }
 
 // the inverse of child c from its parent's inverse and its sibling's product
 template <class F>
-BN_HD void inv_tree_down(const uint32_t* node, uint32_t* invn, int c) {
-  const long s = 2 * INV_THREADS;
-  (F::load_packed(invn + (c >> 1), s) * F::load_packed(node + (c ^ 1), s))
-      .store_packed(invn + c, s);
+BN_HD void inv_tree_down(const uint32_t* node, uint32_t* invn, int c, long s = 2 * INV_THREADS,
+                         long q = 1) {
+  (F::load_packed(invn + (c >> 1) * q, s) * F::load_packed(node + (c ^ 1) * q, s))
+      .store_packed(invn + c * q, s);
 }
 
 // rinv = 1 / (the chunk's product): the inverse of each total -> inv.
@@ -510,49 +529,69 @@ BN_HD void tree_store_sel(uint32_t* dst, long dstride, bool cond,
   }
 }
 
-// K7's sweep, lane m: a forward pass keeps the exclusive
-// prefix products of the denominators, a reverse pass expands the lane
-// inverse tinv[:, m] to per-slot inverses and finishes each addition, handing
-// slot o's mid to `out(o, plane, mid)`.
-template <class C, class Out>
-BN_HD void tree_mid_sweep(const uint32_t* apr, const uint32_t* bpl,
-                          const uint32_t* tinv, long M, long m, const Out& out) {
-  typedef typename C::F F;
-  const long plane = (long)TREE_T * M;
-  F pre[TREE_T];
-  F run = C::one();
-#pragma unroll 1
-  for (int t = 0; t < TREE_T; ++t) {
-    const long o = t * M + m;
-    pre[t] = run;
-    run = run * tree_den<C>(tree_slot<C>(apr + o, bpl + o, plane));
-  }
-  F rinv = F::load(tinv + m, M);
-#pragma unroll 1
-  for (int t = TREE_T - 1; t >= 0; --t) {
-    const long o = t * M + m;
-    const TreeSlot<F> s = tree_slot<C>(apr + o, bpl + o, plane);
-    const F inv = rinv * pre[t];
-    rinv = rinv * tree_den<C>(s);
-    out(o, plane, tree_mid<C>(s, inv));
-  }
-}
+// --------------------------------------------------- batched mids (K7) ---
+//
+// K7 in blocks of MID_LANES lanes x TREE_T slots, one thread a slot: thread
+// (t, l) = threadIdx t * MID_LANES + l owns slot t of lane m = block *
+// MID_LANES + l, so a warp reads four slots of eight consecutive lanes, one
+// 32-byte segment a limb row.  The thread loads its slot's two points once
+// and keeps them in registers until it writes the slot's mid
+// (`mid_leaf`, `mid_store`).  Lane m's inverses come from its lane inverse
+// tinv[m] = 1 / (its TREE_T denominators' product) through a product tree
+// in shared memory, one a lane: the up-sweep multiplies the denominators
+// (leaves TREE_T + t) into the lane's inner nodes 2..15 (the root's product
+// is tinv's inverse, which nothing reads); the down-sweep hands every
+// node, from the root (tinv) down, the inverse of its product, which is
+// tinv times the product of every denominator outside it (K6's
+// `inv_tree_up` / `inv_tree_down`).  At leaf t that is tinv times the
+// exclusive prefix and suffix products of slot t, the inverse of its own
+// denominator: 44 products a lane at a serial depth of 7, where one
+// thread sweeping its lane forward and back took 48 at a depth of 32.  Lanes past M
+// are (0, 0) + (0, 0) slots, whose denominator is one.
 
-// K7 output: the mid itself.
-template <class C>
-struct TreeMidOut {
-  uint32_t* mid;
-  BN_HD void operator()(long o, long plane, const Aff<typename C::F>& p) const {
-    p.x.store(mid + o, plane);
-    p.y.store(mid + o + C::NC * plane, plane);
-  }
+constexpr int MID_LANES = 8;                        // lanes of a K7 block
+constexpr int MID_STRIDE = 2 * TREE_T * MID_LANES;  // words between a node's packed words
+
+struct MidIO {
+  const uint32_t *apr, *bpl, *tinv;  // planes uint32[2*NC, T, M]; tinv [NC, M]
+  uint32_t* mid;                     // [2*NC, T, M]
+  long M;
 };
 
-// K7 lane m: mid = A.pR + B.pL of its T slots -> mid[:, t, m].
+// Thread (t, lane m): its slot, loaded once; its masked denominator ->
+// leaf TREE_T + t of the lane's tree (`node`: the lane's first word).
+// Thread t = 0 also puts the lane inverse at the root of `invn`.
 template <class C>
-BN_HD void tree_mid_lane(const uint32_t* apr, const uint32_t* bpl, const uint32_t* tinv,
-                         uint32_t* mid, long M, long m) {
-  tree_mid_sweep<C>(apr, bpl, tinv, M, m, TreeMidOut<C>{mid});
+BN_HD TreeSlot<typename C::F> mid_leaf(const MidIO& io, long m, int t, uint32_t* node,
+                                       uint32_t* invn) {
+  typedef typename C::F F;
+  TreeSlot<F> s;
+  if (m < io.M) {
+    const long o = t * io.M + m;
+    s = tree_slot<C>(io.apr + o, io.bpl + o, (long)TREE_T * io.M);
+  } else {
+    s.x1 = s.y1 = s.x2 = s.y2 = F::zero();
+    s.i1 = s.i2 = s.eqx = s.eqy = true;
+    s.dbl = false;
+  }
+  tree_den<C>(s).store_packed(node + (TREE_T + t) * MID_LANES, MID_STRIDE);
+  if (t == 0)
+    (m < io.M ? F::load(io.tinv + m, io.M) : C::one()).store_packed(invn + MID_LANES, MID_STRIDE);
+  return s;
+}
+
+// Slot t's mid from the inverse of its denominator (leaf TREE_T + t of
+// `invn`) -> mid[:, t, m].
+template <class C>
+BN_HD void mid_store(const MidIO& io, long m, int t, const TreeSlot<typename C::F>& s,
+                     const uint32_t* invn) {
+  typedef typename C::F F;
+  if (m >= io.M) return;
+  const Aff<F> p =
+      tree_mid<C>(s, F::load_packed(invn + (TREE_T + t) * MID_LANES, MID_STRIDE));
+  const long o = t * io.M + m, plane = (long)TREE_T * io.M;
+  p.x.store(io.mid + o, plane);
+  p.y.store(io.mid + o + C::NC * plane, plane);
 }
 
 // ------------------------------------------------- fused tree level (K8) ---

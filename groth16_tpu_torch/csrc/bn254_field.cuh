@@ -4,8 +4,9 @@
 // groth16_tpu/ops/kernels.py::_KFp / ::_KFp2 (Fp, Fp2) and
 // groth16_tpu/ops/ntt_pallas.py::_NFr (Fr).  The TPU versions work on
 // sixteen 16-bit limbs because the TPU has no widening multiply; Hopper has a
-// 32x32->64 multiply, so an element here is eight 32-bit limbs and the
-// product is CIOS Montgomery multiplication.  R = 2^256 in both layouts, so
+// 32x32->64 multiply and carry chains through its condition-code flag, so an
+// element here is eight 32-bit limbs and the product is a Montgomery product
+// written as PTX carry chains (`mont_mul`).  R = 2^256 in both layouts, so
 // the Montgomery forms are the same numbers and the wire layout
 // (uint32[..., 16], one 16-bit limb per word) converts by pairing words.
 //
@@ -15,6 +16,9 @@
 //
 // All functions are __host__ __device__ so that g++ compiles this header for
 // the CPU tests (csrc/bn254_host_shim.cpp) as well as nvcc for the kernels.
+// The carry-chain primitives have a C++ body beside their PTX, which keeps
+// the carry flag in a variable, so g++ runs the product's schedule word for
+// word.
 
 #pragma once
 
@@ -27,8 +31,9 @@
 #endif
 
 // The Fp product is inlined unless a translation unit defines
-// BN254_NOINLINE_MUL before this header: then it is one function that every
-// caller branches to (csrc/point.cu, fold.cu and tree.cu do;
+// BN254_NOINLINE_MUL before this header: then it is one function,
+// `field_mul`, that every caller branches to with its operands and result
+// in registers (csrc/point.cu, fold.cu and tree.cu do;
 // tools/bench_point_variants.py times both builds of their kernels).
 #if defined(__CUDACC__) && defined(BN254_NOINLINE_MUL)
 #define BN_MUL __host__ __device__ __noinline__
@@ -58,7 +63,220 @@ struct FrParams {
   }
 };
 
+// ------------------------------------------------ carry-chain primitives ---
+//
+// Each primitive is ONE carry chain: on the card one asm statement, so the
+// condition-code flag never has to survive between statements; on the host
+// the same sequence with the flag in `cf`.  PTX semantics:
+//   mad.lo.cc  d = lo(a*b) + c,      cf out     madc.lo.cc  d = lo(a*b) + c + cf
+//   madc.hi.cc d = hi(a*b) + c + cf, cf out     madc.hi     (no cf out)
+//   add.cc / addc.cc / addc, sub.cc / subc.cc / subc: the same with a borrow.
+// The "even" words of a product row are a_0 b, a_2 b, a_4 b, a_6 b, which
+// fill words 0..7 without overlapping (lo at 2k, hi at 2k+1); the "odd" ones
+// a_1 b .. a_7 b fill words 1..8.  So each half-row is one chain of (lo, hi)
+// pairs of the same 32x32 product.
+
+#if defined(__CUDA_ARCH__)
+#define BN_CHAIN(...) asm(__VA_ARGS__)
+#endif
+
+BN_HD uint32_t lo32(uint64_t x) { return (uint32_t)x; }
+BN_HD uint32_t hi32(uint64_t x) { return (uint32_t)(x >> 32); }
+
+// r[2k], r[2k+1] = lo, hi of a[2k+s] * b (s = 0: even words, 1: odd)
+template <int S>
+BN_HD void mul_row(uint32_t (&r)[8], const uint32_t (&a)[8], uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BN_CHAIN("mul.lo.u32 %0, %8, %12;\n\tmul.hi.u32 %1, %8, %12;\n\t"
+           "mul.lo.u32 %2, %9, %12;\n\tmul.hi.u32 %3, %9, %12;\n\t"
+           "mul.lo.u32 %4, %10, %12;\n\tmul.hi.u32 %5, %10, %12;\n\t"
+           "mul.lo.u32 %6, %11, %12;\n\tmul.hi.u32 %7, %11, %12;"
+           : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
+             "=r"(r[6]), "=r"(r[7])
+           : "r"(a[S]), "r"(a[S + 2]), "r"(a[S + 4]), "r"(a[S + 6]), "r"(b));
+#else
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t w = (uint64_t)a[2 * k + S] * b;
+    r[2 * k] = lo32(w);
+    r[2 * k + 1] = hi32(w);
+  }
+#endif
+}
+
+// r += (the S words of a) * b; the chain's carry out of word 7 goes into
+// `top` when TOP, else there is none (the caller's bound rules it out)
+template <int S, bool TOP>
+BN_HD void mad_row(uint32_t (&r)[8], const uint32_t (&a)[8], uint32_t b, uint32_t& top) {
+#if defined(__CUDA_ARCH__)
+  if (TOP)
+    BN_CHAIN("mad.lo.cc.u32 %0, %9, %13, %0;\n\tmadc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+             "madc.lo.cc.u32 %2, %10, %13, %2;\n\tmadc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+             "madc.lo.cc.u32 %4, %11, %13, %4;\n\tmadc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+             "madc.lo.cc.u32 %6, %12, %13, %6;\n\tmadc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+             "addc.u32 %8, %8, 0;"
+             : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]),
+               "+r"(r[6]), "+r"(r[7]), "+r"(top)
+             : "r"(a[S]), "r"(a[S + 2]), "r"(a[S + 4]), "r"(a[S + 6]), "r"(b));
+  else
+    BN_CHAIN("mad.lo.cc.u32 %0, %8, %12, %0;\n\tmadc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+             "madc.lo.cc.u32 %2, %9, %12, %2;\n\tmadc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+             "madc.lo.cc.u32 %4, %10, %12, %4;\n\tmadc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+             "madc.lo.cc.u32 %6, %11, %12, %6;\n\tmadc.hi.u32 %7, %11, %12, %7;"
+             : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]),
+               "+r"(r[6]), "+r"(r[7])
+             : "r"(a[S]), "r"(a[S + 2]), "r"(a[S + 4]), "r"(a[S + 6]), "r"(b));
+#else
+  uint32_t cf = 0;
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t w = (uint64_t)a[2 * k + S] * b;
+    uint64_t s = (uint64_t)r[2 * k] + lo32(w) + cf;
+    r[2 * k] = lo32(s);
+    cf = hi32(s);
+    s = (uint64_t)r[2 * k + 1] + hi32(w) + cf;
+    r[2 * k + 1] = lo32(s);
+    cf = hi32(s);
+  }
+  if (TOP) top += cf;
+#endif
+}
+
+// The step between two rows: x0 += y[1], its carry running on into
+// r = y[2..7], 0, 0 + (the odd words of a) * b, one chain (no carry out).
+BN_HD void mad_row_shift(uint32_t& x0, uint32_t (&r)[8], const uint32_t (&y)[8],
+                         const uint32_t (&a)[8], uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  BN_CHAIN("add.cc.u32 %0, %0, %9;\n\t"
+           "madc.lo.cc.u32 %1, %16, %20, %10;\n\tmadc.hi.cc.u32 %2, %16, %20, %11;\n\t"
+           "madc.lo.cc.u32 %3, %17, %20, %12;\n\tmadc.hi.cc.u32 %4, %17, %20, %13;\n\t"
+           "madc.lo.cc.u32 %5, %18, %20, %14;\n\tmadc.hi.cc.u32 %6, %18, %20, %15;\n\t"
+           "madc.lo.cc.u32 %7, %19, %20, 0;\n\tmadc.hi.u32 %8, %19, %20, 0;"
+           : "+r"(x0), "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+             "=r"(r[5]), "=r"(r[6]), "=r"(r[7])
+           : "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]), "r"(y[6]), "r"(y[7]),
+             "r"(a[1]), "r"(a[3]), "r"(a[5]), "r"(a[7]), "r"(b));
+#else
+  uint64_t s = (uint64_t)x0 + y[1];
+  x0 = lo32(s);
+  uint32_t cf = hi32(s);
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t w = (uint64_t)a[2 * k + 1] * b;
+    s = (uint64_t)(k < 3 ? y[2 * k + 2] : 0u) + lo32(w) + cf;
+    r[2 * k] = lo32(s);
+    cf = hi32(s);
+    s = (uint64_t)(k < 3 ? y[2 * k + 3] : 0u) + hi32(w) + cf;
+    r[2 * k + 1] = lo32(s);
+    cf = hi32(s);
+  }
+#endif
+}
+
+// r = x + (y >> 32): x[0..7] plus y[1..7], one chain (no carry out)
+BN_HD void add_shift(uint32_t (&r)[8], const uint32_t (&x)[8], const uint32_t (&y)[8]) {
+#if defined(__CUDA_ARCH__)
+  BN_CHAIN("add.cc.u32 %0, %8, %16;\n\taddc.cc.u32 %1, %9, %17;\n\t"
+           "addc.cc.u32 %2, %10, %18;\n\taddc.cc.u32 %3, %11, %19;\n\t"
+           "addc.cc.u32 %4, %12, %20;\n\taddc.cc.u32 %5, %13, %21;\n\t"
+           "addc.cc.u32 %6, %14, %22;\n\taddc.u32 %7, %15, 0;"
+           : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
+             "=r"(r[6]), "=r"(r[7])
+           : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]),
+             "r"(x[7]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]), "r"(y[6]),
+             "r"(y[7]));
+#else
+  uint32_t cf = 0;
+  for (int k = 0; k < 8; ++k) {
+    const uint64_t s = (uint64_t)x[k] + (k < 7 ? y[k + 1] : 0u) + cf;
+    r[k] = lo32(s);
+    cf = hi32(s);
+  }
+#endif
+}
+
+// d = x - m; returns 0xffffffff when that borrows (x < m), else 0
+BN_HD uint32_t sub_row(uint32_t (&d)[8], const uint32_t (&x)[8], const uint32_t (&m)[8]) {
+  uint32_t bw;
+#if defined(__CUDA_ARCH__)
+  BN_CHAIN("sub.cc.u32 %0, %9, %17;\n\tsubc.cc.u32 %1, %10, %18;\n\t"
+           "subc.cc.u32 %2, %11, %19;\n\tsubc.cc.u32 %3, %12, %20;\n\t"
+           "subc.cc.u32 %4, %13, %21;\n\tsubc.cc.u32 %5, %14, %22;\n\t"
+           "subc.cc.u32 %6, %15, %23;\n\tsubc.cc.u32 %7, %16, %24;\n\t"
+           "subc.u32 %8, 0, 0;"
+           : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]),
+             "=r"(d[6]), "=r"(d[7]), "=r"(bw)
+           : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]),
+             "r"(x[7]), "r"(m[0]), "r"(m[1]), "r"(m[2]), "r"(m[3]), "r"(m[4]), "r"(m[5]),
+             "r"(m[6]), "r"(m[7]));
+#else
+  uint32_t cf = 0;
+  for (int k = 0; k < 8; ++k) {
+    const uint64_t s = (uint64_t)x[k] - m[k] - cf;
+    d[k] = lo32(s);
+    cf = (uint32_t)(s >> 63);
+  }
+  bw = 0u - cf;
+#endif
+  return bw;
+}
+
+// Montgomery product a * b * 2^-256 mod m, canonical, for a, b < m and a
+// modulus m < 2^254 (BN254's p and r: top word 0x30644e72).  The schedule
+// is CIOS over the eight words of b, each row kept as two half-rows `e`
+// (even words, at 0..7) and `o` (odd words, at 1..8) that are two
+// independent carry chains.  Row i:
+//   e += a_even b_i, its carry into o[7];   o += a_odd b_i;
+//   q = e[0] n0;  e += m_even q (carry into o[7]);  o += m_odd q;
+// then e[0] = 0 and the value / 2^32 is o (now at words 0..7) plus e[1..7]
+// (at 0..6): the next row's even half-row is o with e[1] added into its
+// word 0, whose carry runs on into the next odd half-row, e[2..7] shifted
+// down by two words (`mad_row_shift`).
+// No-carry condition: the modulus's top word 0x30644e72 is below
+// (2^32 - 1) / 2 - 1, so the running value t < 2m stays below 2^255 and
+// t + a b_i + q m < 2^288: a row never carries past word 8, so neither the
+// t[8] / t[9] words of textbook CIOS nor their additions exist, and the odd
+// half-row's chain never carries out of its word 7.  One conditional
+// subtraction of m leaves the result canonical.
+template <class P>
+BN_HD void mont_mul(uint32_t (&out)[8], const uint32_t (&a)[8], const uint32_t (&b)[8]) {
+  uint32_t m[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m[i] = P::p(i);
+  uint32_t e[8], o[8], top = 0;
+  mul_row<0>(e, a, b[0]);
+  mul_row<1>(o, a, b[0]);
+  uint32_t q = e[0] * P::N0;
+  mad_row<1, false>(o, m, q, top);
+  mad_row<0, true>(e, m, q, o[7]);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    uint32_t n[8];
+    mad_row_shift(o[0], n, e, a, b[i]);   // the even half-row is o now, the odd n
+    mad_row<0, true>(o, a, b[i], n[7]);
+    q = o[0] * P::N0;
+    mad_row<1, false>(n, m, q, top);
+    mad_row<0, true>(o, m, q, n[7]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      e[k] = o[k];
+      o[k] = n[k];
+    }
+  }
+  uint32_t t[8], d[8];
+  add_shift(t, o, e);
+  const uint32_t lt = sub_row(d, t, m);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k] = lt ? t[k] : d[k];
+}
+
 // ------------------------------------------------------- prime field ------
+
+template <class P>
+struct Field;
+
+// The product as a function of two values: out of line (BN254_NOINLINE_MUL)
+// its operands and result pass in registers, where a member operator taking
+// references made every caller keep them in a stack frame.
+template <class P>
+BN_MUL Field<P> field_mul(Field<P> a, Field<P> b);
 
 template <class P>
 struct Field {
@@ -194,38 +412,8 @@ struct Field {
 
   BN_HD Field neg() const { return zero() - *this; }
 
-  // CIOS Montgomery product a*b*2^-256 mod p (eight 32-bit words)
-  BN_MUL Field operator*(const Field& b) const {
-    uint32_t t[10];
-#pragma unroll
-    for (int i = 0; i < 10; ++i) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      uint64_t c = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint64_t uv = (uint64_t)v[j] * b.v[i] + t[j] + c;
-        t[j] = (uint32_t)uv;
-        c = uv >> 32;
-      }
-      uint64_t uv = (uint64_t)t[8] + c;
-      t[8] = (uint32_t)uv;
-      t[9] = (uint32_t)(uv >> 32);
-      uint32_t m = t[0] * P::N0;
-      uv = (uint64_t)m * P::p(0) + t[0];
-      c = uv >> 32;
-#pragma unroll
-      for (int j = 1; j < 8; ++j) {
-        uv = (uint64_t)m * P::p(j) + t[j] + c;
-        t[j - 1] = (uint32_t)uv;
-        c = uv >> 32;
-      }
-      uv = (uint64_t)t[8] + c;
-      t[7] = (uint32_t)uv;
-      t[8] = t[9] + (uint32_t)(uv >> 32);
-    }
-    return reduce_once(t);
-  }
+  // Montgomery product a*b*2^-256 mod p (`mont_mul`, through `field_mul`)
+  BN_HD Field operator*(const Field& b) const { return field_mul<P>(*this, b); }
 
   BN_HD Field sqr() const { return (*this) * (*this); }
 
@@ -243,6 +431,13 @@ struct Field {
     return r;
   }
 };
+
+template <class P>
+BN_MUL Field<P> field_mul(Field<P> a, Field<P> b) {
+  Field<P> r;
+  mont_mul<P>(r.v, a.v, b.v);
+  return r;
+}
 
 typedef Field<FpParams> Fp;
 typedef Field<FrParams> Fr;

@@ -4,8 +4,8 @@
 // merge-tree lane functions the CUDA kernels run (bn254_field.cuh,
 // bn254_curve.cuh), and this file loops them over wire-layout arrays, so the
 // arithmetic of K1 (chains included), K2, K3 (block by block, bn254_ntt.cuh),
-// K4, K6, K7, K8, K9 and the quotient's pointwise step is checked without a
-// GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
+// K4, K6, K7, K8 (K6, K7 and K8 block by block), K9 and the quotient's
+// pointwise step is checked without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254shim.so bn254_host_shim.cpp
 
 #include <vector>
@@ -99,6 +99,28 @@ static void level_blocks(const LevelIO& io) {
             [&](long e, const F* pre, F rinv) { level_finish<C>(io, e, pre, rinv); });
 }
 
+// K7 as its kernel runs it: block after block, each phase over the
+// block's threads in turn
+template <class C>
+static void mid_blocks(const MidIO& io) {
+  typedef typename C::F F;
+  const int L = MID_LANES, T = TREE_T;
+  std::vector<uint32_t> node(F::PACKED * MID_STRIDE), invn(F::PACKED * MID_STRIDE);
+  std::vector<TreeSlot<F>> slot(T * L);
+  for (long m0 = 0; m0 < io.M; m0 += L) {
+    for (int t = 0; t < T; ++t)
+      for (int l = 0; l < L; ++l) slot[t * L + l] = mid_leaf<C>(io, m0 + l, t, &node[l], &invn[l]);
+    for (int h = T / 2; h >= 2; h >>= 1)
+      for (int t = 0; t < h; ++t)
+        for (int l = 0; l < L; ++l) inv_tree_up<F>(&node[l], h + t, MID_STRIDE, L);
+    for (int h = 1; h < T; h <<= 1)
+      for (int t = 0; t < 2 * h; ++t)
+        for (int l = 0; l < L; ++l) inv_tree_down<F>(&node[l], &invn[l], 2 * h + t, MID_STRIDE, L);
+    for (int t = 0; t < T; ++t)
+      for (int l = 0; l < L; ++l) mid_store<C>(io, m0 + l, t, slot[t * L + l], &invn[l]);
+  }
+}
+
 template <class C, bool AFFINE>
 static void fold_lanes(const uint32_t* rows, const int32_t* order, const int32_t* keys,
                        uint32_t* table, uint32_t* trail, int32_t* tkey, int T, long m, int W,
@@ -139,7 +161,7 @@ void shim_fold(int g2, int affine, const uint32_t* rows, const int32_t* order,
   }
 }
 
-// merge tree: K4 and K7 lanes m < M, K6 and K8 block by block
+// merge tree: K4 lanes m < M, K6, K7 and K8 block by block
 void shim_tree_phase_a(int g2, const uint32_t* apr, const uint32_t* bpl,
                        uint32_t* tot, long M) {
   for (long m = 0; m < M; ++m) {
@@ -175,12 +197,12 @@ void shim_horner(int g2, long B, int W, int c, const uint32_t* const* in,
   else horner_op<G1>(B, W, c, in, out);
 }
 
+// K7 block by block over lanes m < M
 void shim_tree_mid(int g2, const uint32_t* apr, const uint32_t* bpl, const uint32_t* tinv,
                    uint32_t* mid, long M) {
-  for (long m = 0; m < M; ++m) {
-    if (g2) tree_mid_lane<G2>(apr, bpl, tinv, mid, M, m);
-    else tree_mid_lane<G1>(apr, bpl, tinv, mid, M, m);
-  }
+  const MidIO io{apr, bpl, tinv, mid, M};
+  if (g2) mid_blocks<G2>(io);
+  else mid_blocks<G1>(io);
 }
 
 // K9 lanes i < n

@@ -37,10 +37,17 @@
 //       block's tree, one Euclid inversion, the way back).  curve.to_affine
 //       inverts its Z through it;
 //   K7  per lane of 16 additions, the mids alone (the batched affine add of
-//       kernels_tree.mid, which only the phase tool calls): a forward pass of
-//       prefix products and a reverse pass that expands the lane inverse.
-//       Per addition it reads two points and writes one (384 bytes in G1) and
-//       does 7 Fp products (21 in G2).
+//       kernels_tree.mid, which only the phase tool calls), given the lane
+//       inverses: one thread an addition, blocks of 8 lanes x 16, each
+//       lane's inverses expanded through a product tree in shared memory
+//       (bn254_curve.cuh `mid_leaf`).  Per addition it reads two points once
+//       and writes one (384 bytes in G1, the bytes side of its bound) and
+//       does 6.75 Fp products (20.25 in G2: 44 a lane in its tree, 4 in the
+//       affine add, whose square of x1 only a doubling needs); a thread's
+//       serial depth is 7 tree products and the affine add's 3, whatever the
+//       width.  The TPU's shape, one thread sweeping a lane forward and
+//       back, took 48 serial products, kept 16 prefix products in local
+//       memory and read every point twice.
 //
 // The Fp product is built out of line (BN254_NOINLINE_MUL): inlined, the
 // fused level needed 188 registers in G1 (128 out of line) and 255 with
@@ -125,14 +132,26 @@ __global__ void __launch_bounds__(INV_THREADS) tree_level_kernel(LevelIO io) {
   level_finish<C>(io, e, pre, rinv);
 }
 
+// K7, one block of MID_LANES lanes (see bn254_curve.cuh `mid_leaf`): load,
+// the lanes' product trees up and down in shared memory, the mids.
 template <class C>
-__global__ void tree_mid_kernel(const uint32_t* __restrict__ apr,
-                                const uint32_t* __restrict__ bpl,
-                                const uint32_t* __restrict__ tinv,
-                                uint32_t* __restrict__ mid, long M) {
-  long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  tree_mid_lane<C>(apr, bpl, tinv, mid, M, m);
+__global__ void __launch_bounds__(MID_LANES* TREE_T) tree_mid_kernel(MidIO io) {
+  typedef typename C::F F;
+  __shared__ uint32_t node[F::PACKED * MID_STRIDE];
+  __shared__ uint32_t invn[F::PACKED * MID_STRIDE];
+  const int t = threadIdx.x / MID_LANES, l = threadIdx.x % MID_LANES;
+  const long m = (long)blockIdx.x * MID_LANES + l;
+  const TreeSlot<F> s = mid_leaf<C>(io, m, t, node + l, invn + l);
+  __syncthreads();
+  for (int h = TREE_T / 2; h >= 2; h >>= 1) {   // the root's product is not needed
+    if (t < h) inv_tree_up<F>(node + l, h + t, MID_STRIDE, MID_LANES);
+    __syncthreads();
+  }
+  for (int h = 1; h < TREE_T; h <<= 1) {
+    if (t < 2 * h) inv_tree_down<F>(node + l, invn + l, 2 * h + t, MID_STRIDE, MID_LANES);
+    __syncthreads();
+  }
+  mid_store<C>(io, m, t, s, invn + l);
 }
 
 static unsigned grid(long n, int bs) {
@@ -193,14 +212,12 @@ int g16_tree_mid(int g2, const void* apr, const void* bpl, const void* tinv, voi
                  long M, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (M > 0) {
+    const MidIO io{(const uint32_t*)apr, (const uint32_t*)bpl, (const uint32_t*)tinv,
+                   (uint32_t*)mid, M};
     if (g2)
-      tree_mid_kernel<G2><<<grid(M, block_size<G2>()), block_size<G2>(), 0, s>>>(
-          (const uint32_t*)apr, (const uint32_t*)bpl, (const uint32_t*)tinv,
-          (uint32_t*)mid, M);
+      tree_mid_kernel<G2><<<grid(M, MID_LANES), MID_LANES * TREE_T, 0, s>>>(io);
     else
-      tree_mid_kernel<G1><<<grid(M, block_size<G1>()), block_size<G1>(), 0, s>>>(
-          (const uint32_t*)apr, (const uint32_t*)bpl, (const uint32_t*)tinv,
-          (uint32_t*)mid, M);
+      tree_mid_kernel<G1><<<grid(M, MID_LANES), MID_LANES * TREE_T, 0, s>>>(io);
   }
   return (int)cudaGetLastError();
 }

@@ -48,13 +48,15 @@ _SIGNATURES = {
     "g16_tree_level": [_I] + [_P] * 8 + [_L, _L, _P],
     "g16_tree_mid": [_I, _P, _P, _P, _P, _L, _P],
     "g16_fp_mul_chain": [_P, _P, _P, _I, _L, _P],
+    "g16_issue_rate": [_I, _P, _P, _I, _I, _P],
+    "g16_issue_rate_ops": [_I],
 }
 
 
-def _tag(files, flags) -> str:
+def _tag(files, flags, csrc=CSRC) -> str:
     h = hashlib.sha256()
     for f in files:
-        with open(os.path.join(CSRC, f), "rb") as fh:
+        with open(os.path.join(csrc, f), "rb") as fh:
             h.update(f.encode() + b"\0" + fh.read())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
@@ -86,21 +88,24 @@ def _run(cmds) -> str:
     return "".join(log)
 
 
-def compile_library(sources=KERNEL_SOURCES, extra_flags=()) -> tuple:
-    """nvcc build of `sources` (one compiler process each, all started
-    together) into one shared library under BUILD_DIR, keyed by a hash of the
-    sources, headers and flags.  Returns (path, the compilers' output, the
-    seconds the build took); "" and 0.0 when the library was already there."""
+def compile_library(sources=KERNEL_SOURCES, extra_flags=(), csrc=CSRC,
+                    rebuild: bool = False) -> tuple:
+    """nvcc build of `sources` in `csrc` (one compiler process each, all
+    started together) into one shared library under BUILD_DIR, keyed by a
+    hash of the sources, headers and flags.  Returns (path, the compilers'
+    output, the seconds the build took); "" and 0.0 when the library was
+    already there, unless `rebuild` asks for the compilers to run anyway
+    (for their output, e.g. ptxas's register report)."""
     flags = NVCC_FLAGS + tuple(extra_flags)
-    tag = _tag(tuple(sources) + HEADERS, flags)
+    tag = _tag(tuple(sources) + HEADERS, flags, csrc)
     so = os.path.join(BUILD_DIR, f"libg16kernels-{tag}.so")
-    if os.path.exists(so):
+    if os.path.exists(so) and not rebuild:
         return so, "", 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()
     objs = [os.path.join(BUILD_DIR, f"{src}.{tag}.{os.getpid()}.o") for src in sources]
-    log = _run([[nvcc, *flags, "-c", os.path.join(CSRC, src), "-o", obj]
+    log = _run([[nvcc, *flags, "-c", os.path.join(csrc, src), "-o", obj]
                 for src, obj in zip(sources, objs)])
     tmp = f"{so}.tmp{os.getpid()}"
     _run([[nvcc, *flags, "-shared", "-o", tmp, *objs]])

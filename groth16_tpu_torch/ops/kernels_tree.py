@@ -17,8 +17,10 @@ additions mid = A.pR + B.pL on limb-major fused x|y columns uint32[R2, K]
                       the additions padded and viewed as [R2, T_SLOTS, M]
                       planes (M = K / T_SLOTS lanes, lane axis minor);
   K7 `phase_b`        the mids alone on those planes, given the lane
-                      inverses (`mid`, which only tools/bench_tree_phases.py
-                      calls, through `mid_planes`: K4, K6, K7);
+                      inverses, one thread an addition and each lane's
+                      inverses through a product tree in shared memory
+                      (`mid`, which only tools/bench_tree_phases.py calls,
+                      through `mid_planes`: K4, K6, K7);
   K5 `mul_rows`       elementwise products of two rows of totals: the
                       halvings of a product tree, the route to a narrow
                       inversion that tools/bench_tree_phases.py times beside
@@ -275,7 +277,10 @@ def _tinv_check(cv: CurveSpec, tinv: torch.Tensor, M: int) -> None:
 
 
 def phase_b_kernel(cv: CurveSpec, apr, bpl, tinv) -> torch.Tensor:
-    """K7 (see `phase_b_plain`)."""
+    """K7 (see `phase_b_plain`): blocks of 8 lanes x T_SLOTS additions, one
+    thread an addition.  Replaces groth16_tpu/ops/kernels_tree.py:292
+    `_phase_b_call`; bound by the bytes of the two operand points and the
+    mid of each addition, each moved once (csrc/tree.cu)."""
     shape = _plane_check(cv, apr, bpl)
     _tinv_check(cv, tinv, shape[2])
     apr, bpl, tinv = _cuda_inputs([apr, bpl, tinv])

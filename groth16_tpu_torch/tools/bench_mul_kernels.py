@@ -9,9 +9,10 @@ is the throughput of the header's Fp product and not the latency of one
 chain.  `run` checks the kernel against host ints on a sample of elements
 and against its plain PyTorch version on all of them, times both, and
 prints ns per product, products per second and the share of the multiply
-peak (measure.py: the 136 32-bit multiplies one CIOS product needs, over
-132 SMs x 64 a clock x the maximum SM clock), with the opcode mix of one
-product as the compile issues it (K9's loop in the SASS).  The TPU tool's
+peak (measure.py: the issue slots of the 128 widening and 8 low multiplies
+one product needs, over 132 SMs x 64 a clock x the maximum SM clock), with
+the opcode mix of one product as the compile issues it (K9's loop in the
+SASS) and the multiply issue rates that peak rests on (`issue_rates`).  The TPU tool's
 "ks" / "cios" variants were TPU multiply schedules; the port has one
 product, so there is one variant.  Needs one CUDA card; imports nothing of
 JAX.
@@ -24,6 +25,43 @@ import sys
 
 N_DEFAULT = 2 * 132 * 2048
 SAMPLE = 64          # elements checked against host ints
+# csrc/mul_chain.cu issue_rate_kernel<KIND>: the multiply form of each KIND
+RATE_KINDS = {0: "mad.lo.u32", 1: "mul.wide.u32", 2: "mad.lo.cc.u32/madc.hi.cc.u32",
+              3: "mul.hi.u32"}
+RATE_THREADS = 1024  # threads of its one block an SM
+RATE_ITERS = 4096
+
+
+def issue_rates(device="cuda", iters: int = RATE_ITERS) -> dict:
+    """PTX multiply instructions of each form in RATE_KINDS that one SM
+    issues a clock: every SM runs one block of RATE_THREADS threads, each
+    with independent chains of that form; a block's instructions over the
+    clock64 cycles it took, the median over the SMs (after a warm-up
+    launch).  A widening 32 x 32 -> 64 product is one mul.wide.u32 or one
+    mad.lo.cc / madc.hi.cc pair."""
+    import torch
+    from groth16_tpu_torch.ops import cuda
+    dev = torch.device(device)
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    L = cuda.lib()
+    out = {}
+    for kind, name in RATE_KINDS.items():
+        o = torch.empty(blocks * RATE_THREADS, dtype=torch.uint32, device=dev)
+        cyc = torch.empty(blocks, dtype=torch.int64, device=dev)
+        for _ in range(2):
+            cuda.check(L.g16_issue_rate(kind, o.data_ptr(), cyc.data_ptr(), blocks, iters,
+                                        cuda.stream_ptr(dev)), f"issue-rate kernel {kind}")
+        cycles = sorted(cyc.cpu().tolist())
+        out[name] = RATE_THREADS * iters * L.g16_issue_rate_ops(kind) / cycles[len(cycles) // 2]
+    return out
+
+
+def wide_per_clock(rates: dict) -> float:
+    """Widening products an SM issues a clock (`issue_rates`): the fastest
+    of mul.wide.u32 (IMAD.WIDE.U32), the mad.lo.cc / madc.hi.cc pair, and
+    mul.hi.u32 (IMAD.HI.U32, the high word of the same product, which the
+    pipe issues alone, where the mul.wide loop carries moves beside it)."""
+    return max(rates[RATE_KINDS[1]], rates[RATE_KINDS[2]] / 2, rates[RATE_KINDS[3]])
 
 
 def run(k: int = 256, n: int = N_DEFAULT, device="cuda", reps: int = 3) -> dict:
@@ -65,10 +103,16 @@ def run(k: int = 256, n: int = N_DEFAULT, device="cuda", reps: int = 3) -> dict:
            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
            "ns_per_product": ms * 1e6 / (k * n), "gproducts_per_s": k * n / ms / 1e6}
     if dev.type == "cuda":
-        ops = measure.fp_product_opcodes(cuda.lib_path())
+        sass = measure.sass_text(cuda.lib_path())
+        ops = measure.loop_opcodes(sass, "fp_mul_chain_kernel")
+        rates = issue_rates(dev)
+        res.update(issue_rates_per_sm_clock=rates, wide_per_sm_clock=wide_per_clock(rates),
+                   issue_rate_opcodes={
+                       name: measure.loop_opcodes(sass, f"issue_rate_kernelILi{kind}E")
+                       for kind, name in RATE_KINDS.items()})
         clock = measure.sm_clock_max_mhz()
         peak = measure.peak_products_per_s(clock)
-        res.update(multiplies_per_product=measure.FP_MUL_MULTIPLIES,
+        res.update(issue_slots_per_product=measure.FP_MUL_MULTIPLIES,
                    sass_multiplies=measure.multiply_count(ops),
                    sass_imad_class=sum(v for o, v in ops.items() if o.startswith("IMAD")),
                    sass_instructions=sum(ops.values()), loop_opcodes=ops,
@@ -78,11 +122,14 @@ def run(k: int = 256, n: int = N_DEFAULT, device="cuda", reps: int = 3) -> dict:
           f"({res['ns_per_product']:.5f} ns a product, {res['gproducts_per_s']:.2f} G/s; "
           f"plain {plain_ms:.1f} ms), bit-exact against the plain version and host ints")
     if "sass_multiplies" in res:
-        print(f"K9: {res['multiplies_per_product']} multiplies a product, peak "
+        print(f"K9: {res['issue_slots_per_product']} multiply issue slots a product, peak "
               f"{res['peak_gproducts_per_s']:.2f} G/s at {res['sm_clock_max_mhz']:.0f} MHz, "
               f"share {100 * res['share_of_multiply_peak']:.1f} %; the compile's loop issues "
               f"{res['sass_multiplies']} multiplies among {res['sass_imad_class']} IMAD-class "
               f"and {res['sass_instructions']} instructions in all (SASS)")
+        print("K9: multiply issues an SM a clock: " + ", ".join(
+            f"{name} {r:.2f}" for name, r in res["issue_rates_per_sm_clock"].items())
+            + f"; widening products {res['wide_per_sm_clock']:.2f}")
     print(json.dumps(res))
     return res
 

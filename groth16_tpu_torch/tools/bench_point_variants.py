@@ -1,8 +1,15 @@
 """Build options of the point kernels (K1), the fold (K2), the batch
 inversion (K6) and the fused tree level (K8), timed against each other on
-one card in one run.
+one card in one run; and the ptxas line of every kernel of a checkout.
 
     python3 -m groth16_tpu_torch.tools.bench_point_variants
+    python3 -m groth16_tpu_torch.tools.bench_point_variants --ptxas [csrc ...]
+
+`--ptxas` builds every kernel source (ops/cuda.py KERNEL_SOURCES) of each
+csrc directory given (default: this package's; another checkout's
+groth16_tpu_torch/csrc compares two trees in one run) with `-Xptxas -v`,
+all builds started together, and prints each kernel instantiation's
+registers, spill store and load bytes and stack frame, then one JSON line.
 
 csrc/point.cu, csrc/tree.cu and csrc/fold.cu are built once per option
 set (both builds started together), each with `-Xptxas -v`:
@@ -42,31 +49,68 @@ LEVEL_SHAPES = (("G1", 1 << 17, False), ("G1", 1 << 16, True), ("G1", 64, True),
 SOURCES = ("point.cu", "tree.cu", "fold.cu")
 KERNELS = ("point_add_kernel", "point_double_n_kernel", "horner_kernel", "tree_invert_kernel",
            "tree_level_kernel", "fold_kernel")
+# every kernel of the library, for --ptxas
+ALL_KERNELS = KERNELS + ("ntt_step_kernel", "quotient_pointwise_kernel", "tree_phase_a_kernel",
+                         "tree_mul_rows_kernel", "tree_mid_kernel", "fp_mul_chain_kernel",
+                         "issue_rate_kernel")
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"Function properties for (\w+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
-_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_KIND = re.compile(r"ILi(\d+)E")
 
 
-def ptxas_table(log: str) -> dict:
-    """{kernel and curve: (registers, spill store bytes, spill load bytes)}
-    from `nvcc -Xptxas -v` output, for the kernels named in KERNELS."""
-    out, name, spill = {}, None, (0, 0)
+def _label(sym: str, kernels) -> str | None:
+    kern = next((k for k in kernels if k in sym), None)
+    if kern is None:
+        return None
+    curve = " G2" if "G2" in sym else " G1" if "G1" in sym else ""
+    kind = " affine" if "Lb1E" in sym else " projective" if "Lb0E" in sym else ""
+    m = _KIND.search(sym)
+    return kern + curve + kind + (f" {m.group(1)}" if m else "")
+
+
+def ptxas_table(log: str, kernels=KERNELS) -> dict:
+    """{kernel and curve: (registers, spill store bytes, spill load bytes,
+    stack frame bytes)} from `nvcc -Xptxas -v` output, for the kernels named
+    in `kernels`."""
+    frames, used, entry, prop = {}, {}, None, None
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
-            sym = m.group(1)
-            kern = next((k for k in KERNELS if k in sym), None)
-            kind = " affine" if "Lb1E" in sym else " projective" if "Lb0E" in sym else ""
-            name = None if kern is None else f"{kern} {'G2' if 'G2' in sym else 'G1'}{kind}"
+            entry = m.group(1)
             continue
-        m = _SPILL.search(line)
+        m = _PROPS.search(line)
         if m:
-            spill = (int(m.group(1)), int(m.group(2)))
+            prop = m.group(1)
+            continue
+        m = _FRAME.search(line)
+        if m and prop:
+            frames[prop] = tuple(int(g) for g in m.groups())
+            prop = None
+            continue
         m = _USED.search(line)
-        if m and name:
-            out[name] = (int(m.group(1)),) + spill
-            name = None
+        if m and entry:
+            used[entry] = int(m.group(1))
+            entry = None
+    out = {}
+    for sym, regs in used.items():
+        name = _label(sym, kernels)
+        if name:
+            stack, st, ld = frames.get(sym, (0, 0, 0))
+            out[name] = (regs, st, ld, stack)
     return out
+
+
+def ptxas_report(dirs) -> dict:
+    """{csrc directory: ptxas_table of every kernel} for the kernel sources
+    of each directory, built with -Xptxas -v (again where a build is cached,
+    so that ptxas reports), all builds started together."""
+    from groth16_tpu_torch.ops import cuda
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        builds = list(pool.map(lambda d: cuda.compile_library(
+            cuda.KERNEL_SOURCES, ("-Xptxas", "-v"), csrc=d, rebuild=True), dirs))
+    return {d: ptxas_table(log, ALL_KERNELS) for d, (_, log, _) in zip(dirs, builds)}
 
 
 def measure_variant(dev) -> tuple:
@@ -124,8 +168,9 @@ def measure_variant(dev) -> tuple:
     return ms, outs
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+    args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("bench_point_variants: needs a CUDA device", file=sys.stderr)
         return 2
@@ -133,9 +178,19 @@ def main() -> int:
     from groth16_tpu_torch.tools import measure
     dev = torch.device("cuda", 0)
     print(measure.card_line(dev))
+    if args and args[0] == "--ptxas":
+        rep = ptxas_report(args[1:] or [cuda.CSRC])
+        for d, table in rep.items():
+            print(d)
+            for k, (regs, st, ld, stack) in sorted(table.items()):
+                print(f"  ptxas {k:40s} {regs:4d} registers, spill {st} / {ld} bytes, "
+                      f"stack frame {stack} bytes")
+        print(json.dumps({"tool": "bench_point_variants", "card": measure.card_line(dev),
+                          "ptxas": rep}))
+        return 0
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         builds = dict(zip(VARIANTS, pool.map(
-            lambda flags: cuda.compile_library(SOURCES, flags + ("-Xptxas", "-v")),
+            lambda flags: cuda.compile_library(SOURCES, flags + ("-Xptxas", "-v"), rebuild=True),
             VARIANTS.values())))
     res, ref = {}, None
     for _ in range(PASSES):
@@ -156,7 +211,8 @@ def main() -> int:
     for name, r in res.items():
         print(f"{name} (built in {r['build_s']:.1f} s)")
         for k, v in r["registers_spill"].items():
-            print(f"  ptxas {k:32s} {v[0]:4d} registers, spill {v[1]} / {v[2]} bytes")
+            print(f"  ptxas {k:32s} {v[0]:4d} registers, spill {v[1]} / {v[2]} bytes, "
+                  f"stack frame {v[3]} bytes")
         for k, v in r["ms"].items():
             print(f"  {k:32s} {v:10.4f} ms")
     print(json.dumps({"tool": "bench_point_variants", "card": measure.card_line(dev),

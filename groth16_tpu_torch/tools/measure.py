@@ -1,29 +1,32 @@
 """Timing, the card's identity and the least time a kernel could take.
 
-Shared by chip_smoke.py and the two tools (bench_tree_phases,
-bench_mul_kernels).  A kernel's bound is the larger of two times:
+Shared by chip_smoke.py and the tools (bench_tree_phases, bench_fold_phases,
+bench_mul_kernels, bench_point_variants).  A kernel's bound is the larger
+of two times:
 
   bytes        each input read once and each output written once, over the
                H100's 3.35 TB/s;
-  operations   the Fp products the work needs, times the 32-bit multiplies
-               one product needs (FP_MUL_MULTIPLIES), over 132 SMs x 64
-               32-bit integer multiplies or multiply-adds per SM per clock
-               (the CUDA C++ Programming Guide's throughput table, compute
-               capability 9.0) x the card's maximum SM clock (nvidia-smi
-               clocks.max.sm).
+  operations   the Fp products the work needs, times the issue slots of the
+               multiply pipe one product needs (FP_MUL_MULTIPLIES), over
+               132 SMs x 64 slots an SM a clock (MUL_PER_SM_PER_CLOCK) x
+               the card's maximum SM clock (nvidia-smi clocks.max.sm).
 
-The header's Fp product is CIOS on eight 32-bit limbs: per limb of b, 8
-widening products a_j * b_i, one low product m = t_0 * n', and 8 widening
-products m * p_j, so 128 widening and 8 low multiplies.  The guide gives
-no separate rate for the 32 x 32 -> 64 form; each counts as one multiply at
-the table's rate, which keeps the bound a least time (were a widening
-product two issues, the compute side would be up to twice as long).  Carry
-adds and moves are not counted: the function needs them, but not on the
-multiply pipe.  An Fp2 product counts as the 3 Fp products of the header's
-Karatsuba multiply; a squaring as a product.  `work` gives (bytes, Fp
-products) of each kernel wrapper at a shape, counted from the kernel
-sources.  The multiplies a compile actually issues are read from the SASS
-of kernel K9's loop (`fp_product_opcodes`), whose body is one product.
+An Fp product (the header's Montgomery product on eight 32-bit limbs) needs
+128 widening 32 x 32 -> 64 multiplies (a_j * b_i and q * p_j) and 8 low
+ones (q = t_0 * n').  A low multiply (IMAD) takes one slot: the CUDA C++
+Programming Guide's table gives 64 32-bit multiplies or multiply-adds an
+SM a clock for compute capability 9.0, and tools/bench_mul_kernels.py
+measures 62.06 on the H100.  A widening multiply takes two slots
+(WIDE_PER_SM_PER_CLOCK = 32 an SM a clock): `bench_mul_kernels.issue_rates`
+measures IMAD.HI.U32 alone at 31.58, and IMAD.WIDE.U32, the form the
+product's (lo, hi) pairs compile to, at about two slots each.  So one
+takes MUL_PER_SM_PER_CLOCK / WIDE_PER_SM_PER_CLOCK slots.  Carry adds and moves
+are not counted: the function needs them, but not on the multiply pipe.
+An Fp2 product counts as the 3 Fp products of the header's Karatsuba
+multiply; a squaring as a product.  `work` gives (bytes, Fp products) of
+each kernel wrapper at a shape, counted from the kernel sources.  The
+multiplies a compile actually issues are read from the SASS of kernel K9's
+loop (`sass_text`, `loop_opcodes`), whose body is one product.
 """
 
 from __future__ import annotations
@@ -35,8 +38,14 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
-MUL_PER_SM_PER_CLOCK = 64
-FP_MUL_MULTIPLIES = 2 * 8 * 8 + 8     # widening a_j * b_i and m * p_j, low m = t_0 * n'
+MUL_PER_SM_PER_CLOCK = 64     # IMAD issue slots an SM a clock (CUDA C++ Programming Guide)
+# widening 32 x 32 -> 64 multiplies an SM issues a clock: two slots each.
+# tools/bench_mul_kernels.py `issue_rates` on an H100 80GB HBM3 at 700 W:
+# IMAD.HI.U32 alone 31.58 a clock, IMAD.WIDE.U32 26.18 beside 3 moves per 8
+WIDE_PER_SM_PER_CLOCK = 32
+FP_MUL_WIDE, FP_MUL_LOW = 2 * 8 * 8, 8     # a_j * b_i and q * p_j; q = t_0 * n'
+# issue slots of one Fp product at MUL_PER_SM_PER_CLOCK
+FP_MUL_MULTIPLIES = FP_MUL_WIDE * MUL_PER_SM_PER_CLOCK // WIDE_PER_SM_PER_CLOCK + FP_MUL_LOW
 
 _P_FP = 21888242871839275222246405745257275088696311157297823662689037894645226208583
 INV_BLOCK = 128 * 4    # totals a K6 block inverts (bn254_curve.cuh INV_THREADS * INV_CHUNK)
@@ -176,9 +185,11 @@ def sm_clock_max_mhz() -> float:
     return float(_smi("clocks.max.sm").split()[0])
 
 
-def peak_products_per_s(clock_mhz: float) -> float:
-    """Fp products a second at the card's 32-bit multiply peak."""
-    return SMS * MUL_PER_SM_PER_CLOCK * clock_mhz * 1e6 / FP_MUL_MULTIPLIES
+def peak_products_per_s(clock_mhz: float, rate: float = MUL_PER_SM_PER_CLOCK,
+                        count: float = FP_MUL_MULTIPLIES) -> float:
+    """Fp products a second at the card's multiply peak: `count` issue slots
+    a product at `rate` slots an SM a clock."""
+    return SMS * rate * clock_mhz * 1e6 / count
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +251,12 @@ def multiply_count(opcodes: dict) -> int:
                if op == "IMAD" or op.startswith(("IMAD.WIDE", "IMAD.HI")))
 
 
-def fp_product_opcodes(lib_path: str) -> dict:
-    """Opcode counts of one Fp product: K9's loop body in the built kernel
-    library (cuobjdump -sass)."""
+def sass_text(lib_path: str) -> str:
+    """The SASS of a built kernel library (cuobjdump -sass); K9's loop body
+    in it is one Fp product (`loop_opcodes(sass, "fp_mul_chain_kernel")`)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    return loop_opcodes(sass, "fp_mul_chain_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -265,10 +275,11 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     keys, order: level 0 gathers through one, last), ntt_inner_kernel (T, NB,
     B, pre, post, wire_in, wire_out), quotient_pointwise_kernel (n, scale,
     standard), quotient (log2n, flavour: the whole of
-    `prover.quotient_scalars`), phase_a_kernel / phase_b_kernel (M), level_kernel (K, emit,
+    `prover.quotient_scalars`), phase_a_kernel (M), phase_b_kernel (M, dbl), level_kernel (K, emit,
     inv_ops), mul_rows_kernel (W), invert_kernel (M, inv_ops), where inv_ops
-    is the sum of `euclid_ops` over the run's block roots, counted as
-    inv_ops / FP_MUL_MULTIPLIES products; fp_mul_chain_kernel (k, n)."""
+    is the sum of `euclid_ops` over the run's block roots (one issue slot
+    each), counted as inv_ops / FP_MUL_MULTIPLIES products;
+    fp_mul_chain_kernel (k, n)."""
     nc, f = _geom(curve)
     s = shape
     if name == "point_add":                       # 6 coordinates in, 3 out
@@ -326,9 +337,12 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
         blocks = -(-M // INV_BLOCK)
         per_block = 3 * 127 * f + 1 + (4 if curve == "G2" else 0)
         return 4 * 2 * nc * M, 3 * f * M + blocks * per_block + s["inv_ops"] / FP_MUL_MULTIPLIES
-    if name == "phase_b_kernel":                  # 16 + 16 x 6 products a lane
+    if name == "phase_b_kernel":
+        # a lane's product tree: 14 products up (the root's is not needed),
+        # 30 down; 3 an addition, and the square of x1 on its `dbl` doubling
+        # slots (count them with `mid_doublings`)
         M = s["M"]
-        return 4 * (3 * 2 * nc * 16 * M + nc * M), 112 * f * M
+        return 4 * (3 * 2 * nc * 16 * M + nc * M), ((14 + 30 + 16 * 3) * M + s["dbl"]) * f
     if name == "level_kernel":
         # per addition four operand points and a flag byte read, two or
         # three points written, 7 products (1 down the chain, 2 back, 4 in
@@ -341,6 +355,14 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     if name == "fp_mul_chain_kernel":
         return 4 * 3 * 16 * s["n"], s["k"] * s["n"]
     raise ValueError(f"no work count for {name!r}")
+
+
+def mid_doublings(apr, bpl) -> int:
+    """Slots of K7's planes uint32[2*NC, T, M] (A.pR, B.pL) that double: the
+    two points equal and not the (0, 0) infinity."""
+    import torch
+    a, b = apr.view(torch.int32), bpl.view(torch.int32)
+    return int(((a == b).all(0) & (a != 0).any(0)).sum())
 
 
 def quotient_launches(log2n: int, flavour: str) -> list:

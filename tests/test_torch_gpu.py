@@ -234,6 +234,19 @@ def test_tree_kernels_match_plain(dev, cv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cv,K", [(C.G1, 13 * 16 - 5), (C.G1, 1 << 14), (C.G2, 21 * 16)],
+                         ids=["G1-203", "G1-16384", "G2-336"])
+def test_tree_mid_kernel_partial_blocks(dev, cv, K):
+    """K7 (blocks of 8 lanes) at widths with a partial last block and a
+    whole number of blocks, every group-law case, against `phase_b_plain`."""
+    from test_torch_tree import level_case
+    _, cols, _ = level_case(cv, K, seed=K)
+    apr, bpl, tinv = KT.mid_planes(cv, cols[1].to(dev), cols[2].to(dev))
+    assert torch.equal(F.as_i32(KT.phase_b_kernel(cv, apr, bpl, tinv)),
+                       F.as_i32(KT.phase_b_plain(cv, apr, bpl, tinv)))
+
+
+@pytest.mark.gpu
 def test_mul_chain_kernel_matches_plain(dev):
     rng = np.random.default_rng(13)
     a, b = (_scalars(rng, 5000, dev).T.contiguous() for _ in range(2))

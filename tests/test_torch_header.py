@@ -42,10 +42,30 @@ def _rand_ints(mod, n, seed):
     return edge + [int.from_bytes(rng.bytes(32), "little") % mod for _ in range(n - len(edge))]
 
 
-@pytest.mark.parametrize("field_id,name", [(0, "FP"), (1, "FR")])
-def test_field_header_matches_plain_jax_and_host(shim, field_id, name):
+def _edge_pairs(mod):
+    """Every pair of edge operands of the product: 0, 1, 2, mod - 1, mod - 2,
+    R mod m and R^2 mod m (R = 2^256), 2^253, and operands whose top word is
+    the modulus's top word (the largest the no-carry schedule meets)."""
+    top = mod >> 224 << 224
+    edge = [0, 1, 2, mod - 1, mod - 2, (1 << 256) % mod, (1 << 512) % mod, 1 << 253, top,
+            top | 0xFFFFFFFF, top + (mod - top) // 2, top | (mod - top - 1)]
+    assert all(0 <= e < mod for e in edge) and all(e >> 224 == mod >> 224 for e in edge[8:])
+    return [x for x in edge for _ in edge], [y for _ in edge for y in edge]
+
+
+@pytest.mark.parametrize("field_id,name,operands",
+                         [(0, "FP", "random"), (1, "FR", "random"), (0, "FP", "edge"),
+                          (1, "FR", "edge")], ids=["0-FP", "1-FR", "0-FP-edge", "1-FR-edge"])
+def test_field_header_matches_plain_jax_and_host(shim, field_id, name, operands):
+    """The header's product (the carry-chain schedule `mont_mul`, run word
+    for word by g++), add and sub vs the plain versions, the JAX field and
+    host ints: random canonical operands with a few edges, or every pair of
+    `_edge_pairs`."""
     fp, jfp = getattr(F, name), getattr(JF, name)
-    xs, ys = _rand_ints(fp.modulus, 200, 1), _rand_ints(fp.modulus, 200, 2)[::-1]
+    if operands == "edge":
+        xs, ys = _edge_pairs(fp.modulus)
+    else:
+        xs, ys = _rand_ints(fp.modulus, 200, 1), _rand_ints(fp.modulus, 200, 2)[::-1]
     a, b = ints_to_limbs(xs), ints_to_limbs(ys)
     out = np.zeros_like(a)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)

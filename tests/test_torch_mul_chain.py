@@ -49,6 +49,26 @@ def test_plain_matches_jax_and_host():
     assert torch.equal(KN.fp_mul_chain(a, b, 0), a)          # dispatch on the CPU
 
 
+def test_lane_header_chain_from_edges():
+    """K9's lane body (the header's product) at k = 256 from 0, 1, p - 1,
+    R mod p and an operand with p's top word, against host ints."""
+    lib = cuda.host_shim()
+    if lib is None:
+        pytest.skip("g++ not available")
+    p, k = FP.modulus, 256
+    xs = [0, 1, p - 1, (1 << 256) % p, p >> 224 << 224, p - 1, 2]
+    ys = [p - 1, p - 1, p - 1, p - 1, p - 1, (1 << 256) % p, p - 2]
+    a, b = (torch.from_numpy(ints_to_limbs(v).T.copy()) for v in (xs, ys))
+    out = torch.zeros_like(a)
+    lib.shim_fp_mul_chain(*(ctypes.c_void_p(t.data_ptr()) for t in (a, b, out)), k, len(xs))
+    want = []
+    for v, w in zip(xs, ys):
+        for _ in range(k):
+            v = v * w * FP.mont_r_inv % p
+        want.append(v)
+    assert limbs_to_ints(out.numpy().T) == want
+
+
 def test_lane_header_matches_plain():
     lib = cuda.host_shim()
     if lib is None:

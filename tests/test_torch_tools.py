@@ -94,6 +94,41 @@ SASS = """
 """
 
 
+def test_mid_doublings_counts_equal_finite_slots():
+    """K7's doubling slots: both points equal and not (0, 0); equal (0, 0)
+    points and equal x with other y do not double."""
+    apr = torch.zeros((4, 2, 3), dtype=torch.int32)
+    bpl = apr.clone()                       # every slot (0, 0) + (0, 0)
+    apr[:, 0, 0] = bpl[:, 0, 0] = torch.tensor([1, 2, 3, 4])      # doubling
+    apr[:, 1, 2] = bpl[:, 1, 2] = torch.tensor([0, 0, 0, 9])      # doubling, x = 0
+    apr[:, 0, 1], bpl[:, 0, 1] = torch.tensor([1, 2, 3, 4]), torch.tensor([1, 2, 3, 5])
+    assert measure.mid_doublings(apr.view(torch.uint32), bpl.view(torch.uint32)) == 2
+
+
+def test_compile_library_rebuild_runs_the_compiler_again(monkeypatch, tmp_path):
+    """A cached library is returned without a compile, and with an empty
+    log; `rebuild` runs the compilers again so that their output (ptxas's
+    report) comes back."""
+    from groth16_tpu_torch.ops import cuda
+    calls = []
+
+    def fake_run(cmds):
+        calls.append(cmds)
+        for c in cmds:
+            open(c[c.index("-o") + 1], "w").close()
+        return "ptxas info    : Used 40 registers\n" if "-c" in cmds[0] else ""
+
+    monkeypatch.setattr(cuda, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda, "_run", fake_run)
+    so, log, _ = cuda.compile_library(("mul_chain.cu",), ("-Xptxas", "-v"))
+    assert "40 registers" in log and len(calls) == 2
+    assert cuda.compile_library(("mul_chain.cu",), ("-Xptxas", "-v"))[:2] == (so, "")
+    assert len(calls) == 2
+    so2, log2, _ = cuda.compile_library(("mul_chain.cu",), ("-Xptxas", "-v"), rebuild=True)
+    assert so2 == so and "40 registers" in log2 and len(calls) == 4
+
+
 def test_sass_loop_body_count():
     """The loop with the most multiplies, in labelled or address form, of
     the named function only; moves and carry adds are not multiplies."""
@@ -110,8 +145,9 @@ def test_kernel_work_and_bounds():
     """Products and bytes counted from the kernel sources, and the bound as
     the larger side."""
     M = 8192
-    assert measure.work("phase_b_kernel", "G1", M=M)[1] == 112 * M
-    assert measure.work("phase_b_kernel", "G2", M=M)[1] == 3 * 112 * M
+    # K7: 14 products up a lane's tree, 30 down, 3 an addition, 1 a doubling
+    assert measure.work("phase_b_kernel", "G1", M=M, dbl=0)[1] == 92 * M
+    assert measure.work("phase_b_kernel", "G2", M=M, dbl=5)[1] == 3 * (92 * M + 5)
     assert measure.work("level_kernel", "G1", K=16 * M, emit=False, inv_ops=0)[1] == (
         7 * 16 * M + 16 * M // 512 * (3 * 127 + 1))
     assert measure.work("fp_mul_chain_kernel", k=256, n=10) == (4 * 48 * 10, 2560)
@@ -120,16 +156,47 @@ def test_kernel_work_and_bounds():
     assert measure.euclid_ops(0) == 0
     assert all(0 < measure.euclid_ops(a) <= 16 * 3 * 256 and measure.euclid_ops(a) % 16 == 0
                for a in (1, 6, measure._P_FP - 1))
-    assert measure.work("invert_kernel", "G1", M=2048, inv_ops=4 * 136 * 50)[1] == (
+    slots = measure.FP_MUL_MULTIPLIES
+    assert measure.work("invert_kernel", "G1", M=2048, inv_ops=4 * slots * 50)[1] == (
         3 * 2048 + 4 * (3 * 127 + 1) + 4 * 50)
     assert measure.work("invert_kernel", "G1", M=1, inv_ops=0)[1] == 3 + 3 * 127 + 1
     assert measure.work("point_double_n", "G1", n=20, k=12)[1] == 12 * 9 * 20
     assert measure.work("horner", "G2", B=1, W=20, c=13) == (4 * 3 * 32 * 21, 19 * (9 * 13 + 14) * 3)
-    assert measure.FP_MUL_MULTIPLIES == 136
+    assert measure.FP_MUL_WIDE + measure.FP_MUL_LOW == 136
     ms, side = measure.bound_ms(3_350_000_000, 1, 1980)
     assert side == "bytes" and abs(ms - 1.0) < 1e-9
-    ms, side = measure.bound_ms(0, 132 * 64 * 1980 * 1000 // 136, 1980)
+    ms, side = measure.bound_ms(0, 132 * 64 * 1980 * 1000 // slots, 1980)
     assert side == "operations" and abs(ms - 1.0) < 1e-6
+
+
+@pytest.mark.parametrize("rate,count", [(64, 136), (64, 264), (32, 136), (62.06, 200.5)])
+def test_peak_products_follow_rate_and_count(rate, count):
+    """The multiply peak is SMs x rate x clock over the issue slots a
+    product takes: twice the rate doubles it, twice the slots halve it."""
+    peak = measure.peak_products_per_s(1980, rate, count)
+    assert abs(peak - 132 * rate * 1980e6 / count) < 1e-3 * peak
+    assert abs(measure.peak_products_per_s(1980, 2 * rate, count) - 2 * peak) < 1e-3 * peak
+    assert abs(measure.peak_products_per_s(1980, rate, 2 * count) - peak / 2) < 1e-3 * peak
+    assert abs(measure.peak_products_per_s(990, rate, count) - peak / 2) < 1e-3 * peak
+
+
+def test_wide_per_clock_takes_the_fastest_form():
+    """A widening product counts once a mul.wide.u32, once a mul.hi.u32 and
+    once a pair of carry-chain instructions."""
+    rates = dict(zip(BM.RATE_KINDS.values(), (62.0, 26.2, 43.2, 31.6)))
+    assert BM.wide_per_clock(rates) == 31.6
+    rates[BM.RATE_KINDS[2]] = 70.0
+    assert BM.wide_per_clock(rates) == 35.0
+
+
+def test_bound_slots_follow_the_wide_rate():
+    """The default product costs its 8 low multiplies one slot each and its
+    128 widening ones 64 / WIDE_PER_SM_PER_CLOCK slots each; the default peak
+    is that count at 64 slots a clock."""
+    w = measure.WIDE_PER_SM_PER_CLOCK
+    assert measure.FP_MUL_MULTIPLIES == 128 * 64 // w + 8
+    assert measure.peak_products_per_s(1980) == measure.peak_products_per_s(
+        1980, 64, measure.FP_MUL_MULTIPLIES)
 
 
 def test_fold_and_level_work_counts():
@@ -149,7 +216,8 @@ def test_fold_and_level_work_counts():
                         order=False, last=True)
     assert p == 3 * (14 * (8 - 1 - 3) + 14 * 4)
     assert b == 4 * (8 * (1 + 96) + 2 * 96 * 4)
-    b, p = measure.work("level_kernel", "G2", K=600, emit=True, inv_ops=136 * 2)
+    b, p = measure.work("level_kernel", "G2", K=600, emit=True,
+                        inv_ops=measure.FP_MUL_MULTIPLIES * 2)
     assert b == 4 * 7 * 64 * 600 + 600
     assert p == 7 * 3 * 600 + 2 * (3 * 127 * 3 + 1 + 4) + 2
 
@@ -176,7 +244,8 @@ def test_ntt_step_and_pointwise_work_counts():
 
 def test_quotient_work_and_bound():
     """The whole quotient at 2^16: four K3 steps (A, B, C in one batch) and
-    the pointwise step, JensGroth two more steps; its bound (about 0.03 ms,
+    the pointwise step, JensGroth two more steps; its bound (about 0.03 ms
+    at 136 issue slots a product, scaled by the slots a product takes;
     operations) counts the products of every launch."""
     kinds = [(n, sh.get("B")) for n, sh in measure.quotient_launches(16, "snarkjs")]
     assert kinds == [("ntt_inner_kernel", 3)] * 4 + [("quotient_pointwise_kernel", None)]
@@ -187,7 +256,9 @@ def test_quotient_work_and_bound():
     _, pj = measure.work("quotient", log2n=16, flavour="jens-groth")
     assert pj == 3 * (butterflies + 3 * N) + 2 * N + butterflies // 2 + 2 * N
     ms, side = measure.bound_ms(b, p, 1980)
-    assert side == "operations" and 0.03 < ms < 0.033
+    scale = measure.FP_MUL_MULTIPLIES / 136
+    assert side == "operations" and 0.03 * scale < ms < 0.033 * scale
+    assert abs(ms - 1e3 * p / measure.peak_products_per_s(1980)) < 1e-12
 
 
 @pytest.mark.parametrize("cv_name", ["G1", "G2"])
@@ -231,5 +302,5 @@ ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem
 
 
 def test_ptxas_table_names_every_instantiation():
-    assert BV.ptxas_table(PTXAS) == {"fold_kernel G2 affine": (168, 4, 4),
-                                     "tree_level_kernel G1": (128, 0, 0)}
+    assert BV.ptxas_table(PTXAS) == {"fold_kernel G2 affine": (168, 4, 4, 8),
+                                     "tree_level_kernel G1": (128, 0, 0, 0)}

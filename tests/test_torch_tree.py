@@ -302,16 +302,35 @@ def test_tree_level_header_matches_plain(shim, cv, K):
                            KT.level_plain(cv, *views, *flags, want_em))
 
 
-@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
-def test_tree_mid_lane_header_matches_plain(shim, cv):
-    """K7's lane body vs `phase_b_plain` on one tile."""
-    T, M_ = KT.T_SLOTS, KT.INV_W
-    _, cols, _ = level_case(cv, T * M_, seed=13)
-    apr, bpl = (c.reshape(c.shape[0], T, M_).contiguous() for c in cols[1:3])
-    tinv = KT.invert_plain(cv, KT.phase_a_plain(cv, apr, bpl))
+def _shim_mid(shim, cv, apr, bpl, tinv):
     mid = torch.zeros_like(apr)
-    shim.shim_tree_mid(int(cv.name == "G2"), _p(apr), _p(bpl), _p(tinv), _p(mid), M_)
+    shim.shim_tree_mid(int(cv.name == "G2"), _p(apr), _p(bpl), _p(tinv), _p(mid), apr.shape[2])
+    return mid
+
+
+FULL_TILE = KT.T_SLOTS * KT.INV_W       # 128 lanes: whole blocks only
+
+
+@pytest.mark.parametrize("cv,K", [(C.G1, 13 * 16 - 5), (C.G1, 21 * 16), (C.G2, 13 * 16 - 5),
+                                  (C.G1, FULL_TILE), (C.G2, FULL_TILE)],
+                         ids=["G1-203", "G1-336", "G2-203", "G1-tile", "G2-tile"])
+def test_tree_mid_blocks_match_plain_and_jax(shim, cv, K):
+    """K7's block functions (bn254_curve.cuh `mid_leaf`, the lane trees,
+    `mid_store`) block by block at widths that leave a partial block of
+    lanes (13 and 21 lanes, blocks of 8; the first padded with (0, 0)
+    additions) and on one tile of 128 lanes, on
+    every group-law case of `level_case` (doublings, equal x with y1 != y2,
+    (0, 0) on either side or both): against `phase_b_plain` on the planes,
+    and as whole columns against the JAX package's `msm_tree.mid_jnp`."""
+    import jax.numpy as jnp
+    from groth16_tpu.ops import curve as JC, msm_tree as JMT
+    _, cols, _ = level_case(cv, K, seed=K)
+    apr, bpl, tinv = KT.mid_planes(cv, cols[1], cols[2])
+    mid = _shim_mid(shim, cv, apr, bpl, tinv)
     assert torch.equal(F.as_i32(mid), F.as_i32(KT.phase_b_plain(cv, apr, bpl, tinv)))
+    jcv = JC.G1 if cv.name == "G1" else JC.G2
+    want = JMT.mid_jnp(jcv, jnp.asarray(cols[1].numpy()), jnp.asarray(cols[2].numpy()))
+    assert np.array_equal(mid.reshape(mid.shape[0], -1)[:, :K].numpy(), np.asarray(want))
 
 
 @pytest.mark.slow
