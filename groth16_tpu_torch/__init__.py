@@ -19,7 +19,8 @@ The main path is one proof from a zkey and a witness on one device:
 On CUDA tensors a proof runs these kernels (groth16_tpu_torch/csrc, built by
 nvcc at first use): K1 (point adds, doubling chains, Horner), K2 (the fold
 MSMs), K3 and the quotient's pointwise kernel, K8 (the merge tree's levels),
-and K6 only in `to_affine`; on CPU tensors their plain PyTorch versions run.
+and K6 and K5 only in `to_affine`; on CPU tensors their plain PyTorch
+versions run.
 """
 
 from .protocol.types import Flavour, VKey, ZKey, Witness, R1CS, extract_vkey, zkey_from_numpy

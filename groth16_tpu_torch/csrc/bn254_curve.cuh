@@ -303,10 +303,11 @@ BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* 
 // ----------------------------------------------------------- merge tree ---
 //
 // Thread bodies of the batched-affine merge-tree kernels (the bodies of
-// groth16_tpu/ops/kernels_tree.py::_phase_a_call, ::_invert_call,
-// ::_phase_b_call and ::_phase_b_level_call).  One tree level is a batch of
-// affine additions mid = A.pR + B.pL whose slope denominators share one
-// batch inversion.  Layouts of K4 and K7, with the lane axis M minor:
+// groth16_tpu/ops/kernels_tree.py::_phase_a_call, ::_mul_rows_call,
+// ::_invert_call, ::_phase_b_call and ::_phase_b_level_call).  One tree
+// level is a batch of affine additions mid = A.pR + B.pL whose slope
+// denominators share one batch inversion.  Layouts of K4 and K7, with the
+// lane axis M minor:
 //   points  uint32[2*NC, T, M]  limb-major fused x|y, (0, 0) = infinity;
 //                               element (t, m) is addition t*M + m of the level
 //   totals  uint32[NC, M]       per-lane denominator products (and inverses)
@@ -439,19 +440,44 @@ BN_HD Aff<typename C::F> tree_mid(const TreeSlot<typename C::F>& s,
   return Aff<F>{x3, y3};
 }
 
-// K4 lane m: the product of its T masked denominators -> tot[:, m].
+// K5, element w: out[w] = a[w] * b[w mod bw].  Each of a, b and out lies
+// where the caller keeps it: element w at p + w * cs, its wire words ls
+// apart (limb-major rows and column slices of them: ls = the row stride,
+// cs = 1; point-major arrays [W, NC]: ls = 1, cs = NC).  `vec` (bit 0 a,
+// 1 b, 2 out) marks an operand read or written with 128-bit accesses: ls =
+// 1 and every element 16-byte aligned.
+struct MulRowsIO {
+  const uint32_t *a, *b;
+  uint32_t* out;
+  long als, acs, bls, bcs, ols, ocs;
+  long W, bw;
+  int vec;
+};
+
+// 128-bit accesses for an operand of n elements: limb stride 1, every
+// element on a 16-byte boundary
+BN_HD bool mul_rows_vec(const void* p, long ls, long cs, long n) {
+  return ls == 1 && (n == 1 || cs % 4 == 0) && (uintptr_t)p % 16 == 0;
+}
+
+BN_HD MulRowsIO mul_rows_io(const uint32_t* a, long als, long acs, const uint32_t* b, long bls,
+                            long bcs, long bw, uint32_t* out, long ols, long ocs, long W) {
+  const int vec = mul_rows_vec(a, als, acs, W) | mul_rows_vec(b, bls, bcs, bw) << 1 |
+                  mul_rows_vec(out, ols, ocs, W) << 2;
+  return MulRowsIO{a, b, out, als, acs, bls, bcs, ols, ocs, W, bw, vec};
+}
+
 template <class C>
-BN_HD void tree_phase_a_lane(const uint32_t* apr, const uint32_t* bpl, uint32_t* tot,
-                             long M, long m) {
+BN_HD void mul_rows_elem(const MulRowsIO& io, long w) {
   typedef typename C::F F;
-  const long plane = (long)TREE_T * M;
-  F run = C::one();
-#pragma unroll 1
-  for (int t = 0; t < TREE_T; ++t) {
-    const long o = t * M + m;
-    run = run * tree_den<C>(tree_slot<C>(apr + o, bpl + o, plane));
-  }
-  run.store(tot + m, M);
+  const uint32_t* pa = io.a + w * io.acs;
+  const uint32_t* pb = io.b + (io.bw == io.W ? w : w % io.bw) * io.bcs;
+  uint32_t* po = io.out + w * io.ocs;
+  const F x = (io.vec & 1) ? F::load_vec(pa) : F::load(pa, io.als);
+  const F y = (io.vec & 2) ? F::load_vec(pb) : F::load(pb, io.bls);
+  const F r = x * y;
+  if (io.vec & 4) r.store_vec(po);
+  else r.store(po, io.ols);
 }
 
 // K6, the batch inversion of tot[:, 0..M): every block of INV_THREADS
@@ -485,8 +511,8 @@ BN_HD typename C::F inv_chain(const uint32_t* tot, long M, long e,
 }
 
 // node i = node 2i * node 2i+1.  Word w of node i lies at node[w * s + i * q]:
-// K6 and K8 keep one tree a block (s = 2 * INV_THREADS, q = 1), K7 one a
-// lane, interleaved (`MID_STRIDE`, q = MID_LANES).
+// K6 and K8 keep one tree a block (s = 2 * INV_THREADS, q = 1), K4 and K7
+// one a lane, interleaved (s = 2 * TREE_T * lanes, q = lanes).
 template <class F>
 BN_HD void inv_tree_up(uint32_t* node, int i, long s = 2 * INV_THREADS, long q = 1) {
   (F::load_packed(node + 2 * i * q, s) * F::load_packed(node + (2 * i + 1) * q, s))
@@ -529,28 +555,71 @@ BN_HD void tree_store_sel(uint32_t* dst, long dstride, bool cond,
   }
 }
 
-// --------------------------------------------------- batched mids (K7) ---
+// ------------------------------------ lane trees: totals (K4), mids (K7) ---
 //
-// K7 in blocks of MID_LANES lanes x TREE_T slots, one thread a slot: thread
-// (t, l) = threadIdx t * MID_LANES + l owns slot t of lane m = block *
-// MID_LANES + l, so a warp reads four slots of eight consecutive lanes, one
-// 32-byte segment a limb row.  The thread loads its slot's two points once
-// and keeps them in registers until it writes the slot's mid
-// (`mid_leaf`, `mid_store`).  Lane m's inverses come from its lane inverse
-// tinv[m] = 1 / (its TREE_T denominators' product) through a product tree
-// in shared memory, one a lane: the up-sweep multiplies the denominators
-// (leaves TREE_T + t) into the lane's inner nodes 2..15 (the root's product
-// is tinv's inverse, which nothing reads); the down-sweep hands every
-// node, from the root (tinv) down, the inverse of its product, which is
-// tinv times the product of every denominator outside it (K6's
-// `inv_tree_up` / `inv_tree_down`).  At leaf t that is tinv times the
-// exclusive prefix and suffix products of slot t, the inverse of its own
-// denominator: 44 products a lane at a serial depth of 7, where one
-// thread sweeping its lane forward and back took 48 at a depth of 32.  Lanes past M
-// are (0, 0) + (0, 0) slots, whose denominator is one.
+// K4 and K7 run in blocks of L lanes x TREE_T slots, one thread a slot:
+// thread (t, l) = threadIdx t * L + l owns slot t of lane m = block * L + l,
+// so a warp reads L consecutive lanes' words of 32 / L slots, L * 4 bytes a
+// limb row.  Each thread loads its slot's two points once and puts its
+// masked denominator at leaf TREE_T + t of its lane's product tree in
+// shared memory (`lane_leaf`, one tree a lane, interleaved: word w of node
+// i at [w * 2 * TREE_T * L + i * L]).
+//
+// K4 (L = K4_LANES, 32 in G1: a warp reads whole 128-byte rows): the
+// up-sweep (K6's `inv_tree_up`) multiplies the leaves into the lane's inner
+// nodes down to the root, node 1, the lane's total: 15 products a lane at a
+// serial depth of 4, where one thread chaining its lane's 16 denominators
+// had a depth of 16 and a sixteenth of the threads.
+//
+// K7 (L = MID_LANES): the thread keeps its slot's points in registers until
+// it writes the slot's mid (`mid_leaf`, `mid_store`).  Lane m's inverses
+// come from its lane inverse tinv[m] = 1 / (its TREE_T denominators'
+// product) through the lane's tree: the up-sweep stops at the inner nodes
+// 2..15 (the root's product is tinv's inverse, which nothing reads); the
+// down-sweep hands every node, from the root (tinv) down, the inverse of
+// its product, which is tinv times the product of every denominator outside
+// it (K6's `inv_tree_down`).  At leaf t that is tinv times the exclusive
+// prefix and suffix products of slot t, the inverse of its own denominator:
+// 44 products a lane at a serial depth of 7, where one thread sweeping its
+// lane forward and back took 48 at a depth of 32.
+//
+// Lanes past M are (0, 0) + (0, 0) slots, whose denominator is one.
 
 constexpr int MID_LANES = 8;                        // lanes of a K7 block
 constexpr int MID_STRIDE = 2 * TREE_T * MID_LANES;  // words between a node's packed words
+
+// Lanes of a K4 block: 32 in G1, so a warp's loads are whole 128-byte limb
+// rows (PERF.md, K4's finding: at G1 M = 2^17 on the H100, 32 lanes ran
+// 0.193 ms, 16 and 8 lanes 0.251 and 0.256); 16 in G2, whose tree of 32
+// lanes would need 64 KB of shared memory.
+template <class C>
+constexpr int K4_LANES = C::NC == 16 ? 32 : 16;
+
+// Thread (t, lane m) of a block of L lanes over planes uint32[2*NC, TREE_T,
+// M]: its slot, loaded once; its masked denominator -> leaf TREE_T + t of
+// the lane's tree (`node`: the lane's first word).
+template <class C, int L>
+BN_HD TreeSlot<typename C::F> lane_leaf(const uint32_t* apr, const uint32_t* bpl, long M,
+                                        long m, int t, uint32_t* node) {
+  typedef typename C::F F;
+  TreeSlot<F> s;
+  if (m < M) {
+    const long o = t * M + m;
+    s = tree_slot<C>(apr + o, bpl + o, (long)TREE_T * M);
+  } else {
+    s.x1 = s.y1 = s.x2 = s.y2 = F::zero();
+    s.i1 = s.i2 = s.eqx = s.eqy = true;
+    s.dbl = false;
+  }
+  tree_den<C>(s).store_packed(node + (TREE_T + t) * L, 2 * TREE_T * L);
+  return s;
+}
+
+// K4, after the up-sweep: lane m's total (node 1 of its tree) -> tot[:, m].
+template <class C, int L>
+BN_HD void lane_total_store(const uint32_t* node, uint32_t* tot, long M, long m) {
+  if (m < M) C::F::load_packed(node + L, 2 * TREE_T * L).store(tot + m, M);
+}
 
 struct MidIO {
   const uint32_t *apr, *bpl, *tinv;  // planes uint32[2*NC, T, M]; tinv [NC, M]
@@ -558,23 +627,13 @@ struct MidIO {
   long M;
 };
 
-// Thread (t, lane m): its slot, loaded once; its masked denominator ->
-// leaf TREE_T + t of the lane's tree (`node`: the lane's first word).
-// Thread t = 0 also puts the lane inverse at the root of `invn`.
+// K7's leaf (`lane_leaf`); thread t = 0 also puts the lane inverse at the
+// root of `invn`.
 template <class C>
 BN_HD TreeSlot<typename C::F> mid_leaf(const MidIO& io, long m, int t, uint32_t* node,
                                        uint32_t* invn) {
   typedef typename C::F F;
-  TreeSlot<F> s;
-  if (m < io.M) {
-    const long o = t * io.M + m;
-    s = tree_slot<C>(io.apr + o, io.bpl + o, (long)TREE_T * io.M);
-  } else {
-    s.x1 = s.y1 = s.x2 = s.y2 = F::zero();
-    s.i1 = s.i2 = s.eqx = s.eqy = true;
-    s.dbl = false;
-  }
-  tree_den<C>(s).store_packed(node + (TREE_T + t) * MID_LANES, MID_STRIDE);
+  const TreeSlot<F> s = lane_leaf<C, MID_LANES>(io.apr, io.bpl, io.M, m, t, node);
   if (t == 0)
     (m < io.M ? F::load(io.tinv + m, io.M) : C::one()).store_packed(invn + MID_LANES, MID_STRIDE);
   return s;

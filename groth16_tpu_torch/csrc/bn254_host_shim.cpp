@@ -4,7 +4,7 @@
 // merge-tree lane functions the CUDA kernels run (bn254_field.cuh,
 // bn254_curve.cuh), and this file loops them over wire-layout arrays, so the
 // arithmetic of K1 (chains included), K2, K3 (block by block, bn254_ntt.cuh),
-// K4, K6, K7, K8 (K6, K7 and K8 block by block), K9 and the quotient's
+// K4-K8 (K4, K6, K7 and K8 block by block), K9 and the quotient's
 // pointwise step is checked without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254shim.so bn254_host_shim.cpp
 
@@ -99,6 +99,23 @@ static void level_blocks(const LevelIO& io) {
             [&](long e, const F* pre, F rinv) { level_finish<C>(io, e, pre, rinv); });
 }
 
+// K4 as its kernel runs it: block after block, each phase over the block's
+// threads in turn
+template <class C>
+static void phase_a_blocks(const uint32_t* apr, const uint32_t* bpl, uint32_t* tot, long M) {
+  typedef typename C::F F;
+  constexpr int L = K4_LANES<C>, T = TREE_T, S = 2 * TREE_T * L;
+  std::vector<uint32_t> node(F::PACKED * S);
+  for (long m0 = 0; m0 < M; m0 += L) {
+    for (int t = 0; t < T; ++t)
+      for (int l = 0; l < L; ++l) lane_leaf<C, L>(apr, bpl, M, m0 + l, t, &node[l]);
+    for (int h = T / 2; h >= 1; h >>= 1)
+      for (int t = 0; t < h; ++t)
+        for (int l = 0; l < L; ++l) inv_tree_up<F>(&node[l], h + t, S, L);
+    for (int l = 0; l < L; ++l) lane_total_store<C, L>(&node[l], tot, M, m0 + l);
+  }
+}
+
 // K7 as its kernel runs it: block after block, each phase over the
 // block's threads in turn
 template <class C>
@@ -161,12 +178,21 @@ void shim_fold(int g2, int affine, const uint32_t* rows, const int32_t* order,
   }
 }
 
-// merge tree: K4 lanes m < M, K6, K7 and K8 block by block
+// merge tree: K4, K6, K7 and K8 block by block, K5 element by element
 void shim_tree_phase_a(int g2, const uint32_t* apr, const uint32_t* bpl,
                        uint32_t* tot, long M) {
-  for (long m = 0; m < M; ++m) {
-    if (g2) tree_phase_a_lane<G2>(apr, bpl, tot, M, m);
-    else tree_phase_a_lane<G1>(apr, bpl, tot, M, m);
+  if (g2) phase_a_blocks<G2>(apr, bpl, tot, M);
+  else phase_a_blocks<G1>(apr, bpl, tot, M);
+}
+
+// out[w] = a[w] * b[w mod bw] at the kernel's strides (MulRowsIO; where it
+// marks 128-bit accesses, the CPU build reads the same words at stride 1)
+void shim_tree_mul_rows(int g2, const uint32_t* a, long als, long acs, const uint32_t* b,
+                        long bls, long bcs, long bw, uint32_t* out, long ols, long ocs, long W) {
+  const MulRowsIO io = mul_rows_io(a, als, acs, b, bls, bcs, bw, out, ols, ocs, W);
+  for (long w = 0; w < W; ++w) {
+    if (g2) mul_rows_elem<G2>(io, w);
+    else mul_rows_elem<G1>(io, w);
   }
 }
 

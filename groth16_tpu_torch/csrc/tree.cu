@@ -26,10 +26,25 @@
 //       one limb stride, so the level needs no padding, layout change or
 //       copy;
 //   K4  per lane of 16 additions, the product of their slope denominators
-//       (`kernels_tree.mid_planes`, which only the phase tool runs);
-//   K5  elementwise products of two total rows (the halvings of a product
-//       tree over the totals; only tools/bench_tree_phases.py runs them,
-//       beside K6);
+//       (`kernels_tree.mid_planes`, which only the phase tool runs), in
+//       K7's block shape, one thread a slot, of 32 lanes x 16 in G1 (16 in
+//       G2): each thread loads its slot, puts the masked denominator at a
+//       leaf of its lane's product tree in shared memory, and the up-sweep
+//       runs to the root, the lane's total (bn254_curve.cuh `lane_leaf`,
+//       the same leaf as K7's).  Bound by the bytes of the two operand
+//       points a slot (256 bytes in G1), read once, a warp's loads whole
+//       128-byte limb rows (K7's 8 lanes give it 32-byte pieces); a thread's
+//       serial depth is 4 tree products, where one thread chaining a lane's
+//       16 denominators waited on 16 products with a sixteenth of the
+//       threads in flight;
+//   K5  elementwise products out[w] = a[w] * b[w mod bw] of Fp or Fp2
+//       values where they lie: each of a, b and out at its own limb and
+//       column stride (rows, column slices, point-major arrays read and
+//       written with 128-bit accesses), so a call copies nothing.  One
+//       thread a product; bound by the bytes of the operands on wide calls
+//       and by one launch at the proof's width (`curve.to_affine`: the X
+//       and Y of a batch times its row of Z inverses, one launch; the
+//       halvings of tools/bench_tree_phases.py);
 //   K6  the batch inversion of any number of totals in one launch.  Replaces
 //       groth16_tpu/ops/kernels_tree.py::_invert_call, whose one grid step of
 //       128 lanes with a Fermat ladder each was the TPU's shape.  Every block
@@ -66,23 +81,30 @@
 
 using namespace bn254;
 
+// K4, one block of K4_LANES lanes (see bn254_curve.cuh `lane_leaf`): the
+// leaves, then each lane's tree up to its root, the total.
 template <class C>
-__global__ void tree_phase_a_kernel(const uint32_t* __restrict__ apr,
-                                    const uint32_t* __restrict__ bpl,
-                                    uint32_t* __restrict__ tot, long M) {
-  long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  tree_phase_a_lane<C>(apr, bpl, tot, M, m);
+__global__ void __launch_bounds__(K4_LANES<C>* TREE_T)
+tree_phase_a_kernel(const uint32_t* __restrict__ apr, const uint32_t* __restrict__ bpl,
+                    uint32_t* __restrict__ tot, long M) {
+  typedef typename C::F F;
+  constexpr int L = K4_LANES<C>, S = 2 * TREE_T * L;
+  __shared__ uint32_t node[F::PACKED * S];
+  const int t = threadIdx.x / L, l = threadIdx.x % L;
+  const long m = (long)blockIdx.x * L + l;
+  lane_leaf<C, L>(apr, bpl, M, m, t, node + l);
+  __syncthreads();
+  for (int h = TREE_T / 2; h >= 1; h >>= 1) {
+    if (t < h) inv_tree_up<F>(node + l, h + t, S, L);
+    __syncthreads();
+  }
+  if (t == 0) lane_total_store<C, L>(node + l, tot, M, m);
 }
 
 template <class C>
-__global__ void tree_mul_rows_kernel(const uint32_t* __restrict__ a,
-                                     const uint32_t* __restrict__ b,
-                                     uint32_t* __restrict__ out, long W) {
-  typedef typename C::F F;
-  long w = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  (F::load(a + w, W) * F::load(b + w, W)).store(out + w, W);
+__global__ void tree_mul_rows_kernel(MulRowsIO io) {
+  const long w = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w < io.W) mul_rows_elem<C>(io, w);
 }
 
 // The block's part of a batch inversion (K6, K8): thread t holds the
@@ -158,11 +180,6 @@ static unsigned grid(long n, int bs) {
   return (unsigned)((n + bs - 1) / bs);
 }
 
-template <class C>
-static int block_size() {
-  return C::NC == 16 ? 128 : 64;
-}
-
 extern "C" {
 
 int g16_tree_phase_a(int g2, const void* apr, const void* bpl, void* tot, long M,
@@ -170,25 +187,26 @@ int g16_tree_phase_a(int g2, const void* apr, const void* bpl, void* tot, long M
   cudaStream_t s = (cudaStream_t)stream;
   if (M > 0) {
     if (g2)
-      tree_phase_a_kernel<G2><<<grid(M, block_size<G2>()), block_size<G2>(), 0, s>>>(
+      tree_phase_a_kernel<G2><<<grid(M, K4_LANES<G2>), K4_LANES<G2> * TREE_T, 0, s>>>(
           (const uint32_t*)apr, (const uint32_t*)bpl, (uint32_t*)tot, M);
     else
-      tree_phase_a_kernel<G1><<<grid(M, block_size<G1>()), block_size<G1>(), 0, s>>>(
+      tree_phase_a_kernel<G1><<<grid(M, K4_LANES<G1>), K4_LANES<G1> * TREE_T, 0, s>>>(
           (const uint32_t*)apr, (const uint32_t*)bpl, (uint32_t*)tot, M);
   }
   return (int)cudaGetLastError();
 }
 
-int g16_tree_mul_rows(int g2, const void* a, const void* b, void* out, long W,
-                      void* stream) {
+// out[w] = a[w] * b[w mod bw], w < W; strides in words (see MulRowsIO)
+int g16_tree_mul_rows(int g2, const void* a, long als, long acs, const void* b, long bls,
+                      long bcs, long bw, void* out, long ols, long ocs, long W, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (W > 0) {
+    const MulRowsIO io = mul_rows_io((const uint32_t*)a, als, acs, (const uint32_t*)b, bls,
+                                     bcs, bw, (uint32_t*)out, ols, ocs, W);
     if (g2)
-      tree_mul_rows_kernel<G2><<<grid(W, 128), 128, 0, s>>>(
-          (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, W);
+      tree_mul_rows_kernel<G2><<<grid(W, 128), 128, 0, s>>>(io);
     else
-      tree_mul_rows_kernel<G1><<<grid(W, 128), 128, 0, s>>>(
-          (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, W);
+      tree_mul_rows_kernel<G1><<<grid(W, 128), 128, 0, s>>>(io);
   }
   return (int)cudaGetLastError();
 }

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "g16_ntt_step": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _P],
     "g16_quotient_pointwise": [_P, _L, _P, _I, _P, _P],
     "g16_tree_phase_a": [_I, _P, _P, _P, _L, _P],
-    "g16_tree_mul_rows": [_I, _P, _P, _P, _L, _P],
+    "g16_tree_mul_rows": [_I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P],
     "g16_tree_invert": [_I, _P, _P, _L, _P],
     "g16_tree_level": [_I] + [_P] * 8 + [_L, _L, _P],
     "g16_tree_mid": [_I, _P, _P, _P, _P, _L, _P],
@@ -188,6 +188,7 @@ def host_shim():
     L.shim_field_inv.argtypes = [_I, _L, _P, _P]
     L.shim_fold.argtypes = [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I]
     L.shim_tree_phase_a.argtypes = [_I, _P, _P, _P, _L]
+    L.shim_tree_mul_rows.argtypes = [_I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L]
     L.shim_tree_invert.argtypes = [_I, _P, _P, _L]
     L.shim_tree_level.argtypes = [_I] + [_P] * 8 + [_L, _L]
     L.shim_tree_mid.argtypes = [_I, _P, _P, _P, _P, _L]
@@ -195,7 +196,7 @@ def host_shim():
     L.shim_ntt_step.argtypes = [_P] * 6 + [_I, _L, _I, _I, _I, _I]
     L.shim_quotient_pointwise.argtypes = [_P, _L, _P, _I, _P]
     for fn in (L.shim_field, L.shim_point, L.shim_fold, L.shim_tree_phase_a,
-               L.shim_tree_invert, L.shim_tree_level, L.shim_tree_mid,
+               L.shim_tree_mul_rows, L.shim_tree_invert, L.shim_tree_level, L.shim_tree_mid,
                L.shim_fp_mul_chain, L.shim_point_double_n, L.shim_horner, L.shim_field_inv,
                L.shim_ntt_step, L.shim_quotient_pointwise):
         fn.restype = None

@@ -11,8 +11,9 @@ and doubling need no branches.
 it, on CPU tensors they run the plain version (`point_add_plain`,
 `point_double_n_plain`, `horner_plain`: the same formulas on int64 limbs with
 the independent products of each step stacked into one multiply).  Both give
-bit-identical projective results.  `to_affine` inverts Z on CUDA tensors
-with the merge tree's batch-inversion kernel K6 (csrc/tree.cu).
+bit-identical projective results.  `to_affine` on CUDA tensors inverts Z
+with the merge tree's batch-inversion kernel K6 and multiplies X and Y by
+the inverses with its row-product kernel K5 (csrc/tree.cu).
 """
 
 from __future__ import annotations
@@ -312,19 +313,18 @@ def from_affine(cv: CurveSpec, x, y):
 def to_affine(cv: CurveSpec, P):
     """Projective batch -> affine (x, y); infinity maps to (0, 0).  All Z
     share one batch inversion, as one limb-major row through
-    `kernels_tree.invert`: kernel K6 on CUDA tensors, on CPU tensors its plain
-    version (a batched Fermat ladder of plain products, Fp2 through the
-    norm).  The inverse of Z = 0 is 0."""
+    `kernels_tree.invert`, and X and Y, stacked point-major, take their
+    products with that row of inverses in one `kernels_tree.mul_rows`: on
+    CUDA tensors kernels K6 and K5, on CPU tensors their plain versions (a
+    batched Fermat ladder, Fp2 through the norm; plain products).  The
+    inverse of Z = 0 is 0, so infinity needs no select: X * 0 = Y * 0 = 0."""
     from . import kernels_tree
-    K = cv.fops
-    X, Y, Z = _i64(P)
-    inf = K.is_zero(Z)
-    row = P[2].to(torch.uint32).reshape(-1, kernels_tree.ncomp(cv)).T.contiguous()
-    zinv = F.i64(kernels_tree.invert(cv, row).T).reshape(Z.shape)
-    x, y = K.mul(torch.stack([X, Y]), zinv)
-    zero = torch.zeros_like(x)
-    return (K.select(inf, zero, x).to(torch.uint32),
-            K.select(inf, zero, y).to(torch.uint32))
+    X, Y, Z = _wire(P)
+    row = Z.reshape(-1, kernels_tree.ncomp(cv)).T.contiguous()
+    zinv = kernels_tree.invert(cv, row)
+    xy = F.as_u32(torch.stack([F.as_i32(X), F.as_i32(Y)]))
+    x, y = kernels_tree.mul_rows(cv, xy, zinv, point_major=True)
+    return x, y
 
 
 # ---------------------------------------------------------------------------

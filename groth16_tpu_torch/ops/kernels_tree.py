@@ -15,16 +15,20 @@ additions mid = A.pR + B.pL on limb-major fused x|y columns uint32[R2, K]
                       (0 gives 0); `curve.to_affine` inverts its Z with it;
   K4 `phase_a`        per-lane product of T_SLOTS masked denominators, on
                       the additions padded and viewed as [R2, T_SLOTS, M]
-                      planes (M = K / T_SLOTS lanes, lane axis minor);
+                      planes (M = K / T_SLOTS lanes, lane axis minor), one
+                      thread a slot and each lane's product tree in shared
+                      memory;
   K7 `phase_b`        the mids alone on those planes, given the lane
                       inverses, one thread an addition and each lane's
                       inverses through a product tree in shared memory
                       (`mid`, which only tools/bench_tree_phases.py calls,
                       through `mid_planes`: K4, K6, K7);
-  K5 `mul_rows`       elementwise products of two rows of totals: the
-                      halvings of a product tree, the route to a narrow
-                      inversion that tools/bench_tree_phases.py times beside
-                      the one wide K6 launch (and its affine conversion).
+  K5 `mul_rows`       elementwise products a[w] * b[w mod Wb] of operands
+                      where they lie (limb-major rows and column slices,
+                      point-major arrays): `curve.to_affine`'s X and Y times
+                      the Z inverses in one launch, and the halvings of a
+                      product tree that tools/bench_tree_phases.py times
+                      beside the one wide K6 launch.
 
 `level_plain` composes the plain K4, K6 and the plain additions with node
 updates (`phase_b_level_plain`) on the planes.  Each kernel wrapper
@@ -48,7 +52,7 @@ from .kernels import _cuda_inputs
 
 T_SLOTS = 16     # additions per lane (bn254_curve.cuh TREE_T)
 INV_W = 128      # threads of a K6 block (INV_THREADS); each chains 4 totals
-PLAIN_LANES = 8192  # lanes per slice of the plain K7 (`phase_b_plain`)
+PLAIN_LANES = 8192  # lanes per slice of the plain K4 and K7
 PLAIN_COLS = T_SLOTS * PLAIN_LANES  # additions per slice of `level_plain`
 
 
@@ -107,14 +111,31 @@ def _inclusive_products(K, d: torch.Tensor) -> torch.Tensor:
 
 
 def phase_a_plain(cv: CurveSpec, apr: torch.Tensor, bpl: torch.Tensor) -> torch.Tensor:
-    """Plain K4: uint32[R2, T, M] x2 -> per-lane denominator products [R, M]."""
+    """Plain K4: uint32[R2, T, M] x2 -> per-lane denominator products [R, M],
+    in slices of PLAIN_LANES lanes on wide planes (as `phase_b_plain`)."""
+    M = apr.shape[2]
+    if M > PLAIN_LANES:
+        return torch.cat([phase_a_plain(cv, apr[:, :, s:s + PLAIN_LANES],
+                                        bpl[:, :, s:s + PLAIN_LANES])
+                          for s in range(0, M, PLAIN_LANES)], 1)
     _, den, _ = _slots(cv, apr, bpl)
     return _limb_major(cv, _inclusive_products(cv.fops, den)[-1])
 
 
-def mul_rows_plain(cv: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain K5: elementwise products of two uint32[R, W] rows."""
-    return _limb_major(cv, cv.fops.mul(_elems(cv, a), _elems(cv, b)))
+def mul_rows_plain(cv: CurveSpec, a: torch.Tensor, b: torch.Tensor, out=None,
+                   point_major: bool = False) -> torch.Tensor:
+    """Plain K5 (see `mul_rows`): out[w] = a[w] * b[w mod Wb]."""
+    (W, _, _), (Wb, _, _) = _mul_rows_check(cv, a, b, out, point_major)
+    ea = F.i64(a).reshape((W,) + cv.comp_shape) if point_major else _elems(cv, a)
+    eb = _elems(cv, b)
+    if Wb != W:
+        eb = eb.repeat((W // Wb,) + (1,) * len(cv.comp_shape))
+    prod = cv.fops.mul(ea, eb)
+    res = prod.to(torch.uint32).reshape(a.shape) if point_major else _limb_major(cv, prod)
+    if out is None:
+        return res
+    F.as_i32(out).copy_(F.as_i32(res))
+    return out
 
 
 def invert_plain(cv: CurveSpec, tots: torch.Tensor) -> torch.Tensor:
@@ -221,7 +242,11 @@ def _plane_check(cv: CurveSpec, *planes) -> tuple:
 
 
 def phase_a_kernel(cv: CurveSpec, apr: torch.Tensor, bpl: torch.Tensor) -> torch.Tensor:
-    """K4 (see `phase_a_plain`)."""
+    """K4 (see `phase_a_plain`): blocks of 32 lanes (G1; 16 in G2) x
+    T_SLOTS slots, one thread a slot, each lane's denominators multiplied up
+    a product tree in shared memory.  Replaces
+    groth16_tpu/ops/kernels_tree.py:120 `_phase_a_call`; bound by the bytes
+    of the two operand points of each slot, read once (csrc/tree.cu)."""
     _, _, M = _plane_check(cv, apr, bpl)
     apr, bpl = _cuda_inputs([apr, bpl])
     tot = torch.empty((ncomp(cv), M), dtype=torch.uint32, device=apr.device)
@@ -235,16 +260,70 @@ def phase_a_kernel(cv: CurveSpec, apr: torch.Tensor, bpl: torch.Tensor) -> torch
 phase_a_kernel.launches = 0
 
 
-def mul_rows_kernel(cv: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K5 (see `mul_rows_plain`)."""
-    if a.shape != b.shape or a.ndim != 2 or a.shape[0] != ncomp(cv):
-        raise ValueError(f"mul_rows takes two [{ncomp(cv)}, W] rows")
-    a, b = _cuda_inputs([a, b])
-    out = torch.empty_like(a)
-    rc = cuda.lib().g16_tree_mul_rows(_g2(cv), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                      a.shape[1], cuda.stream_ptr(a.device))
-    cuda.check(rc, "tree mul_rows kernel")
-    mul_rows_kernel.launches += 1
+def _mul_rows_operand(cv: CurveSpec, x: torch.Tensor, point_major: bool) -> tuple:
+    """(W, limb stride, column stride) in words of a K5 operand as it lies:
+    a limb-major row uint32[NC, W] at any strides (a column slice, a
+    transposed point-major array), or, `point_major`, an array [..., *comp]
+    whose leading axes fold into one column stride, its words at one limb
+    stride (in G2 c1 sixteen limbs after c0).  Raises on anything else."""
+    nc, k = ncomp(cv), len(cv.comp_shape)
+    if not point_major:
+        if x.ndim != 2 or x.shape[0] != nc:
+            raise ValueError(f"{cv.name} rows must be [{nc}, W], got {tuple(x.shape)}")
+        ls, cs, W = x.stride(0), x.stride(1), x.shape[1]
+    else:
+        if x.ndim < k or tuple(x.shape[x.ndim - k:]) != cv.comp_shape:
+            raise ValueError(f"{cv.name} points must be [..., {cv.comp_shape}], "
+                             f"got {tuple(x.shape)}")
+        ls = x.stride(-1)
+        if k == 2 and x.stride(-2) != 16 * ls:
+            raise ValueError(f"G2 points need c1 16 limbs after c0, got strides {x.stride()}")
+        lead = [(n, st) for n, st in zip(x.shape[:x.ndim - k], x.stride()[:x.ndim - k]) if n != 1]
+        if any(s0 != n1 * s1 for (_, s0), (n1, s1) in zip(lead, lead[1:])):
+            raise ValueError(f"point axes {tuple(x.shape)} at strides {x.stride()} do not fold "
+                             "into one column stride")
+        W = x.numel() // nc
+        cs = lead[-1][1] if lead else nc * ls
+    if ls == 0:
+        raise ValueError("a K5 operand needs a nonzero limb stride")
+    return W, ls, cs
+
+
+def _mul_rows_check(cv: CurveSpec, a, b, out, point_major: bool) -> tuple:
+    """`_mul_rows_operand` of a and of b in a K5 call, checked: b's width
+    divides a's (W products), and out, if given, has a's shape."""
+    ga, gb = _mul_rows_operand(cv, a, point_major), _mul_rows_operand(cv, b, False)
+    if gb[0] < 1 or ga[0] % gb[0]:
+        raise ValueError(f"b's width {gb[0]} must divide a's {ga[0]}")
+    if out is not None and out.shape != a.shape:
+        raise ValueError(f"out must be {tuple(a.shape)}, got {tuple(out.shape)}")
+    return ga, gb
+
+
+def mul_rows_kernel(cv: CurveSpec, a: torch.Tensor, b: torch.Tensor, out=None,
+                    point_major: bool = False) -> torch.Tensor:
+    """K5 (see `mul_rows`): one launch, every operand read or written where
+    it lies (strides checked, nothing copied).  Replaces
+    groth16_tpu/ops/kernels_tree.py:166 `_mul_rows_call`; bound by the bytes
+    of its operands, or at the proof's width by one launch (csrc/tree.cu)."""
+    (W, als, acs), (Wb, bls, bcs) = _mul_rows_check(cv, a, b, out, point_major)
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs must be CUDA tensors, got {dev}")
+    if out is None:
+        out = torch.empty(a.shape, dtype=torch.uint32, device=dev)
+    for t in (a, b, out):
+        if t.device != dev or t.dtype != torch.uint32:
+            raise ValueError(f"expected uint32 on {dev}, got {t.dtype} on {t.device}")
+    _, ols, ocs = _mul_rows_operand(cv, out, point_major)
+    if W > 1 and ocs == 0:
+        raise ValueError("out needs a nonzero column stride")
+    if W:
+        rc = cuda.lib().g16_tree_mul_rows(_g2(cv), a.data_ptr(), als, acs, b.data_ptr(), bls,
+                                          bcs, Wb, out.data_ptr(), ols, ocs, W,
+                                          cuda.stream_ptr(dev))
+        cuda.check(rc, "tree mul_rows kernel")
+        mul_rows_kernel.launches += 1
     return out
 
 
@@ -346,8 +425,16 @@ def phase_a(cv, apr, bpl):
     return phase_a_plain(cv, apr, bpl) if _on_cpu(apr) else phase_a_kernel(cv, apr, bpl)
 
 
-def mul_rows(cv, a, b):
-    return mul_rows_plain(cv, a, b) if _on_cpu(a) else mul_rows_kernel(cv, a, b)
+def mul_rows(cv, a, b, out=None, point_major: bool = False):
+    """Elementwise products out[w] = a[w] * b[w mod Wb] of Fp (G1) or Fp2
+    (G2) values: a is a limb-major row uint32[NC, W] (any strides: column
+    slices of a wider row), or, `point_major`, points [..., *comp] (W of
+    them) as curve ops hold coordinates; b is a limb-major row [NC, Wb]
+    whose width divides W.  The result has a's shape, contiguous, or goes
+    into `out` (a's shape, any strides a view allows).  K5 on CUDA tensors,
+    `mul_rows_plain` on CPU tensors."""
+    fn = mul_rows_plain if _on_cpu(a) else mul_rows_kernel
+    return fn(cv, a, b, out, point_major)
 
 
 def invert(cv, tots):

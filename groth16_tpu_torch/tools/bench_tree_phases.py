@@ -42,21 +42,18 @@ import sys
 def make_points(n: int, device, seed: int = 7):
     """n G1 points k_i G, k_i random 31-bit from a numpy seed, in wire form
     (projective with Z = Montgomery 1).  The ladder runs on K1; the affine
-    conversion inverts every Z with the tree's batch inversion (K6) and
-    multiplies with K5 (no Z is 0)."""
+    conversion is `curve.to_affine` (K6, then one K5 launch; no Z is 0)."""
     import numpy as np
     import torch
-    from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
+    from groth16_tpu_torch.ops import curve as C
     from groth16_tpu_torch.utils.hostmath import G1_GEN
     rng = np.random.default_rng(seed)
     ks = rng.integers(1, 1 << 31, size=n, dtype=np.uint32)
     scal = np.zeros((n, 16), np.uint32)
     scal[:, 0], scal[:, 1] = ks & 0xFFFF, ks >> 16
     gen = C.points_from_host(C.G1, [G1_GEN], device)
-    X, Y, Z = C.scalar_mul(C.G1, torch.from_numpy(scal).to(device), gen, 32)
-    zinv = KT.invert(C.G1, Z.T.contiguous())
-    x, y = (KT.mul_rows(C.G1, c.T.contiguous(), zinv).T.contiguous() for c in (X, Y))
-    return C.from_affine(C.G1, x, y)
+    P = C.scalar_mul(C.G1, torch.from_numpy(scal).to(device), gen, 32)
+    return C.from_affine(C.G1, *C.to_affine(C.G1, P))
 
 
 def level_case(rng, cv, K: int, device) -> tuple:
@@ -107,12 +104,13 @@ NARROW = 2048   # lanes of the narrow inversion of `invert_by_halvings`
 
 def invert_by_halvings(cv, tots):
     """Inverses of uint32[R, M] lane totals by a product tree of K5 launches:
-    halve the row by pairwise products down to NARROW lanes, invert those
-    (K6), and multiply back up (two K5 launches a halving).  The route a tree
-    level took while K6 was one block of at most NARROW lanes; kept here to
-    be timed against the one wide K6 launch."""
+    halve the row by pairwise products of its two halves (views) down to
+    NARROW lanes, invert those (K6), and multiply back up, two K5 launches a
+    halving, each writing its half of the level's one output.  The route a
+    tree level took while K6 was one block of at most NARROW lanes; kept
+    here to be timed against the one wide K6 launch."""
     import torch
-    from groth16_tpu_torch.ops import field as F, kernels_tree as KT
+    from groth16_tpu_torch.ops import kernels_tree as KT
     stack = []
     x = tots
     while x.shape[-1] > NARROW and x.shape[-1] % 2 == 0:
@@ -122,8 +120,10 @@ def invert_by_halvings(cv, tots):
     inv = KT.invert(cv, x)
     for lv in reversed(stack):
         w = lv.shape[-1] // 2
-        inv = F.as_u32(torch.cat([F.as_i32(KT.mul_rows(cv, inv, lv[:, w:])),
-                                  F.as_i32(KT.mul_rows(cv, inv, lv[:, :w]))], -1))
+        up = torch.empty_like(lv)
+        KT.mul_rows(cv, inv, lv[:, w:], out=up[:, :w])
+        KT.mul_rows(cv, inv, lv[:, :w], out=up[:, w:])
+        inv = up
     return inv
 
 

@@ -1,8 +1,9 @@
-"""Timing, the card's identity and the least time a kernel could take.
+"""Timing, the profiler's device kernels of a call, the card's identity and
+the least time a kernel could take.
 
 Shared by chip_smoke.py and the tools (bench_tree_phases, bench_fold_phases,
-bench_mul_kernels, bench_point_variants).  A kernel's bound is the larger
-of two times:
+bench_mul_kernels, bench_point_variants, bench_tree_kernels,
+profile_proof).  A kernel's bound is the larger of two times:
 
   bytes        each input read once and each output written once, over the
                H100's 3.35 TB/s;
@@ -169,6 +170,53 @@ def time_ms(fn, device, reps: int = 3, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_trace(fn):
+    """(device events, value) of the second of two calls of fn() under
+    torch.profiler (CPU and CUDA activity): the first call is the profiler's
+    warm-up step, since a trace can miss the first device events, and the
+    step's own span, which is no device event, is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")], out
+
+
+def device_kernels(fn, expect: dict, tries: int = 3) -> dict:
+    """{name: (launches, device microseconds)} of every kernel and copy that
+    one call of fn() runs on the card (`device_trace`).  `expect` maps a
+    part of a kernel's name to the launches the call makes of the kernels
+    so named; a trace whose launches differ is taken again, `tries` times in
+    all, and raises AssertionError if the last still differs."""
+    for _ in range(tries):
+        names: dict = {}
+        for e in device_trace(fn)[0]:
+            n, us = names.get(e.name, (0, 0.0))
+            names[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        traced = {part: sum(n for k, (n, _) in names.items() if part in k) for part in expect}
+        if traced == dict(expect):
+            return names
+    raise AssertionError(f"the profiler traced launches {traced}, not {dict(expect)}: {names}")
+
+
+def short(names: dict) -> dict:
+    """Profiler names cut to the kernel's own name: {name: [launches, us]}."""
+    out = {}
+    for name, (n, us) in names.items():
+        key = name.split("(")[0].split("<")[0].replace("void ", "").strip()[:60]
+        prev = out.get(key, [0, 0.0])
+        out[key] = [prev[0] + n, round(prev[1] + us, 3)]
+    return out
+
+
 def _smi(query: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -276,7 +324,8 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     B, pre, post, wire_in, wire_out), quotient_pointwise_kernel (n, scale,
     standard), quotient (log2n, flavour: the whole of
     `prover.quotient_scalars`), phase_a_kernel (M), phase_b_kernel (M, dbl), level_kernel (K, emit,
-    inv_ops), mul_rows_kernel (W), invert_kernel (M, inv_ops), where inv_ops
+    inv_ops), mul_rows_kernel (W, Wb: b's width, W by default), invert_kernel
+    (M, inv_ops), where inv_ops
     is the sum of `euclid_ops` over the run's block roots (one issue slot
     each), counted as inv_ops / FP_MUL_MULTIPLIES products;
     fp_mul_chain_kernel (k, n)."""
@@ -324,11 +373,14 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
         N = 1 << s["log2n"]
         prods = sum(work(n, **sh)[1] for n, sh in quotient_launches(s["log2n"], s["flavour"]))
         return 3 * 128 * N + 64 * N, prods
-    if name == "phase_a_kernel":                  # 16 denominators a lane
+    if name == "phase_a_kernel":
+        # two points a slot read, a total a lane written; the product of a
+        # lane's 16 denominators is 15 products
         M = s["M"]
-        return 4 * (2 * 2 * nc * 16 * M + nc * M), 16 * f * M
-    if name == "mul_rows_kernel":
-        return 4 * 3 * nc * s["W"], f * s["W"]
+        return 4 * (2 * 2 * nc * 16 * M + nc * M), 15 * f * M
+    if name == "mul_rows_kernel":                 # a and out W wide, b Wb
+        W = s["W"]
+        return 4 * nc * (2 * W + s.get("Wb", W)), f * W
     if name == "invert_kernel":
         # per total one product down and two back; per block the tree of its
         # 128 thread products (127 up, 254 down), the product by R^3 (and the

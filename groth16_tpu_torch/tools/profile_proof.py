@@ -4,19 +4,55 @@
 
 Sets up synthetic_circuit(log2) on the card (the port's fake setup, fixed
 toxic waste), proves once to warm up, times three unprofiled proofs, then
-profiles one more with torch.profiler (CPU and CUDA activity).  Prints the
+profiles two more with torch.profiler (CPU and CUDA activity; the first is
+the profiler's warm-up step, the second is read).  Prints the
 profiled proof's wall time, the device's busy time in it (the union of the
 traced kernel and copy intervals) and their ratio, then the device time,
-launch count and share of each kernel name, largest first.  Needs one CUDA
-card; imports nothing of JAX.
+launch count and share of each kernel name, largest first, and the
+`cummax` carry scans of the plain field arithmetic apart (CUMMAX_KERNEL,
+the scan kernel torch.cummax runs): their launches and device time in the
+proof, and, from one more proof with torch.cummax wrapped, the functions of
+the package that called each (the innermost three frames outside
+ops/field.py).  It uses only entry points of the package and
+`measure.device_trace`, so it can profile another checkout that has them
+(run it by path from that checkout's root with `PYTHONPATH=.`).  Needs one
+CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
+import traceback
 
 TOP = 25   # kernel names listed
+# the CUDA kernel behind torch.cummax along the last axis (its profiler name)
+CUMMAX_KERNEL = "scan_innermost_dim_with_indices"
+
+
+@contextlib.contextmanager
+def cummax_callers():
+    """Inside the block every torch.cummax call (one scan kernel on the card)
+    is counted under its callers in the package, the innermost three frames
+    outside ops/field.py: yields that {callers: calls} dict."""
+    import torch
+    callers: dict = {}
+    scan = torch.cummax
+
+    def traced(*args, **kwargs):
+        frames = [f"{f.filename.split('groth16_tpu_torch/')[-1]}:{f.lineno} {f.name}"
+                  for f in reversed(traceback.extract_stack()[:-1])
+                  if "groth16_tpu_torch" in f.filename and "ops/field.py" not in f.filename]
+        key = " < ".join(frames[:3]) or "(no frame of the package)"
+        callers[key] = callers.get(key, 0) + 1
+        return scan(*args, **kwargs)
+
+    torch.cummax = traced
+    try:
+        yield callers
+    finally:
+        torch.cummax = scan
 
 
 def busy_us(intervals) -> float:
@@ -39,12 +75,11 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         raise SystemExit("profile_proof: needs a CUDA device")
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.tools import measure
 
     dev = torch.device("cuda", 0)
     flavour = G.Flavour(args.flavour)
@@ -66,9 +101,7 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}, 2^{args.log2} {flavour.value}: unprofiled "
           "proofs " + ", ".join(f"{w:.3f}" for w in walls) + " s")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = prove()
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_events, (_, wall) = measure.device_trace(prove)
     if not dev_events:
         raise SystemExit("profile_proof: the profiler traced no device activity")
     busy = busy_us((e.time_range.start, e.time_range.end) for e in dev_events) / 1e6
@@ -82,6 +115,13 @@ def main() -> int:
     print(f"{'device ms':>10} {'launches':>9} {'share':>6}  kernel")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
         print(f"{t:10.3f} {n:9d} {100 * t / total_ms:5.1f}%  {name[:110]}")
+    scans = [v for name, v in by_name.items() if CUMMAX_KERNEL in name]
+    print(f"cummax in the proof: {sum(n for _, n in scans)} launches, "
+          f"{sum(t for t, _ in scans):.3f} ms device")
+
+    with cummax_callers() as callers:
+        prove()
+    print("cummax callers (launches): " + "; ".join(f"{k} {n}" for k, n in callers.items()))
     return 0
 
 

@@ -82,6 +82,26 @@ def test_affine_conversions_match_jax(cv, jcv):
     assert C.points_to_host(cv, P) == pts
 
 
+@pytest.mark.parametrize("cv,jcv", [(C.G1, JC.G1), (C.G2, JC.G2)], ids=["G1", "G2"])
+def test_to_affine_batch_matches_jax(cv, jcv):
+    """`to_affine` on the CPU (the plain K6 and K5: X and Y stacked, one
+    product with the row of Z inverses) on a [2, 3] batch with Z != 1,
+    infinity (0 : 1 : 0) and (0 : Y : 0), against the JAX package's
+    `to_affine`, which selects (0, 0) where Z = 0."""
+    P, _, _ = _proj(cv, 6, 7)
+    inf = C.inf_like(cv, (1,), "cpu")
+    P = tuple(torch.cat([c[:3], i, c[4:]]) for c, i in zip(P, inf))
+    P[1][5] = P[1][0]
+    P[0][5] = 0
+    P[2][5] = 0
+    P = tuple(c.reshape((2, 3) + cv.comp_shape) for c in P)
+    x, y = C.to_affine(cv, P)
+    jx, jy = JC.to_affine(jcv, _jax(P))
+    assert x.shape == P[0].shape and x.dtype == torch.uint32
+    assert np.array_equal(x.numpy(), np.asarray(jx)) and np.array_equal(y.numpy(), np.asarray(jy))
+    assert not x[1, 0].any() and not y[1, 2].any()
+
+
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_scalar_mul_and_tree_sum_match_host(cv):
     pts, fo = _host_points(cv, 5, 6)

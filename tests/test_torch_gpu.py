@@ -1,6 +1,7 @@
 """Kernels K1-K9 on the card against their plain PyTorch versions (K1's
 chains, the wide K6, K2's levels, the fused tree level K8, every K3 step of
-every plan and the quotient's pointwise kernel included), `to_affine` on the card against the CPU, the
+every plan and the quotient's pointwise kernel, K4 at partial blocks, K5 on
+strided and point-major operands included), `to_affine` on the card against the CPU, the
 merge-tree MSM, the chunked MSM and one small proof on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
 machine (no JAX needed):
 
@@ -53,6 +54,8 @@ def test_wrappers_refuse_cpu_tensors():
     planes = torch.zeros((32, KT.T_SLOTS, 128), dtype=torch.uint32)
     with pytest.raises(ValueError):
         KT.phase_a_kernel(C.G1, planes, planes)
+    with pytest.raises(ValueError):
+        KT.mul_rows_kernel(C.G1, planes[:16, 0], planes[:16, 0])
     with pytest.raises(ValueError):
         KT.invert_kernel(C.G1, torch.zeros((16, 128), dtype=torch.uint32))
     with pytest.raises(ValueError):
@@ -126,15 +129,17 @@ def test_invert_kernel_any_width(dev, cv, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_to_affine_card_matches_cpu(dev, cv):
-    """`to_affine` on the card (its inversion is K6) against `to_affine` of
-    the same points on the CPU, an infinity among them."""
+    """`to_affine` on the card (K6 inverts Z, one K5 launch multiplies X and
+    Y) against `to_affine` of the same points on the CPU, an infinity among
+    them."""
     from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
     n = 50
     P = fixed_base_mul(cv, _scalars(np.random.default_rng(4), n, dev))
     P = C.point_select(cv, torch.arange(n, device=dev) == 7, C.inf_like(cv, (n,), dev), P)
-    before = KT.invert_kernel.launches
+    before = (KT.invert_kernel.launches, KT.mul_rows_kernel.launches)
     got = C.to_affine(cv, P)
-    assert KT.invert_kernel.launches == before + 1
+    assert (KT.invert_kernel.launches, KT.mul_rows_kernel.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
     want = C.to_affine(cv, tuple(c.cpu() for c in P))
     assert _same(tuple(g.cpu() for g in got), want)
     assert not F.as_i32(got[0][7]).any() and not F.as_i32(got[1][7]).any()
@@ -244,6 +249,58 @@ def test_tree_mid_kernel_partial_blocks(dev, cv, K):
     apr, bpl, tinv = KT.mid_planes(cv, cols[1].to(dev), cols[2].to(dev))
     assert torch.equal(F.as_i32(KT.phase_b_kernel(cv, apr, bpl, tinv)),
                        F.as_i32(KT.phase_b_plain(cv, apr, bpl, tinv)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cv,M", [(C.G1, 8192), (C.G1, 1 << 17), (C.G2, 256), (C.G1, 1),
+                                  (C.G1, 9), (C.G1, 32), (C.G1, 33), (C.G2, 16), (C.G2, 17),
+                                  (C.G2, 131)],
+                         ids=["G1-8192", "G1-2^17", "G2-256", "G1-1", "G1-9", "G1-32", "G1-33",
+                              "G2-16", "G2-17", "G2-131"])
+def test_phase_a_kernel_shapes(dev, cv, M):
+    """K4 (blocks of 32 lanes in G1, 16 in G2) at the smoke's shapes, at
+    widths that leave a partial block, and at one full block and one full
+    block and one lane, every group-law case, against `phase_a_plain`."""
+    from groth16_tpu_torch.tools.bench_tree_phases import level_case, level_views
+    PL, PR, _ = level_case(np.random.default_rng(M), cv, KT.T_SLOTS * M, dev)
+    apr, bpl = (c.reshape(c.shape[0], KT.T_SLOTS, M).contiguous()
+                for c in level_views(PL, PR)[1:3])
+    assert torch.equal(F.as_i32(KT.phase_a_kernel(cv, apr, bpl)),
+                       F.as_i32(KT.phase_a_plain(cv, apr, bpl)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_mul_rows_kernel_layouts(dev, cv):
+    """K5 at the smoke's shapes on operands where they lie, against
+    `mul_rows_plain` on the same views: column slices of a row (W = 4096,
+    2048, 2^16 in G1), point-major arrays (2^20 in G1), the proof's W = 1,
+    b read modulo its width (X and Y stacked), and `out` a column slice."""
+    rng = np.random.default_rng(15)
+    nc = KT.ncomp(cv)
+
+    def row(W):
+        return _scalars(rng, W * nc // 16, dev).reshape(W, nc).T.contiguous()
+
+    widths = (4096, 2048, 1 << 16) if cv.name == "G1" else (4096,)
+    for W in widths:
+        tot = row(2 * W)
+        a, b = tot[:, :W], tot[:, W:]
+        assert torch.equal(F.as_i32(KT.mul_rows_kernel(cv, a, b)),
+                           F.as_i32(KT.mul_rows_plain(cv, a, b)))
+        up = torch.zeros((nc, 2 * W), dtype=torch.uint32, device=dev)
+        KT.mul_rows_kernel(cv, a, b, out=up[:, W:])
+        assert torch.equal(F.as_i32(up[:, W:]), F.as_i32(KT.mul_rows_plain(cv, a, b)))
+        assert not F.as_i32(up[:, :W]).any()
+    for W in ((1 << 20, 1) if cv.name == "G1" else (1, 300)):
+        pm = _scalars(rng, W * nc // 16, dev).reshape((W,) + cv.comp_shape)
+        zinv = row(W)
+        assert torch.equal(F.as_i32(KT.mul_rows_kernel(cv, pm, zinv, point_major=True)),
+                           F.as_i32(KT.mul_rows_plain(cv, pm, zinv, point_major=True)))
+        xy = F.as_u32(torch.stack([F.as_i32(pm), F.as_i32(pm.flip(0))]))
+        assert torch.equal(F.as_i32(KT.mul_rows_kernel(cv, xy, zinv, point_major=True)),
+                           F.as_i32(KT.mul_rows_plain(cv, xy, zinv, point_major=True)))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

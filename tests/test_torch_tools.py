@@ -14,6 +14,7 @@ import torch
 from groth16_tpu_torch.ops import msm_tree as MT
 from groth16_tpu_torch.tools import bench_fold_phases as BF, bench_mul_kernels as BM
 from groth16_tpu_torch.tools import bench_point_variants as BV, bench_tree_phases as BT
+from groth16_tpu_torch.tools import bench_tree_kernels as BK
 from groth16_tpu_torch.tools import measure
 
 # The suite runs six worker processes on a few cores: one intra-op thread
@@ -66,8 +67,9 @@ def test_level_case_slots():
             assert torch.equal(apr[x, s], bpl[x, s]) and not torch.equal(apr[y, s], bpl[y, s])
 
 
-@pytest.mark.parametrize("tool", [BT, BM, BF],
-                         ids=["bench_tree_phases", "bench_mul_kernels", "bench_fold_phases"])
+@pytest.mark.parametrize("tool", [BT, BM, BF, BK],
+                         ids=["bench_tree_phases", "bench_mul_kernels", "bench_fold_phases",
+                              "bench_tree_kernels"])
 def test_main_needs_cuda(tool, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -92,6 +94,57 @@ SASS = """
         /*0070*/               @P2 BRA 0x60 ;                 /* 0x000 */
         /*0080*/                   EXIT ;                     /* 0x000 */
 """
+
+
+def test_tree_kernels_tool_names_kernels_short():
+    """measure.short, which bench_tree_kernels prints the profiler's kernels
+    through, folds the names of one kernel (template arguments, parameters)
+    into one entry and keeps copies apart."""
+    names = {"void tree_mul_rows_kernel<bn254::G1>(bn254::MulRowsIO)": (1, 2.5),
+             "void tree_mul_rows_kernel<bn254::G2>(bn254::MulRowsIO)": (2, 1.0),
+             "Memcpy DtoH (Device -> Pageable)": (1, 0.75)}
+    assert measure.short(names) == {"tree_mul_rows_kernel": [3, 3.5],
+                               "Memcpy DtoH": [1, 0.75]}
+
+
+def test_device_kernels_takes_a_trace_again_until_its_launches_match(monkeypatch):
+    """measure.device_kernels counts each name's launches and device time;
+    a trace that misses a launch the caller expects (a part of the name:
+    launches) is taken again, and one that never holds them raises."""
+    from types import SimpleNamespace
+
+    def event(name, us):
+        return SimpleNamespace(name=name, time_range=SimpleNamespace(elapsed_us=lambda: us))
+
+    full = [event("void tree_invert_kernel<bn254::G1>(x)", 2.0),
+            event("void tree_invert_kernel<bn254::G1>(x)", 3.0),
+            event("void tree_invert_kernel<bn254::G2>(x)", 5.0),
+            event("Memcpy DtoH (Device -> Pageable)", 1.0)]
+    traces = [full[1:], full]
+    monkeypatch.setattr(measure, "device_trace", lambda fn: (traces.pop(0), fn()))
+    expect = {"tree_invert_kernel<bn254::G1>": 2, "tree_invert_kernel<bn254::G2>": 1}
+    names = measure.device_kernels(lambda: None, expect)
+    assert not traces
+    assert names == {"void tree_invert_kernel<bn254::G1>(x)": (2, 5.0),
+                     "void tree_invert_kernel<bn254::G2>(x)": (1, 5.0),
+                     "Memcpy DtoH (Device -> Pageable)": (1, 1.0)}
+    monkeypatch.setattr(measure, "device_trace", lambda fn: (full[1:], fn()))
+    with pytest.raises(AssertionError, match="traced launches"):
+        measure.device_kernels(lambda: None, expect, tries=2)
+
+
+def test_cummax_callers_counts_scans_and_restores():
+    """profile_proof.cummax_callers counts each torch.cummax call under its
+    callers in the package (a plain Montgomery product scans once, in
+    ops/field.py, which the frames skip) and puts torch.cummax back."""
+    from groth16_tpu_torch.ops import field as F
+    from groth16_tpu_torch.tools.profile_proof import cummax_callers
+    scan = torch.cummax
+    a = torch.arange(32, dtype=torch.int64).reshape(2, 16)
+    with cummax_callers() as calls:
+        F.mont_mul(F.FP, a, a)
+    assert sum(calls.values()) >= 1 and torch.cummax is scan
+    assert all("ops/field.py" not in k for k in calls)
 
 
 def test_mid_doublings_counts_equal_finite_slots():
@@ -148,6 +201,12 @@ def test_kernel_work_and_bounds():
     # K7: 14 products up a lane's tree, 30 down, 3 an addition, 1 a doubling
     assert measure.work("phase_b_kernel", "G1", M=M, dbl=0)[1] == 92 * M
     assert measure.work("phase_b_kernel", "G2", M=M, dbl=5)[1] == 3 * (92 * M + 5)
+    # K4: two points a slot in, a total a lane out; 15 products a lane's tree
+    assert measure.work("phase_a_kernel", "G1", M=M) == (4 * (64 * 16 + 16) * M, 15 * M)
+    assert measure.work("phase_a_kernel", "G2", M=M)[1] == 3 * 15 * M
+    # K5: a and out W wide, b Wb wide (read at w mod Wb); a product each
+    assert measure.work("mul_rows_kernel", "G1", W=M) == (4 * 16 * 3 * M, M)
+    assert measure.work("mul_rows_kernel", "G2", W=2, Wb=1) == (4 * 32 * 5, 6)
     assert measure.work("level_kernel", "G1", K=16 * M, emit=False, inv_ops=0)[1] == (
         7 * 16 * M + 16 * M // 512 * (3 * 127 + 1))
     assert measure.work("fp_mul_chain_kernel", k=256, n=10) == (4 * 48 * 10, 2560)

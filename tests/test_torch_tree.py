@@ -160,6 +160,17 @@ def test_phase_b_plain_in_lane_slices(monkeypatch):
     assert torch.equal(F.as_i32(KT.phase_b_plain(C.G1, apr, bpl, tinv)), F.as_i32(whole))
 
 
+def test_phase_a_plain_in_lane_slices(monkeypatch):
+    """Plain K4 over lane slices (how it runs planes wider than PLAIN_LANES)
+    equals one pass over all lanes."""
+    T, M_ = KT.T_SLOTS, KT.INV_W
+    _, cols, _ = level_case(C.G1, T * M_, seed=7)
+    apr, bpl = (c.reshape(c.shape[0], T, M_) for c in cols[1:3])
+    whole = KT.phase_a_plain(C.G1, apr, bpl)
+    monkeypatch.setattr(KT, "PLAIN_LANES", 48)      # slices of 48, 48 and 32 lanes
+    assert torch.equal(F.as_i32(KT.phase_a_plain(C.G1, apr, bpl)), F.as_i32(whole))
+
+
 def test_mid_matches_jax_mid_jnp():
     """`KT.mid` (K4, K6 and K7 through their plain versions, K = 300 padded
     to one tile) against the JAX package's portable `msm_tree.mid_jnp`."""
@@ -264,18 +275,24 @@ def _same_level(got, want):
                for g, w in zip(got, want, strict=True))
 
 
+def _shim_phase_a(shim, cv, apr, bpl):
+    tot = torch.zeros((KT.ncomp(cv), apr.shape[2]), dtype=torch.uint32)
+    shim.shim_tree_phase_a(int(cv.name == "G2"), _p(apr), _p(bpl), _p(tot), apr.shape[2])
+    return tot
+
+
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_tree_lane_header_matches_plain(shim, cv):
-    """K4's lane body and K6 block by block vs `phase_a_plain` and
-    `invert_plain` on one tile (M = INV_W lanes of T_SLOTS), and the fused
-    level (K8) on the same 2,048 additions vs `level_plain`."""
+    """K4's block body (bn254_curve.cuh `lane_leaf`, the lanes' trees up to
+    the root) and K6 block by block vs `phase_a_plain` and `invert_plain`
+    on one tile (M = INV_W lanes of T_SLOTS), and the fused level (K8) on
+    the same 2,048 additions vs `level_plain`."""
     T, M_ = KT.T_SLOTS, KT.INV_W
     _, cols, flags = level_case(cv, T * M_, seed=11)
     apl, apr, bpl, bpr = (c.reshape(c.shape[0], T, M_).contiguous() for c in cols)
     g2 = int(cv.name == "G2")
 
-    tot = torch.zeros((KT.ncomp(cv), M_), dtype=torch.uint32)
-    shim.shim_tree_phase_a(g2, _p(apr), _p(bpl), _p(tot), M_)
+    tot = _shim_phase_a(shim, cv, apr, bpl)
     assert torch.equal(F.as_i32(tot), F.as_i32(KT.phase_a_plain(cv, apr, bpl)))
 
     tinv = torch.zeros_like(tot)
@@ -331,6 +348,109 @@ def test_tree_mid_blocks_match_plain_and_jax(shim, cv, K):
     jcv = JC.G1 if cv.name == "G1" else JC.G2
     want = JMT.mid_jnp(jcv, jnp.asarray(cols[1].numpy()), jnp.asarray(cols[2].numpy()))
     assert np.array_equal(mid.reshape(mid.shape[0], -1)[:, :K].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cv,M_", [(cv, M) for cv, L in ((C.G1, 32), (C.G2, 16))
+                                   for M in (1, 7, 8, 9, L, L + 1, 8 * 16 + 3)],
+                         ids=lambda v: v.name if isinstance(v, C.CurveSpec) else str(v))
+def test_tree_phase_a_blocks_match_plain(shim, cv, M_):
+    """K4's block body block by block (blocks of 32 lanes in G1, 16 in G2:
+    widths inside one partial block, exactly one full block, one full block
+    and one lane, and several blocks with a partial last one) on doubling,
+    cancelling and infinity slots (`level_case`) against `phase_a_plain`;
+    the total of a lane is the product of its masked denominators whatever
+    the tree's order."""
+    _, cols, _ = level_case(cv, KT.T_SLOTS * M_, seed=M_)
+    apr, bpl = (c.reshape(c.shape[0], KT.T_SLOTS, M_).contiguous() for c in cols[1:3])
+    assert torch.equal(F.as_i32(_shim_phase_a(shim, cv, apr, bpl)),
+                       F.as_i32(KT.phase_a_plain(cv, apr, bpl)))
+
+
+def _field_rows(cv, W, seed):
+    """W canonical Fp (G1) or Fp2 (G2) values as point-major uint32[W, *comp],
+    with 0, 1 (Montgomery) and p - 1 among them."""
+    rng = np.random.default_rng(seed)
+    vals = [int(x) % F.FP.modulus for x in rng.integers(0, 1 << 62, size=W * len(cv.comp_shape))]
+    vals = [F.FP.to_mont_int(v * (1 << 190) + 12345) for v in vals]
+    vals[:3] = [0, F.FP.to_mont_int(1), F.FP.modulus - 1][:len(vals)]
+    return torch.from_numpy(ints_to_limbs(vals).reshape((W,) + cv.comp_shape))
+
+
+def _shim_mul_rows(shim, cv, a, b, out, point_major):
+    W, als, acs = KT._mul_rows_operand(cv, a, point_major)
+    Wb, bls, bcs = KT._mul_rows_operand(cv, b, False)
+    _, ols, ocs = KT._mul_rows_operand(cv, out, point_major)
+    shim.shim_tree_mul_rows(int(cv.name == "G2"), _p(a), als, acs, _p(b), bls, bcs, Wb, _p(out),
+                            ols, ocs, W)
+    return out
+
+
+def _rows(cv, pm):
+    """point-major [W, *comp] -> limb-major row [NC, W] (contiguous)."""
+    return pm.reshape(pm.shape[0], -1).T.contiguous()
+
+
+@pytest.mark.parametrize("W", [1, 5, 33])
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_tree_mul_rows_strided_matches_plain_and_jax(shim, cv, W):
+    """K5's strided body element by element, every operand where it lies:
+    limb-major column slices of wider rows into a column slice of a wider
+    output; a transposed point-major array (limb stride 1); point-major
+    arrays in and out; X and Y stacked (2W points) times one row of W, b
+    read at column w mod W; an aligned row at a limb stride other than 1
+    (read word by word).  Against `mul_rows_plain` on the same views and
+    the JAX package's field product on the same values."""
+    from groth16_tpu.ops import curve as JC
+    jK = (JC.G1 if cv.name == "G1" else JC.G2).fops
+    nc = KT.ncomp(cv)
+    pa, pb, py = _field_rows(cv, W, 2 * W), _field_rows(cv, W, 2 * W + 1), _field_rows(cv, W, 3)
+    want = np.asarray(jK.mul(pa.numpy(), pb.numpy())).reshape(W, nc)
+    want_y = np.asarray(jK.mul(py.numpy(), pb.numpy())).reshape(W, nc)
+
+    wide_a = torch.zeros((nc, W + 7), dtype=torch.uint32)
+    wide_a[:, 3:3 + W] = _rows(cv, pa)
+    wide_b = torch.zeros((nc, 2 * W), dtype=torch.uint32)
+    wide_b[:, W:] = _rows(cv, pb)
+    a, b = wide_a[:, 3:3 + W], wide_b[:, W:]
+    first = torch.zeros((nc, W + 4), dtype=torch.uint32)
+    first[:, :W] = _rows(cv, pb)           # aligned, limb stride W + 4: no 128-bit reads
+    cases = [(a, b, torch.zeros((nc, 2 * W + 1), dtype=torch.uint32)[:, 1:1 + W], False),
+             (a, first[:, :W], torch.zeros((nc, W), dtype=torch.uint32), False),
+             (pa.reshape(W, nc).T, b, torch.zeros((nc, W), dtype=torch.uint32), False),
+             (pa, b, torch.zeros_like(pa), True)]
+    for a_, b_, out, pm in cases:
+        got = _shim_mul_rows(shim, cv, a_, b_, out, pm)
+        plain = KT.mul_rows_plain(cv, a_, b_, point_major=pm)
+        assert torch.equal(F.as_i32(got), F.as_i32(plain))
+        rows = got.reshape(W, nc) if pm else got.T
+        assert np.array_equal(rows.numpy(), want)
+
+    xy = F.as_u32(torch.stack([F.as_i32(pa), F.as_i32(py)]))
+    got = _shim_mul_rows(shim, cv, xy, b, torch.zeros_like(xy), True)
+    assert torch.equal(F.as_i32(got), F.as_i32(KT.mul_rows_plain(cv, xy, b, point_major=True)))
+    assert np.array_equal(got.reshape(2, W, nc).numpy(), np.stack([want, want_y]))
+
+
+def test_mul_rows_refuses_layouts_it_cannot_read():
+    """K5's operand check (the plain version and the kernel wrapper share
+    it): G2 points whose c1 is not 16 limbs after c0, point axes that do
+    not fold into one column stride, and a b whose width does not divide
+    a's all raise; `out` writes into a view."""
+    g2 = torch.zeros((6, 16, 2), dtype=torch.uint32).transpose(-1, -2)
+    with pytest.raises(ValueError):
+        KT.mul_rows(C.G2, g2, torch.zeros((32, 6), dtype=torch.uint32), point_major=True)
+    unfold = torch.zeros((4, 6, 16), dtype=torch.uint32)[:, :3]
+    with pytest.raises(ValueError):
+        KT.mul_rows(C.G1, unfold, torch.zeros((16, 12), dtype=torch.uint32), point_major=True)
+    with pytest.raises(ValueError):
+        KT.mul_rows(C.G1, torch.zeros((16, 6), dtype=torch.uint32),
+                    torch.zeros((16, 4), dtype=torch.uint32))
+    pm = _field_rows(C.G1, 4, 9)
+    one = _rows(C.G1, torch.from_numpy(ints_to_limbs([F.FP.to_mont_int(1)])))
+    buf = torch.zeros((16, 9), dtype=torch.uint32)
+    KT.mul_rows(C.G1, _rows(C.G1, pm), one, out=buf[:, 5:])
+    assert torch.equal(F.as_i32(buf[:, 5:]), F.as_i32(_rows(C.G1, pm)))
+    assert not F.as_i32(buf[:, :5]).any()
 
 
 @pytest.mark.slow
