@@ -27,11 +27,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      directory, parse_zkey / parse_witness, generate_proof_with_mask with a
      fixed mask, in both flavours; each proof must pass verify_proof,
      every kernel of the proof path must have launched during the proofs,
-     and a proof must launch Horner 5 times, at most 10 doubling chains,
-     fewer than 400 K1 kernels in all, no K4, the fused tree level 80
-     times, K6 and K5 5 times each (`to_affine`), K2 once a fold level of
-     its four fold MSMs, and K3 4 times (Snarkjs) or 6 times (JensGroth)
-     with one pointwise kernel; then torch.profiler around one 2^16 quotient
+     a proof must call torch.cummax (the plain field arithmetic's carry
+     scan) 0 times, and a proof must launch the SpMV kernel once, Horner 5
+     times, at most 10 doubling chains, fewer than 400 K1 kernels in all, no
+     K4, the fused tree level 80 times and the Fp negation once (the tree's
+     signed rows), K6 and K5 5 times each (`to_affine`), K2 once a fold
+     level of its four fold MSMs, and K3 4 times (Snarkjs) or 6 times
+     (JensGroth) with one pointwise kernel; the SpMV kernel against its
+     plain version on the card at the 2^16 proof's coefficients and at a
+     seeded set with an empty row, a 2^16-entry row and repeated columns,
+     and the Fp negation at 2^16 G1 coordinates with infinities, bit-exact
+     and timed beside their bounds; then torch.profiler around one 2^16 quotient
      per flavour and around `points_to_host` of a proof's five MSM results:
      the trace must hold each of the call's K3 and pointwise launches (K6
      and K5 launches: 5 each, one of them G2), nothing but copies and
@@ -58,7 +64,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      level, the bucket reduce, Horner, the fold MSM's peak memory; the
      phases must give msm(path="fold")'s point);
  10. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
-     equal to the unchunked MSM at 2^21.
+     equal to the unchunked MSM at 2^21;
+ 11. batch mode: generate_proofs over four witnesses of the 2^16 circuit
+     (seeds 42-45) with fixed masks against a freshly parsed zkey: each proof
+     verifies and equals generate_proof_with_mask of its witness and mask,
+     and the zkey goes to the card once; each proof's time, the first apart,
+     and the batch's proofs/s, with the card's name and power limit;
+ 12. the CLI: the 2^16 circuit's .r1cs and .wtns written with the port's
+     writers, `python3 -m groth16_tpu_torch --setup --prove --verify -t ...
+     --write-zkey c.zkey` as a subprocess on the card must exit 0 with
+     `verification succeeded = True`, and `--prove --verify -z c.zkey` on a
+     witness with its public output changed must exit 2.
 
 Each path (the two proofs, the tree-phase run, the Fp-product run) runs
 with every kernel wrapper's launch count set to 0 and read just after; a
@@ -126,6 +142,11 @@ K1_MAX_PER_PROOF = 400
 LOG2_FOLD_PHASES = 20  # the fold-phase run
 LOG2_PHASES = 20      # the tree-phase run
 LOG2_CHUNKED = 21     # msm_chunked: two segments of 2^20
+# the SpMV's seeded set: rows, witness length, random entries, the entries
+# of its one dense row (A's row 1, columns from the first 64 wires)
+SPMV_CASE = dict(n_rows=1 << 12, nvars=1 << 12, nnz=1 << 14, dense=1 << 16)
+NEG_POINTS = 1 << 16  # the Fp negation: the H1 tree's y coordinates
+BATCH_SEEDS = (42, 43, 44, 45)
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -326,11 +347,10 @@ def quotient_phase(rng, dev, results):
     versions on the card, both flavours, at 2^16 and 2^20 on random Az, Bz,
     Cz: bit-exact; both timed with CUDA events, the kernels' time beside the
     bound of the whole quotient (tools/measure.py `work("quotient")`)."""
-    import torch
     from groth16_tpu_torch.protocol.prover import quotient_scalars
     from groth16_tpu_torch.protocol.types import Flavour
     for log2n in QUOTIENT_SIZES:
-        abc = [random_scalars(rng, 1 << log2n, dev).to(torch.int64) for _ in range(3)]
+        abc = [random_scalars(rng, 1 << log2n, dev) for _ in range(3)]   # as the SpMV leaves them
         for flavour in (Flavour.Snarkjs, Flavour.JensGroth):
             got = quotient_scalars(flavour, *abc, log2n)
             plain = {}
@@ -350,14 +370,13 @@ def profile_quotient(rng, dev):
     built by the proofs), each kernel's launches and device time printed:
     the trace must hold every launch of the two quotient kernels
     (`measure.quotient_launches`), and the device may run nothing else but
-    copies (the stack and cast of Az, Bz, Cz) and memsets; a host round trip
+    copies (the stack of Az, Bz, Cz) and memsets; a host round trip
     (`Memcpy`), a `cummax` or any other plain field-arithmetic kernel fails
     the run."""
-    import torch
     from groth16_tpu_torch.protocol.prover import quotient_scalars
     from groth16_tpu_torch.protocol.types import Flavour
     from groth16_tpu_torch.tools import measure
-    abc = [random_scalars(rng, 1 << LOG2, dev).to(torch.int64) for _ in range(3)]
+    abc = [random_scalars(rng, 1 << LOG2, dev) for _ in range(3)]
     for flavour in (Flavour.Snarkjs, Flavour.JensGroth):
         steps = [n for n, _ in measure.quotient_launches(LOG2, flavour.value)]
         only_kernels(f"quotient 2^{LOG2} {flavour.value}",
@@ -582,7 +601,8 @@ WRAPPERS = (("point_add", "kernels", "proof"), ("point_double_n", "kernels", "pr
             ("invert_kernel", "kernels_tree", "proof"),
             ("level_kernel", "kernels_tree", "proof"),
             ("phase_b_kernel", "kernels_tree", "tree phases"),
-            ("fp_mul_chain_kernel", "kernels", "fp products"))
+            ("fp_mul_chain_kernel", "kernels", "fp products"),
+            ("spmv_kernel", "kernels", "proof"), ("fp_neg_kernel", "kernels", "proof"))
 
 
 def _wrappers():
@@ -610,12 +630,13 @@ def check_launched(counts: dict, path: str) -> None:
 
 def main_path(dev):
     """Setup on the card, zkey/wtns round trip through files, one proof per
-    flavour.  Returns the launch counts of the two proofs and the Snarkjs
-    zkey."""
+    flavour, no torch.cummax call in either.  Returns the launch counts of
+    the two proofs, the Snarkjs zkey (its device cache built by its proof)
+    and the witness."""
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
-
     from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.tools.profile_proof import cummax_callers
     r1cs, wtns = synthetic_circuit(LOG2)
     m = 1 << FOLD_LOG2
     fold_launches = FOLD_MSMS_PER_PROOF * len(M.fold_schedule(m))
@@ -641,7 +662,10 @@ def main_path(dev):
     for flavour, zkey, w in inputs:
         tm = {}
         before = read_counts()
-        prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
+        with cummax_callers() as scans:
+            prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
+        if scans:
+            raise AssertionError(f"{flavour.value}: a proof called torch.cummax: {scans}")
         proofs.append((flavour, zkey, prf))
         print(f"prove {flavour.value}: " + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
         during = {k: v - before[k] for k, v in read_counts().items()}
@@ -652,7 +676,8 @@ def main_path(dev):
                                  f"doubling chains and fewer than {K1_MAX_PER_PROOF} K1 kernels "
                                  f"(got {k1})")
         k3, pointwise = QUOTIENT_LAUNCHES[flavour.value]
-        want = {"level_kernel": LEVELS_PER_PROOF, "phase_a_kernel": 0,
+        want = {"spmv_kernel": 1, "fp_neg_kernel": 1,
+                "level_kernel": LEVELS_PER_PROOF, "phase_a_kernel": 0,
                 "invert_kernel": TO_AFFINE_PER_PROOF, "mul_rows_kernel": TO_AFFINE_PER_PROOF,
                 "fold_level_kernel": fold_launches,
                 "ntt_inner_kernel": k3, "quotient_pointwise_kernel": pointwise}
@@ -668,7 +693,7 @@ def main_path(dev):
             raise AssertionError(f"{flavour.value}: proof does not verify")
         print(f"verify {flavour.value}: ok")
     check_launched(counts, "proof")
-    return counts, inputs[0][1]
+    return counts, inputs[0][1], inputs[0][2]
 
 
 def h1_tree_vs_fold(rng, dev, zkey):
@@ -765,6 +790,147 @@ def chunked_msm(rng, dev):
     print(f"msm_chunked == msm at 2^{LOG2_CHUNKED} (c = {c_seg} per segment, {c_all} unchunked)")
 
 
+def spmv_case(rng, dev, n_rows, nvars, nnz, dense):
+    """A seeded SpMV set (witness uint32 [nvars, 16] standard form, its
+    SpmvRows): `nnz` random entries over rows 0 .. n_rows - 2 (the last row
+    of A and of B stays empty), `dense` more in A's row 1 reading only the
+    first 64 wires (repeated columns), the witness value and a coefficient
+    r - 1 among them."""
+    import numpy as np
+    from groth16_tpu_torch.ops import kernels as KN
+    from groth16_tpu_torch.ops.field import FR
+    from groth16_tpu_torch.ops.limbs import int_to_limbs
+    w = random_scalars(rng, nvars, "cpu").numpy()
+    w[0] = int_to_limbs(FR.modulus - 1)
+    matrix = np.concatenate([rng.integers(0, 2, nnz), np.zeros(dense, np.int64)])
+    row = np.concatenate([rng.integers(0, n_rows - 1, nnz), np.ones(dense, np.int64)])
+    col = np.concatenate([rng.integers(0, nvars, nnz), rng.integers(0, 64, dense)])
+    coeff = random_scalars(rng, nnz + dense, "cpu").numpy()
+    coeff[::1000] = int_to_limbs(FR.modulus - 1)
+    return (torch_from(w, dev), KN.spmv_rows(matrix, row, col, coeff, n_rows, dev))
+
+
+def torch_from(a, dev):
+    import torch
+    return torch.from_numpy(a).to(dev)
+
+
+def check_spmv_kernel(rng, dev, results, zkey, wtns):
+    """The SpMV kernel against `spmv_plain` on the card, bit-exact, at the
+    2^16 proof's coefficients (the zkey's device cache, the proof's witness)
+    and at SPMV_CASE; both timed with CUDA events, the longest row's length
+    printed beside the time; then the Fp negation against `fp_neg_plain` at
+    NEG_POINTS G1 coordinates, every 16th an infinity (0), and on G2-shaped
+    coordinates."""
+    import numpy as np
+    import torch
+    from groth16_tpu_torch.ops import kernels as KN
+    from groth16_tpu_torch.protocol.prover import zkey_device_args
+    cases = [("2^16 proof", torch_from(wtns.values, dev), zkey_device_args(zkey, dev).rows),
+             ("seeded, dense row", *spmv_case(rng, dev, **SPMV_CASE))]
+    for name, w, m in cases:
+        err = max_abs_err(KN.spmv_kernel(w, m), KN.spmv_plain(w, m))
+        t_k = cuda_ms(lambda: KN.spmv_kernel(w, m), 20)
+        t_p = cuda_ms(lambda: KN.spmv_plain(w, m), 2)
+        lengths = np.diff(m.row_ptr.cpu().numpy())
+        nnz = int(lengths.sum())
+        print(f"SpMV {name}: {m.n_rows} rows, {nnz} entries, witness {w.shape[0]}, longest row "
+              f"{int(lengths.max())}, empty rows {int((lengths == 0).sum())}: {t_k:.4f} ms "
+              f"(plain {t_p:.2f} ms), max_abs_err {err}")
+        record(results, "spmv_kernel", f"{name} rows={m.n_rows} nnz={nnz}", err, t_k, t_p,
+               dict(n_rows=m.n_rows, nnz=nnz, nvars=w.shape[0]))
+    y = random_scalars(rng, NEG_POINTS, dev)
+    y.view(torch.int32)[::16] = 0
+    for shape in ((NEG_POINTS, 16), (NEG_POINTS // 2, 2, 16)):
+        x = y.reshape(shape)
+        err = max_abs_err(KN.fp_neg_kernel(x), KN.fp_neg_plain(x))
+        print(f"Fp negation {tuple(shape)} with infinities: max_abs_err {err}")
+    t_k = cuda_ms(lambda: KN.fp_neg_kernel(y), 20)
+    t_p = cuda_ms(lambda: KN.fp_neg_plain(y), 5)
+    print(f"Fp negation G1 n={NEG_POINTS}: {t_k:.4f} ms (plain {t_p:.2f} ms)")
+    record(results, "fp_neg_kernel", f"G1 n={NEG_POINTS}", err, t_k, t_p, dict(n=NEG_POINTS))
+
+
+def batch_phase(dev, zkey):
+    """generate_proofs over BATCH_SEEDS' witnesses with fixed masks against
+    a fresh parse of the zkey's file: one upload, each proof verified and
+    equal to its single proof; per-proof times and proofs/s printed."""
+    import groth16_tpu_torch as G
+    import torch
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.protocol.prover import zkey_device_args
+    from groth16_tpu_torch.tools import measure
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "c.zkey")
+        G.write_zkey(path, zkey)
+        fresh = G.parse_zkey(path)
+    fresh.header.flavour = zkey.header.flavour
+    ws = [synthetic_circuit(LOG2, seed)[1] for seed in BATCH_SEEDS]
+    masks = [G.Mask(MASK[0] + i, MASK[1] + 3 * i) for i in range(len(ws))]
+    builds = zkey_device_args.builds
+    timings = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = G.generate_proofs(fresh, ws, dev, masks, timings)
+    wall = time.perf_counter() - t0
+    if zkey_device_args.builds != builds + 1:
+        raise AssertionError(f"the batch uploaded the zkey {zkey_device_args.builds - builds} "
+                             "times, not once")
+    vkey = G.extract_vkey(fresh)
+    for i, (w, m, prf) in enumerate(zip(ws, masks, batch)):
+        if not G.verify_proof(vkey, prf):
+            raise AssertionError(f"batch proof {i} does not verify")
+        one = G.generate_proof_with_mask(fresh, w, m, dev)
+        if (prf.pi_a, prf.pi_b, prf.pi_c) != (one.pi_a, one.pi_b, one.pi_c):
+            raise AssertionError(f"batch proof {i} differs from its single proof")
+    if len({prf.pi_a for prf in batch}) != len(batch):
+        raise AssertionError("the batch's witnesses gave equal proofs")
+    totals = [t["total_s"] for t in timings]
+    print(measure.card_line(dev))
+    print(f"batch of {len(batch)} 2^{LOG2} proofs ({fresh.header.flavour.value}): first "
+          f"{totals[0]:.4f} s (upload {timings[0]['upload_s']:.4f} s), then "
+          + ", ".join(f"{t:.4f}" for t in totals[1:]) + f" s (uploads "
+          + ", ".join(f"{t['upload_s']:.4f}" for t in timings[1:])
+          + f" s); {len(batch) / wall:.2f} proofs/s over the batch's {wall:.3f} s, "
+          f"{(len(batch) - 1) / sum(totals[1:]):.2f} proofs/s after the first; each verifies "
+          "and equals its single proof; one zkey upload")
+
+
+def cli_phase():
+    """The CLI as a user runs it, in a subprocess on the card: setup, prove
+    and verify from the 2^16 circuit's files (exit 0), then a tampered
+    witness against the written zkey (exit 2)."""
+    import subprocess
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    r1cs, wtns = synthetic_circuit(LOG2)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        f = {k: os.path.join(tmp, k) for k in ("c.r1cs", "c.wtns", "bad.wtns", "c.zkey",
+                                              "proof.json", "public.json")}
+        G.write_r1cs(f["c.r1cs"], r1cs)
+        G.write_witness(f["c.wtns"], wtns.values)
+        bad = wtns.values.copy()
+        bad[1, 0] = (bad[1, 0] + 1) & 0xFFFF          # the public output changed
+        G.write_witness(f["bad.wtns"], bad)
+        runs = (("setup, prove, verify", 0,
+                 ["--setup", "--prove", "--verify", "-t", "-r", f["c.r1cs"], "-w", f["c.wtns"],
+                  "-o", f["proof.json"], "-i", f["public.json"], "--write-zkey", f["c.zkey"]]),
+                ("tampered witness", 2,
+                 ["--prove", "--verify", "-t", "-z", f["c.zkey"], "-w", f["bad.wtns"]]))
+        for what, want, args in runs:
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "groth16_tpu_torch", *args], cwd=root,
+                                 capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in out.stdout.splitlines() if "took" in ln or "succeeded" in ln]
+            print(f"CLI {what}: exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
+                  + "; ".join(lines))
+            ok = f"verification succeeded = {want == 0}" in out.stdout
+            if out.returncode != want or not ok:
+                raise AssertionError(f"CLI {what}: exit {out.returncode}, want {want}\n"
+                                     f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -797,7 +963,8 @@ def main() -> int:
     phase("K3 check", lambda: check_ntt_kernel(rng, dev, results))
     phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
     phase("to_affine check", lambda: check_to_affine(rng, dev))
-    counts["proof"], zkey = phase("proofs", lambda: main_path(dev))
+    counts["proof"], zkey, wtns = phase("proofs", lambda: main_path(dev))
+    phase("SpMV and Fp negation check", lambda: check_spmv_kernel(rng, dev, results, zkey, wtns))
     phase("quotient profile", lambda: profile_quotient(rng, dev))
     phase("points_to_host profile", lambda: profile_to_host(rng, dev, zkey))
     phase("quotient 2^16 and 2^20", lambda: quotient_phase(rng, dev, results))
@@ -807,6 +974,8 @@ def main() -> int:
     counts["tree phases"] = phase("2^20 tree-phase run", lambda: tree_phase_path(dev, results))
     phase("2^20 fold-phase run", lambda: fold_phase_path(dev))
     phase("msm_chunked 2^21", lambda: chunked_msm(rng, dev))
+    phase("batch of four proofs", lambda: batch_phase(dev, zkey))
+    phase("CLI", cli_phase)
 
     clock = k9["sm_clock_max_mhz"]
     print(f"bounds: an Fp product {measure.FP_MUL_WIDE} widening multiplies at "
@@ -836,7 +1005,9 @@ def main() -> int:
              "invert_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:202"),
              "level_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:370"),
              "phase_b_kernel": ("tree.cu", "groth16_tpu/ops/kernels_tree.py:292"),
-             "fp_mul_chain_kernel": ("mul_chain.cu", "tools/bench_mul_kernels.py:30")}
+             "fp_mul_chain_kernel": ("mul_chain.cu", "tools/bench_mul_kernels.py:30"),
+             "spmv_kernel": ("spmv.cu", "groth16_tpu/protocol/prover.py:89"),
+             "fp_neg_kernel": ("spmv.cu", "groth16_tpu/ops/msm_tree.py:329")}
     paths = {name: path for name, _, path in WRAPPERS}
     kernels = []
     for name, (source, replaces) in table.items():

@@ -16,25 +16,37 @@ The main path is one proof from a zkey and a witness on one device:
     prf = generate_proof_with_mask(zkey, wtns, Mask(r, s), torch.device("cuda"))
     assert verify_proof(extract_vkey(zkey), prf)
 
+A batch of proofs against one zkey, the zkey's inputs uploaded to the card
+once: `generate_proofs(zkey, witnesses, device, masks)`.  The command line:
+`python -m groth16_tpu_torch --setup --prove --verify -r c.r1cs -w c.wtns`
+(`--device cpu` without a card).
+
 On CUDA tensors a proof runs these kernels (groth16_tpu_torch/csrc, built by
-nvcc at first use): K1 (point adds, doubling chains, Horner), K2 (the fold
-MSMs), K3 and the quotient's pointwise kernel, K8 (the merge tree's levels),
-and K6 and K5 only in `to_affine`; on CPU tensors their plain PyTorch
-versions run.
+nvcc at first use): the SpMV, K1 (point adds, doubling chains, Horner), K2
+(the fold MSMs), K3 and the quotient's pointwise kernel, K8 (the merge
+tree's levels) with the Fp negation of its signed rows, and K6 and K5 only
+in `to_affine`; on CPU tensors their plain PyTorch versions run.
 """
 
 from .protocol.types import Flavour, VKey, ZKey, Witness, R1CS, extract_vkey, zkey_from_numpy
-from .protocol.prover import Mask, Proof, generate_proof, generate_proof_with_mask
+from .protocol.prover import (
+    Mask, Proof, generate_proof, generate_proof_with_mask,
+    generate_proof_with_trivial_mask, generate_proofs,
+)
 from .protocol.verifier import verify_proof
 from .protocol.fake_setup import ToxicWaste, create_fake_circuit_setup, fake_circuit_setup
 from .files.witness import parse_witness, write_witness
 from .files.zkey import parse_zkey, write_zkey
+from .files.r1cs import parse_r1cs, write_r1cs
 from .files.export_json import export_proof, export_public_io
+from .files.export_sage import export_sage
 
 __all__ = [
     "Flavour", "VKey", "ZKey", "Witness", "R1CS", "extract_vkey", "zkey_from_numpy",
-    "Mask", "Proof", "generate_proof", "generate_proof_with_mask", "verify_proof",
+    "Mask", "Proof", "generate_proof", "generate_proof_with_mask",
+    "generate_proof_with_trivial_mask", "generate_proofs", "verify_proof",
     "ToxicWaste", "create_fake_circuit_setup", "fake_circuit_setup",
     "parse_witness", "write_witness", "parse_zkey", "write_zkey",
-    "export_proof", "export_public_io",
+    "parse_r1cs", "write_r1cs", "export_proof", "export_public_io",
+    "export_sage",
 ]

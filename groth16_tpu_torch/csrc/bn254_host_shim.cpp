@@ -4,14 +4,16 @@
 // merge-tree lane functions the CUDA kernels run (bn254_field.cuh,
 // bn254_curve.cuh), and this file loops them over wire-layout arrays, so the
 // arithmetic of K1 (chains included), K2, K3 (block by block, bn254_ntt.cuh),
-// K4-K8 (K4, K6, K7 and K8 block by block), K9 and the quotient's
-// pointwise step is checked without a GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
+// K4-K8 (K4, K6, K7 and K8 block by block), K9, the quotient's pointwise
+// step, the SpMV and the Fp negation (bn254_spmv.cuh) is checked without a
+// GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254shim.so bn254_host_shim.cpp
 
 #include <vector>
 
 #include "bn254_curve.cuh"
 #include "bn254_ntt.cuh"
+#include "bn254_spmv.cuh"
 
 using namespace bn254;
 
@@ -270,6 +272,16 @@ void shim_ntt_step(const uint32_t* x, uint32_t* out, const uint32_t* pre, const 
 void shim_quotient_pointwise(const uint32_t* ev, long n, const uint32_t* scale, int standard,
                              uint32_t* out) {
   for (long e = 0; e < n; ++e) quotient_point(ev, n, e, scale, standard, out);
+}
+
+// the SpMV, row after row: out = uint32[3, n, 16] (Az | Bz | Cz)
+void shim_spmv(const uint32_t* w, const uint32_t* coeff, const int32_t* cols,
+               const long* row_ptr, long n, uint32_t* out) {
+  for (long r = 0; r < n; ++r) spmv_row(w, coeff, cols, row_ptr, n, r, out);
+}
+
+void shim_fp_neg(const uint32_t* x, uint32_t* out, long n) {
+  for (long e = 0; e < n; ++e) fp_neg_elem(x, out, e);
 }
 
 }  // extern "C"

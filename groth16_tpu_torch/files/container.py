@@ -51,6 +51,12 @@ def parse_container_bytes(raw: bytes, expected_magic: str, expected_version: int
     return sections
 
 
+def write_container(path: str, magic: str, version: int, sections: list) -> None:
+    """Write [(section_id, data_bytes), ...] as an iden3 container."""
+    with open(path, "wb") as f:
+        f.write(container_bytes(magic, version, sections))
+
+
 def container_bytes(magic: str, version: int, sections: list) -> bytes:
     out = io.BytesIO()
     out.write(struct.pack("<III", magic_word(magic), version, len(sections)))

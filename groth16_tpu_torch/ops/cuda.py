@@ -25,8 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 
-KERNEL_SOURCES = ("point.cu", "fold.cu", "ntt.cu", "tree.cu", "mul_chain.cu")
-HEADERS = ("bn254_field.cuh", "bn254_curve.cuh", "bn254_ntt.cuh")
+KERNEL_SOURCES = ("point.cu", "fold.cu", "ntt.cu", "tree.cu", "mul_chain.cu", "spmv.cu")
+HEADERS = ("bn254_field.cuh", "bn254_curve.cuh", "bn254_ntt.cuh", "bn254_spmv.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -50,12 +50,17 @@ _SIGNATURES = {
     "g16_fp_mul_chain": [_P, _P, _P, _I, _L, _P],
     "g16_issue_rate": [_I, _P, _P, _I, _I, _P],
     "g16_issue_rate_ops": [_I],
+    "g16_spmv": [_P] * 4 + [_L, _P, _P],
+    "g16_fp_neg": [_P, _P, _L, _P],
 }
 
 
 def _tag(files, flags, csrc=CSRC) -> str:
+    """A hash of the files of `csrc` (those it has) and the flags."""
     h = hashlib.sha256()
     for f in files:
+        if not os.path.exists(os.path.join(csrc, f)):
+            continue
         with open(os.path.join(csrc, f), "rb") as fh:
             h.update(f.encode() + b"\0" + fh.read())
     h.update(" ".join(flags).encode())
@@ -195,9 +200,11 @@ def host_shim():
     L.shim_fp_mul_chain.argtypes = [_P, _P, _P, _I, _L]
     L.shim_ntt_step.argtypes = [_P] * 6 + [_I, _L, _I, _I, _I, _I]
     L.shim_quotient_pointwise.argtypes = [_P, _L, _P, _I, _P]
+    L.shim_spmv.argtypes = [_P] * 4 + [_L, _P]
+    L.shim_fp_neg.argtypes = [_P, _P, _L]
     for fn in (L.shim_field, L.shim_point, L.shim_fold, L.shim_tree_phase_a,
                L.shim_tree_mul_rows, L.shim_tree_invert, L.shim_tree_level, L.shim_tree_mid,
                L.shim_fp_mul_chain, L.shim_point_double_n, L.shim_horner, L.shim_field_inv,
-               L.shim_ntt_step, L.shim_quotient_pointwise):
+               L.shim_ntt_step, L.shim_quotient_pointwise, L.shim_spmv, L.shim_fp_neg):
         fn.restype = None
     return L

@@ -1,26 +1,34 @@
 """Launch wrappers of the point kernels (K1: add, doubling chain, Horner),
-the segmented-fold kernel (K2) and the chained-product kernel (K9).
+the segmented-fold kernel (K2), the chained-product kernel (K9), the
+prover's SpMV and the Fp negation.
 
-Counterpart of groth16_tpu/ops/kernels.py (`_point_call`, `_fold_call`) and
-of the kernel of tools/bench_mul_kernels.py (`make_call`).
+Counterpart of groth16_tpu/ops/kernels.py (`_point_call`, `_fold_call`), of
+the kernel of tools/bench_mul_kernels.py (`make_call`), and of two functions
+the JAX package leaves to XLA: `abc_core` (groth16_tpu/protocol/prover.py:89)
+and the y negation of `window_sums_tree` (groth16_tpu/ops/msm_tree.py).
 The wrappers here take CUDA tensors only: they check device, dtype, shape
 and alignment, allocate outputs with `torch.empty`, launch on the current
 stream, raise on a launch error, and count their launches
 (`<wrapper>.launches`).  The plain PyTorch versions sit beside them:
 `curve.point_add_plain` / `point_double_n_plain` / `horner_plain`,
-`fold_level_plain` and `fp_mul_chain_plain` here; `curve.point_add` /
-`point_double_n` / `horner`, `fold_level` and `fp_mul_chain` here dispatch
-by the device of their input.
+`fold_level_plain`, `fp_mul_chain_plain`, `spmv_plain` and `fp_neg_plain`
+here; `curve.point_add` / `point_double_n` / `horner`, `fold_level`,
+`fp_mul_chain`, `spmv` and `fp_neg` here dispatch by the device of their
+input.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from . import curve as C
 from . import field as F
 from . import cuda
-from .field import FP
+from .field import FP, FR
+from .limbs import N_LIMBS
 
 FOLD_T = 32  # sequential elements per lane at level 0
 
@@ -291,3 +299,138 @@ def fp_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return fp_mul_chain_plain(a, b, k)
     return fp_mul_chain_kernel(a, b, k)
+
+
+# ---------------------------------------------------------------------------
+# the prover's SpMV (csrc/spmv.cu g16_spmv)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SpmvRows:
+    """A zkey's A and B entries as the SpMV reads them: sorted by (matrix,
+    row), CSR over 2 n_rows rows (A's row r is row r, B's is n_rows + r)."""
+
+    n_rows: int
+    coeff: torch.Tensor     # uint32 [nnz, 16], Montgomery
+    cols: torch.Tensor      # int32 [nnz], witness index
+    row_ptr: torch.Tensor   # int64 [2 n_rows + 1]
+    ncols: int              # 1 + the largest column: the witness length it needs
+
+
+def spmv_rows(matrix, row, col, coeff, n_rows: int, device) -> SpmvRows:
+    """The SpmvRows of sparse entries (numpy; matrix 0 = A, any other = B,
+    as the JAX `abc_core` reads it) on `device`."""
+    row = np.asarray(row, np.int64)
+    if row.size and (row.min() < 0 or row.max() >= n_rows):
+        raise ValueError(f"SpMV rows must lie in [0, {n_rows})")
+    key = (np.asarray(matrix) != 0).astype(np.int64) * n_rows + row
+    order = np.argsort(key, kind="stable")
+    row_ptr = np.zeros(2 * n_rows + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=2 * n_rows), out=row_ptr[1:])
+    cols = np.asarray(col, np.int64)[order]
+    return SpmvRows(n_rows=n_rows,
+                    coeff=torch.from_numpy(np.ascontiguousarray(
+                        np.asarray(coeff, np.uint32)[order])).to(device),
+                    cols=torch.from_numpy(cols.astype(np.int32)).to(device),
+                    row_ptr=torch.from_numpy(row_ptr).to(device),
+                    ncols=int(cols.max()) + 1 if cols.size else 0)
+
+
+def segment_sum_mod(vals_mont: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 [n, 16]: the modular sum of Montgomery values by segment index."""
+    acc = torch.zeros((n, vals_mont.shape[-1]), dtype=torch.int64, device=vals_mont.device)
+    acc.index_add_(0, seg, F.i64(vals_mont))
+    return F.reduce_columns(FR, acc)
+
+
+def abc_core_plain(n_rows: int, witness_mont, coeff_mont, rows, cols, matrix_sel):
+    """Az, Bz, Cz = Az .* Bz (reference buildABC, prover.nim:56-73; the JAX
+    package's `abc_core`, with its arguments), uint32 Montgomery [n_rows, 16]
+    each: gather, one Montgomery product, an int64 segment sum (exact to
+    2^46 entries a row), the pointwise product.  `matrix_sel` is 0 for A
+    entries, anything else for B."""
+    w = F.as_i32(witness_mont)[cols]
+    prod = F.mont_mul(FR, F.i64(coeff_mont), F.i64(w))
+    seg = (matrix_sel != 0).to(torch.int64) * n_rows + F.i64(rows)
+    sums = segment_sum_mod(prod, seg, 2 * n_rows)
+    az, bz = sums[:n_rows], sums[n_rows:]
+    return tuple(x.to(torch.uint32) for x in (az, bz, F.mont_mul(FR, az, bz)))
+
+
+def _spmv_check(witness_std: torch.Tensor, m: SpmvRows) -> None:
+    if witness_std.ndim != 2 or witness_std.shape[1] != N_LIMBS:
+        raise ValueError(f"the witness must be [nvars, 16], got {tuple(witness_std.shape)}")
+    if witness_std.shape[0] < m.ncols:
+        raise ValueError(f"the SpMV reads witness column {m.ncols - 1}, "
+                         f"the witness has {witness_std.shape[0]}")
+
+
+def spmv_plain(witness_std: torch.Tensor, m: SpmvRows):
+    """Plain PyTorch version of the SpMV kernel (any device): Az, Bz, Cz of
+    the standard-form witness (uint32 [nvars, 16]), uint32 Montgomery
+    [n_rows, 16] each, through `abc_core_plain`."""
+    _spmv_check(witness_std, m)
+    n = m.n_rows
+    seg = torch.repeat_interleave(torch.arange(2 * n, device=m.row_ptr.device),
+                                  torch.diff(m.row_ptr))
+    return abc_core_plain(n, F.to_mont(FR, witness_std), m.coeff, seg % n, m.cols.long(),
+                          seg // n)
+
+
+def spmv_kernel(witness_std: torch.Tensor, m: SpmvRows):
+    """The SpMV on CUDA tensors (see `spmv_plain`): one launch, one thread a
+    row (csrc/spmv.cu); replaces the XLA `abc_core`
+    (groth16_tpu/protocol/prover.py:89)."""
+    _spmv_check(witness_std, m)
+    (w,) = _cuda_inputs([witness_std])
+    dev = w.device
+    if any(t.device != dev for t in (m.coeff, m.cols, m.row_ptr)):
+        raise ValueError("the SpMV rows must lie on the witness's device")
+    out = torch.empty((3, m.n_rows, N_LIMBS), dtype=torch.uint32, device=dev)
+    rc = cuda.lib().g16_spmv(*_aligned([w, m.coeff]), m.cols.data_ptr(), m.row_ptr.data_ptr(),
+                             m.n_rows, _aligned([out])[0], cuda.stream_ptr(dev))
+    cuda.check(rc, "spmv kernel")
+    spmv_kernel.launches += 1
+    return out[0], out[1], out[2]
+
+
+spmv_kernel.launches = 0
+
+
+def spmv(witness_std: torch.Tensor, m: SpmvRows):
+    """Az, Bz, Cz: the SpMV kernel on CUDA tensors, the plain version on CPU."""
+    fn = spmv_plain if witness_std.device.type == "cpu" else spmv_kernel
+    return fn(witness_std, m)
+
+
+# ---------------------------------------------------------------------------
+# Fp negation (csrc/spmv.cu g16_fp_neg)
+# ---------------------------------------------------------------------------
+
+def fp_neg_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the negation kernel (any device): -x mod p of
+    uint32 Fp elements [..., 16]; 0 stays 0."""
+    return F.neg_mod(FP, x)
+
+
+def fp_neg_kernel(x: torch.Tensor) -> torch.Tensor:
+    """-x mod p of uint32 Fp elements [..., 16] on the card, one launch
+    (csrc/spmv.cu); replaces the XLA `F.neg_mod` of the y coordinates in
+    `window_sums_tree` (groth16_tpu/ops/msm_tree.py)."""
+    if x.shape[-1] != N_LIMBS:
+        raise ValueError(f"fp_neg takes [..., 16] limbs, got {tuple(x.shape)}")
+    (x,) = _cuda_inputs([x])
+    out = torch.empty_like(x)
+    rc = cuda.lib().g16_fp_neg(*_aligned([x, out]), x.numel() // N_LIMBS,
+                               cuda.stream_ptr(x.device))
+    cuda.check(rc, "fp neg kernel")
+    fp_neg_kernel.launches += 1
+    return out
+
+
+fp_neg_kernel.launches = 0
+
+
+def fp_neg(x: torch.Tensor) -> torch.Tensor:
+    """-x mod p: the negation kernel on CUDA tensors, the plain version on CPU."""
+    return fp_neg_plain(x) if x.device.type == "cpu" else fp_neg_kernel(x)

@@ -32,9 +32,9 @@ import torch
 
 from . import curve as C
 from . import field as F
+from . import kernels as KN
 from . import kernels_tree as KT
 from .curve import CurveSpec
-from .field import FP
 from .ntt import bitrev_perm
 
 WINDOW_GROUP = 4   # windows per tree (groth16_tpu/ops/msm.py window_sums)
@@ -123,12 +123,13 @@ def window_sums_tree(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
     K = cv.fops
     nc = KT.ncomp(cv)
 
-    # x|y rows and x|-y rows, (0, 0) = infinity: the digit's sign picks the
-    # row, so the one gather below also applies the signs
+    # x|y rows and x|-y rows, (0, 0) = infinity (which the negation keeps):
+    # the digit's sign picks the row, so the one gather below also applies
+    # the signs
     y = K.select(K.is_zero(P[2]), torch.zeros_like(P[1]), P[1])
     x_r = F.as_i32(P[0]).reshape(n, nc)
     y_r = F.as_i32(y).reshape(n, nc)
-    ny_r = F.as_i32(F.neg_mod(FP, y)).reshape(n, nc)
+    ny_r = F.as_i32(KN.fp_neg(y)).reshape(n, nc)
     pad = torch.zeros((npad - n, 2 * nc), dtype=torch.int32, device=dev)
     rows2 = torch.cat([torch.cat([x_r, y_r], 1), pad, torch.cat([x_r, ny_r], 1), pad], 0)
 

@@ -26,11 +26,11 @@ import torch
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import ntt as NT
+from ..ops.kernels import segment_sum_mod
 from ..ops.field import FP, FR
 from ..ops.limbs import N_LIMBS, ints_to_limbs_bulk
 from ..utils import hostmath as H
 from ..utils import pairing as PR
-from .prover import segment_sum_mod
 from .types import (
     Coeffs, Flavour, GrothHeader, PointArray, ProverPoints, R1CS, SpecPoints,
     VerifierPoints, ZKey,

@@ -1,19 +1,23 @@
 """Groth16 prover (the analog of reference `groth16/prover.nim`), in PyTorch.
 
 Counterpart of the staged path of groth16_tpu/protocol/prover.py
-(`generate_proof_with_mask`, prover.py:510-574).  One proof on one device:
+(`generate_proof_with_mask`, prover.py:510-574) and of its batch mode
+(`generate_proofs`).  One proof on one device:
 
-  1. SpMV: gather witness columns, one Montgomery multiply, an int64
-     segment sum into rows (exact for up to 2^46 terms a row), Cz = Az .* Bz
-     (`abc_core`, reference prover.nim:56-73);
+  0. the zkey's circuit-static inputs (the SpMV's sorted entries, the five
+     point sets) go to the device once and stay cached on the zkey, keyed
+     by device (`zkey_device_args`); a proof uploads only its witness;
+  1. SpMV: Az, Bz, Cz = Az .* Bz in one kernel launch, the witness taken to
+     Montgomery form inside it (`kernels.spmv`; reference prover.nim:56-73);
   2. quotient scalars: the three coset shifts (iNTT, scale by eta^i, NTT)
      as four batched K3 launches, then A .* B - C in one pointwise kernel;
      JensGroth also scales by 1/Z there, interpolates and un-shifts in two
      more K3 launches (reference prover.nim:118-181);
   3. five MSMs: G1 over A1, B1, H1 and C1, G2 over B2, each on the path the
      JAX package picks: H1 (as many points as the domain, 2^16 and up at
-     real sizes) through the merge tree (kernels K4-K6, K8), the others
-     through the fold (K2), with K1 for the bucket reduce and Horner;
+     real sizes) through the merge tree (kernel K8 a level, the negation
+     kernel for its signed rows), the others through the fold (K2), with K1
+     for the bucket reduce and Horner;
   4. the O(1) spec-point algebra on host ints (prover.nim:278-302).
 
 The device comes from the caller; nothing falls back to another device.
@@ -30,12 +34,13 @@ import torch
 
 from ..ops import curve as C
 from ..ops import field as F
+from ..ops import kernels as KN
 from ..ops import msm as M
 from ..ops import ntt as NT
 from ..ops.field import FR
 from ..ops.limbs import limbs_to_ints
 from ..utils import hostmath as H
-from .types import Flavour, PointArray, Witness, ZKey
+from .types import Flavour, Witness, ZKey
 
 
 @dataclass
@@ -72,32 +77,58 @@ def _sync(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# ABC: sparse SpMV + pointwise product
+# the device-resident zkey
 # ---------------------------------------------------------------------------
 
-def segment_sum_mod(vals_mont: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """int64 [n, 16]: the modular sum of Montgomery values by segment index."""
-    acc = torch.zeros((n, vals_mont.shape[-1]), dtype=torch.int64, device=vals_mont.device)
-    acc.index_add_(0, seg, F.i64(vals_mont))
-    return F.reduce_columns(FR, acc)
+@dataclass
+class DeviceZKey:
+    """A zkey's circuit-static proof inputs on one device: the SpMV's rows
+    and the five point sets, projective (Z in {0, Montgomery 1}) as
+    `msm.msm` takes them."""
+
+    rows: KN.SpmvRows
+    a1: tuple
+    b1: tuple
+    b2: tuple
+    c1: tuple
+    h1: tuple
 
 
-def abc_core(n_rows: int, witness_mont, coeff_mont, rows, cols, matrix_sel):
-    """Az, Bz, Cz = Az .* Bz (reference buildABC, prover.nim:56-73), int64
-    Montgomery [n_rows, 16].  `matrix_sel` is 0 for A entries, 1 for B."""
-    w = F.as_i32(witness_mont)[cols]
-    prod = F.mont_mul(FR, F.i64(coeff_mont), F.i64(w))
-    sums = segment_sum_mod(prod, F.i64(matrix_sel) * n_rows + rows, 2 * n_rows)
-    az, bz = sums[:n_rows], sums[n_rows:]
-    return az, bz, F.mont_mul(FR, az, bz)
+def _device_key(device) -> str:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
 
 
-def build_abc(zkey: ZKey, witness_mont: torch.Tensor):
-    co = zkey.coeffs
-    dev = witness_mont.device
-    return abc_core(zkey.header.domain_size, witness_mont, _dev(co.coeff, dev),
-                    _dev(co.row.astype(np.int64), dev), _dev(co.col.astype(np.int64), dev),
-                    _dev(co.matrix, dev))
+def zkey_device_args(zkey: ZKey, device) -> DeviceZKey:
+    """The zkey's proof inputs on `device`, uploaded at the first call for
+    that device and kept in `zkey.device_cache` under it, so that a batch
+    of proofs (`generate_proofs`) copies only its witnesses (reference: the
+    JAX package's `zkey_device_args`, groth16_tpu/protocol/prover.py:374).
+    The cache assumes the zkey's arrays do not change after the first
+    proof.  `zkey_device_args.builds` counts the uploads."""
+    key = _device_key(device)
+    cached = zkey.device_cache.get(key)
+    if cached is not None:
+        return cached
+    dev = torch.device(key)
+    co, pp = zkey.coeffs, zkey.ppoints
+
+    def points(cv, pa):
+        return C.from_affine(cv, _dev(pa.x, dev), _dev(pa.y, dev))
+
+    cached = DeviceZKey(
+        rows=KN.spmv_rows(co.matrix, co.row, co.col, co.coeff, zkey.header.domain_size, dev),
+        a1=points(C.G1, pp.points_a1), b1=points(C.G1, pp.points_b1),
+        b2=points(C.G2, pp.points_b2), c1=points(C.G1, pp.points_c1),
+        h1=points(C.G1, pp.points_h1))
+    zkey.device_cache[key] = cached
+    zkey_device_args.builds += 1
+    return cached
+
+
+zkey_device_args.builds = 0
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +137,9 @@ def build_abc(zkey: ZKey, witness_mont: torch.Tensor):
 
 def quotient_scalars(flavour: Flavour, az, bz, cz, log2n: int, plain: bool = False) -> torch.Tensor:
     """The H-points MSM scalars, per flavour (reference prover.nim:118-181),
-    in standard form, uint32 [N, 16].  A, B and C go through the coset
+    in standard form, uint32 [N, 16], of Az, Bz, Cz in Montgomery form
+    (uint32 [N, 16] as the SpMV leaves them; other integer dtypes are
+    cast).  A, B and C go through the coset
     shift together (four K3 steps), then one pointwise pass takes A * B - C
     out of Montgomery form (Snarkjs), or scales it by 1/Z for JensGroth's
     interpolation and un-shift (two more K3 steps, eta^-i in standard form
@@ -115,7 +148,7 @@ def quotient_scalars(flavour: Flavour, az, bz, cz, log2n: int, plain: bool = Fal
     eta = NT.Domain(log2n + 1).gen
     inner = NT.ntt_inner_plain if plain else NT.ntt_inner
     pointwise = NT.quotient_pointwise_plain if plain else NT.quotient_pointwise
-    x = torch.stack([az, bz, cz]).to(torch.uint32)
+    x = F.as_u32(torch.stack([F.as_i32(v.to(torch.uint32)) for v in (az, bz, cz)]))
     ev = NT.transform(x, log2n, "to_coset", eta, wire_out=False, inner=inner)
     if flavour == Flavour.Snarkjs:
         # H points are shifted Lagrange bases: the coset values ARE the scalars
@@ -132,9 +165,7 @@ def quotient_scalars(flavour: Flavour, az, bz, cz, log2n: int, plain: bool = Fal
 # proof assembly
 # ---------------------------------------------------------------------------
 
-def _msm_to_host(cv: C.CurveSpec, scalars_std: torch.Tensor, pa: PointArray):
-    dev = scalars_std.device
-    P = C.from_affine(cv, _dev(pa.x, dev), _dev(pa.y, dev))
+def _msm_to_host(cv: C.CurveSpec, scalars_std: torch.Tensor, P):
     res = M.msm(cv, scalars_std, P, affine=True)   # wire points are affine
     return C.points_to_host(cv, tuple(x[None] for x in res))[0]
 
@@ -142,7 +173,9 @@ def _msm_to_host(cv: C.CurveSpec, scalars_std: torch.Tensor, pa: PointArray):
 def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torch.device,
                              timings: dict | None = None) -> Proof:
     """Reference generateProofWithMask (prover.nim:215-304) on `device`, a
-    torch.device the caller names: the proof runs there and nowhere else."""
+    torch.device the caller names: the proof runs there and nowhere else.
+    The zkey's inputs are uploaded at its first proof on the device and
+    reused after (`zkey_device_args`)."""
     hdr = zkey.header
     spec = zkey.spec
     pts = zkey.ppoints
@@ -157,9 +190,11 @@ def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torc
     public_io = limbs_to_ints(wtns.values[: npubs + 1])
 
     t0 = time.perf_counter()
+    static = zkey_device_args(zkey, device)
     witness_std = _dev(wtns.values, device)          # uint32, standard form
-    witness_mont = F.to_mont(FR, witness_std)
-    az, bz, cz = build_abc(zkey, witness_mont)
+    _sync(device)
+    tz = time.perf_counter()
+    az, bz, cz = KN.spmv(witness_std, static.rows)
     _sync(device)
     t1 = time.perf_counter()
 
@@ -177,17 +212,17 @@ def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torc
         return out
 
     # pi_a = alpha1 + r*delta1 + MSM(w, A1)            (prover.nim:278-282)
-    msm_a = timed(_msm_to_host, C.G1, witness_std, pts.points_a1)
+    msm_a = timed(_msm_to_host, C.G1, witness_std, static.a1)
     pi_a = H.g1_add(H.g1_add(spec.alpha1, H.g1_mul(r, spec.delta1)), msm_a)
     # rho = beta1 + s*delta1 + MSM(w, B1)              (prover.nim:285-288)
-    msm_b1 = timed(_msm_to_host, C.G1, witness_std, pts.points_b1)
+    msm_b1 = timed(_msm_to_host, C.G1, witness_std, static.b1)
     rho = H.g1_add(H.g1_add(spec.beta1, H.g1_mul(s, spec.delta1)), msm_b1)
     # pi_b = beta2 + s*delta2 + MSM(w, B2)             (prover.nim:290-294)
-    msm_b2 = timed(_msm_to_host, C.G2, witness_std, pts.points_b2)
+    msm_b2 = timed(_msm_to_host, C.G2, witness_std, static.b2)
     pi_b = H.g2_add(H.g2_add(spec.beta2, H.g2_mul(s, spec.delta2)), msm_b2)
     # pi_c = s*pi_a + r*rho - rs*delta1 + MSM(qs, H1) + MSM(zs, C1)
-    msm_h = timed(_msm_to_host, C.G1, qs_std, pts.points_h1)
-    msm_c = timed(_msm_to_host, C.G1, zs_std, pts.points_c1)
+    msm_h = timed(_msm_to_host, C.G1, qs_std, static.h1)
+    msm_c = timed(_msm_to_host, C.G1, zs_std, static.c1)
     pi_c = H.g1_mul(s, pi_a)
     pi_c = H.g1_add(pi_c, H.g1_mul(r, rho))
     pi_c = H.g1_add(pi_c, H.g1_mul((-r * s) % FR.modulus, spec.delta1))
@@ -197,7 +232,7 @@ def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torc
 
     if timings is not None:
         timings.update({
-            "spmv_s": t1 - t0, "quotient_s": t2 - t1,
+            "upload_s": tz - t0, "spmv_s": t1 - tz, "quotient_s": t2 - t1,
             "msm_a1_s": marks[1] - marks[0], "msm_b1_s": marks[2] - marks[1],
             "msm_b2_s": marks[3] - marks[2], "msm_h1_s": marks[4] - marks[3],
             "msm_c1_s": marks[5] - marks[4], "total_s": t3 - t0,
@@ -205,6 +240,29 @@ def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torc
     return Proof(public_io=public_io, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
 
 
+def generate_proof_with_trivial_mask(zkey: ZKey, wtns: Witness, device: torch.device,
+                                     timings: dict | None = None) -> Proof:
+    """Reference prover.nim:308-310: the masks r = s = 0 (no zero knowledge;
+    the proof is a function of the zkey and the witness alone)."""
+    return generate_proof_with_mask(zkey, wtns, Mask(0, 0), device, timings)
+
+
 def generate_proof(zkey: ZKey, wtns: Witness, device: torch.device, timings=None) -> Proof:
     """Reference prover.nim:312-319 (random masks)."""
     return generate_proof_with_mask(zkey, wtns, random_mask(), device, timings)
+
+
+def generate_proofs(zkey: ZKey, witnesses, device: torch.device, masks=None,
+                    timings: list | None = None) -> list:
+    """Batch mode: one proof of each witness against one zkey on `device`,
+    the zkey's inputs uploaded once for the batch (`zkey_device_args`).
+    `masks` gives each proof's Mask (random masks where it is None);
+    `timings`, where given, gets one dict of phase times per proof."""
+    out = []
+    for i, w in enumerate(witnesses):
+        mask = masks[i] if masks is not None else random_mask()
+        sink = {} if timings is not None else None
+        out.append(generate_proof_with_mask(zkey, w, mask, device, sink))
+        if timings is not None:
+            timings.append(sink)
+    return out

@@ -111,13 +111,18 @@ class Coeffs:
 
 @dataclass
 class ZKey:
-    """Reference zkey_types.nim:54-60."""
+    """Reference zkey_types.nim:54-60.
+
+    `device_cache` holds what the prover keeps on a device between proofs
+    (`prover.zkey_device_args`, keyed by device); it is no part of the key:
+    equality and the file writer ignore it, and each ZKey gets its own."""
 
     header: GrothHeader
     spec: SpecPoints
     vpoints: VerifierPoints
     ppoints: ProverPoints
     coeffs: Coeffs
+    device_cache: dict = field(default_factory=dict, compare=False, repr=False)
 
 
 @dataclass

@@ -36,6 +36,7 @@ one CUDA card; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -52,7 +53,7 @@ KERNELS = ("point_add_kernel", "point_double_n_kernel", "horner_kernel", "tree_i
 # every kernel of the library, for --ptxas
 ALL_KERNELS = KERNELS + ("ntt_step_kernel", "quotient_pointwise_kernel", "tree_phase_a_kernel",
                          "tree_mul_rows_kernel", "tree_mid_kernel", "fp_mul_chain_kernel",
-                         "issue_rate_kernel")
+                         "issue_rate_kernel", "spmv_kernel", "fp_neg_kernel")
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PROPS = re.compile(r"Function properties for (\w+)")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -104,12 +105,17 @@ def ptxas_table(log: str, kernels=KERNELS) -> dict:
 
 def ptxas_report(dirs) -> dict:
     """{csrc directory: ptxas_table of every kernel} for the kernel sources
-    of each directory, built with -Xptxas -v (again where a build is cached,
-    so that ptxas reports), all builds started together."""
+    of each directory (those of KERNEL_SOURCES it has: an older checkout
+    lacks the newer ones), built with -Xptxas -v (again where a build is
+    cached, so that ptxas reports), all builds started together."""
     from groth16_tpu_torch.ops import cuda
+
+    def build(d):
+        sources = [f for f in cuda.KERNEL_SOURCES if os.path.exists(os.path.join(d, f))]
+        return cuda.compile_library(sources, ("-Xptxas", "-v"), csrc=d, rebuild=True)
+
     with ThreadPoolExecutor(len(dirs)) as pool:
-        builds = list(pool.map(lambda d: cuda.compile_library(
-            cuda.KERNEL_SOURCES, ("-Xptxas", "-v"), csrc=d, rebuild=True), dirs))
+        builds = list(pool.map(build, dirs))
     return {d: ptxas_table(log, ALL_KERNELS) for d, (_, log, _) in zip(dirs, builds)}
 
 

@@ -324,7 +324,7 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
     B, pre, post, wire_in, wire_out), quotient_pointwise_kernel (n, scale,
     standard), quotient (log2n, flavour: the whole of
     `prover.quotient_scalars`), phase_a_kernel (M), phase_b_kernel (M, dbl), level_kernel (K, emit,
-    inv_ops), mul_rows_kernel (W, Wb: b's width, W by default), invert_kernel
+    inv_ops), spmv_kernel (n_rows, nnz, nvars), fp_neg_kernel (n), mul_rows_kernel (W, Wb: b's width, W by default), invert_kernel
     (M, inv_ops), where inv_ops
     is the sum of `euclid_ops` over the run's block roots (one issue slot
     each), counted as inv_ops / FP_MUL_MULTIPLIES products;
@@ -368,11 +368,21 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
         n, sc, std = s["n"], int(s["scale"]), int(s["standard"])
         return 3 * 32 * n + 32 * sc + (64 if std else 32) * n, n * (1 + sc + std)
     if name == "quotient":
-        # prover.quotient_scalars: Az, Bz, Cz in (int64 [N, 16]), the
-        # scalars out (wire); the products of its launches
+        # prover.quotient_scalars: Az, Bz, Cz in (uint32 [N, 16], as the
+        # SpMV leaves them), the scalars out (wire); the products of its
+        # launches
         N = 1 << s["log2n"]
         prods = sum(work(n, **sh)[1] for n, sh in quotient_launches(s["log2n"], s["flavour"]))
-        return 3 * 128 * N + 64 * N, prods
+        return 3 * 64 * N + 64 * N, prods
+    if name == "spmv_kernel":
+        # the sorted entries (a 64-byte coefficient, a 4-byte column), the
+        # row offsets and the witness read once, Az, Bz, Cz written; one Fr
+        # product an entry, two a row into Montgomery form, one for Cz (the
+        # kernel gathers a witness value an entry, which this does not count)
+        n, nnz = s["n_rows"], s["nnz"]
+        return 68 * nnz + 8 * (2 * n + 1) + 64 * s["nvars"] + 3 * 64 * n, nnz + 3 * n
+    if name == "fp_neg_kernel":                   # n elements in and out, no product
+        return 2 * 64 * s["n"], 0
     if name == "phase_a_kernel":
         # two points a slot read, a total a lane written; the product of a
         # lane's 16 denominators is 15 products

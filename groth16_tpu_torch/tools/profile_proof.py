@@ -3,20 +3,22 @@
     python3 -m groth16_tpu_torch.tools.profile_proof [--log2 16] [--flavour snarkjs]
 
 Sets up synthetic_circuit(log2) on the card (the port's fake setup, fixed
-toxic waste), proves once to warm up, times three unprofiled proofs, then
-profiles two more with torch.profiler (CPU and CUDA activity; the first is
-the profiler's warm-up step, the second is read).  Prints the
-profiled proof's wall time, the device's busy time in it (the union of the
-traced kernel and copy intervals) and their ratio, then the device time,
-launch count and share of each kernel name, largest first, and the
-`cummax` carry scans of the plain field arithmetic apart (CUMMAX_KERNEL,
-the scan kernel torch.cummax runs): their launches and device time in the
-proof, and, from one more proof with torch.cummax wrapped, the functions of
-the package that called each (the innermost three frames outside
-ops/field.py).  It uses only entry points of the package and
-`measure.device_trace`, so it can profile another checkout that has them
-(run it by path from that checkout's root with `PYTHONPATH=.`).  Needs one
-CUDA card; imports nothing of JAX.
+toxic waste), proves once to warm up (which also caches the zkey on the
+card), times three unprofiled proofs, then profiles two more with
+torch.profiler (CPU and CUDA activity; the first is the profiler's warm-up
+step, the second is read).  Prints the profiled proof's wall time, the
+device's busy time in it (the union of the traced kernel and copy
+intervals) and their ratio, then the device time, launch count and share
+of each kernel name, largest first; apart from the table: the `cummax`
+carry scans of the plain field arithmetic (CUMMAX_KERNEL, the scan kernel
+torch.cummax runs), the SpMV's and the negation's launches and device
+time, the host-to-device copies (a proof copies its witness), and, from
+one more proof with torch.cummax wrapped, the functions of the package
+that called each scan (the innermost three frames outside ops/field.py).
+It uses only entry points of the package and `measure.device_trace`, so it
+can profile another checkout that has them (run it by path from that
+checkout's root with `PYTHONPATH=.`).  Needs one CUDA card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import traceback
 TOP = 25   # kernel names listed
 # the CUDA kernel behind torch.cummax along the last axis (its profiler name)
 CUMMAX_KERNEL = "scan_innermost_dim_with_indices"
+# kernels whose device time is printed whatever their rank: the SpMV and the
+# tree's negation, each too short for the table
+OWN_KERNELS = ("spmv_kernel", "fp_neg_kernel")
 
 
 @contextlib.contextmanager
@@ -118,6 +123,13 @@ def main() -> int:
     scans = [v for name, v in by_name.items() if CUMMAX_KERNEL in name]
     print(f"cummax in the proof: {sum(n for _, n in scans)} launches, "
           f"{sum(t for t, _ in scans):.3f} ms device")
+    for kernel in OWN_KERNELS:
+        own = [v for name, v in by_name.items() if kernel in name]
+        print(f"{kernel} in the proof: {sum(n for _, n in own)} launches, "
+              f"{sum(t for t, _ in own):.4f} ms device")
+    h2d = [v for name, v in by_name.items() if "HtoD" in name]
+    print(f"host-to-device copies in the proof (zkey cached by the warm-up): "
+          f"{sum(n for _, n in h2d)} launches, {sum(t for t, _ in h2d):.3f} ms device")
 
     with cummax_callers() as callers:
         prove()

@@ -1,8 +1,9 @@
 """Kernels K1-K9 on the card against their plain PyTorch versions (K1's
 chains, the wide K6, K2's levels, the fused tree level K8, every K3 step of
 every plan and the quotient's pointwise kernel, K4 at partial blocks, K5 on
-strided and point-major operands included), `to_affine` on the card against the CPU, the
-merge-tree MSM, the chunked MSM and one small proof on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
+strided and point-major operands included), the SpMV and the Fp negation
+kernels, `to_affine` on the card against the CPU, the merge-tree MSM, the
+chunked MSM, one small proof and a batch of proofs on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
 machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_gpu.py
@@ -345,3 +346,53 @@ def test_small_proof_on_the_card(dev):
     after = (KN.point_add.launches, KN.fold_level_kernel.launches, NT.ntt_inner_kernel.launches)
     assert all(a > b for a, b in zip(after, before))
     assert G.verify_proof(G.extract_vkey(zkey), prf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sparse", "dense rows", "one row"])
+def test_spmv_kernel_matches_plain(dev, name):
+    """The SpMV kernel against its plain version on the card: empty rows,
+    dense rows, repeated columns, r - 1 (tests/spmv_cases.py)."""
+    from spmv_cases import CASES, coefficient_set
+    seed, n_rows, nvars, nnz, dense = CASES[name]
+    w, matrix, row, col, coeff = coefficient_set(seed, n_rows, nvars, nnz, dense)
+    m = KN.spmv_rows(matrix, row, col, coeff, n_rows, dev)
+    w = torch.from_numpy(w).to(dev)
+    before = KN.spmv_kernel.launches
+    got = KN.spmv(w, m)
+    assert KN.spmv_kernel.launches == before + 1
+    assert _same(got, KN.spmv_plain(w, m))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_fp_neg_kernel_matches_plain(dev):
+    rng = np.random.default_rng(31)
+    x = _scalars(rng, 1000, dev)
+    F.as_i32(x)[::7] = 0                         # (0, 0) infinities stay 0
+    for t in (x, x.reshape(-1, 2, 16)):
+        before = KN.fp_neg_kernel.launches
+        got = KN.fp_neg(t)
+        assert KN.fp_neg_kernel.launches == before + 1
+        assert _same((got,), (KN.fp_neg_plain(t),))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_batch_proofs_on_the_card(dev):
+    """generate_proofs over two witnesses: one upload of the zkey, one SpMV
+    launch a proof, each proof equal to its single proof and verifying."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.protocol import prover as PV
+    r1cs = synthetic_circuit(8)[0]
+    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
+    ws = [synthetic_circuit(8, seed)[1] for seed in (42, 43)]
+    masks = [G.Mask(17, 19), G.Mask(23, 29)]
+    builds, spmv = PV.zkey_device_args.builds, KN.spmv_kernel.launches
+    batch = G.generate_proofs(zkey, ws, dev, masks)
+    assert PV.zkey_device_args.builds == builds + 1
+    assert KN.spmv_kernel.launches == spmv + 2
+    singles = [G.generate_proof_with_mask(zkey, w, m, dev) for w, m in zip(ws, masks)]
+    assert [(p.pi_a, p.pi_b, p.pi_c) for p in batch] == [(p.pi_a, p.pi_b, p.pi_c) for p in singles]
+    assert all(G.verify_proof(G.extract_vkey(zkey), p) for p in batch)

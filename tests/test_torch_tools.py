@@ -303,15 +303,16 @@ def test_ntt_step_and_pointwise_work_counts():
 
 def test_quotient_work_and_bound():
     """The whole quotient at 2^16: four K3 steps (A, B, C in one batch) and
-    the pointwise step, JensGroth two more steps; its bound (about 0.03 ms
-    at 136 issue slots a product, scaled by the slots a product takes;
-    operations) counts the products of every launch."""
+    the pointwise step, JensGroth two more steps; Az, Bz, Cz read as the
+    SpMV leaves them (uint32 wire, 64 bytes an element); its bound (about
+    0.03 ms at 136 issue slots a product, scaled by the slots a product
+    takes; operations) counts the products of every launch."""
     kinds = [(n, sh.get("B")) for n, sh in measure.quotient_launches(16, "snarkjs")]
     assert kinds == [("ntt_inner_kernel", 3)] * 4 + [("quotient_pointwise_kernel", None)]
     assert len(measure.quotient_launches(16, "jens-groth")) == 7
     N, butterflies = 1 << 16, 2 * (1 << 15) * 16
     b, p = measure.work("quotient", log2n=16, flavour="snarkjs")
-    assert (b, p) == (3 * 128 * N + 64 * N, 3 * (butterflies + 3 * N) + 2 * N)
+    assert (b, p) == (3 * 64 * N + 64 * N, 3 * (butterflies + 3 * N) + 2 * N)
     _, pj = measure.work("quotient", log2n=16, flavour="jens-groth")
     assert pj == 3 * (butterflies + 3 * N) + 2 * N + butterflies // 2 + 2 * N
     ms, side = measure.bound_ms(b, p, 1980)
@@ -363,3 +364,16 @@ ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem
 def test_ptxas_table_names_every_instantiation():
     assert BV.ptxas_table(PTXAS) == {"fold_kernel G2 affine": (168, 4, 4, 8),
                                      "tree_level_kernel G1": (128, 0, 0, 0)}
+
+
+def test_spmv_and_negation_work():
+    """The SpMV reads each entry's coefficient and column, the row offsets
+    and the witness once and writes Az, Bz, Cz: bytes-bound at the 2^16
+    proof's shape; one product an entry and three a row.  The negation moves
+    its elements in and out and multiplies nothing."""
+    n, nnz, nvars = 1 << 16, 131069, 65535
+    b, p = measure.work("spmv_kernel", n_rows=n, nnz=nnz, nvars=nvars)
+    assert (b, p) == (68 * nnz + 8 * (2 * n + 1) + 64 * nvars + 192 * n, nnz + 3 * n)
+    assert measure.bound_ms(b, p, 1980)[1] == "bytes"
+    assert measure.work("fp_neg_kernel", n=10) == (1280, 0)
+    assert measure.bound_ms(1280, 0, 1980) == (1e3 * 1280 / measure.HBM_BYTES_PER_S, "bytes")
