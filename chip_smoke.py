@@ -70,15 +70,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      verifies and equals generate_proof_with_mask of its witness and mask,
      and the zkey goes to the card once; each proof's time, the first apart,
      and the batch's proofs/s, with the card's name and power limit;
- 12. the CLI: the 2^16 circuit's .r1cs and .wtns written with the port's
+ 12. K3 at rank 1's local steps of a two-rank sharded quotient at 2^16 and
+     2^20 (parallel/ntt_shard.steps: split strides, table slabs) against
+     its plain version on the card, bit-exact, timed;
+ 13. the sharded proof (parallel/prover_shard.generate_proof_sharded) of
+     the 2^16 circuit, both flavours, from the zkey and wtns files, on two
+     gloo ranks sharing the card (launch.spawn; collectives host-staged),
+     then 14. on torch.cuda.device_count() NCCL ranks, one a card: every
+     rank's proof must equal the single-card proof of step 4 and verify,
+     call torch.cummax 0 times and launch the sharded path's kernels (K8
+     and the negation where a rank's H1 slab takes the tree); each rank's
+     phase and collective times, launches and peak device memory against
+     the single proof's are printed;
+ 15. the sharded NTT (four_step_ntt / four_step_intt) and G1 msm_sharded at
+     2^20 on two gloo ranks sharing the card, equal to the single-card
+     transform and MSM, timed with CUDA events with the collectives' share;
+ 16. the CLI: the 2^16 circuit's .r1cs and .wtns written with the port's
      writers, `python3 -m groth16_tpu_torch --setup --prove --verify -t ...
      --write-zkey c.zkey` as a subprocess on the card must exit 0 with
-     `verification succeeded = True`, and `--prove --verify -z c.zkey` on a
-     witness with its public output changed must exit 2.
+     `verification succeeded = True`, `--prove --verify -z c.zkey` on a
+     witness with its public output changed must exit 2, and the sharded
+     proof of c.zkey under torchrun (`-m groth16_tpu_torch.parallel.launch
+     --verify`, NCCL, one rank a card) must exit 0.
 
-Each path (the two proofs, the tree-phase run, the Fp-product run) runs
-with every kernel wrapper's launch count set to 0 and read just after; a
-wrapper that its own path never launched fails the run.  It prints the
+Each path (the two proofs, the tree-phase run, the Fp-product run, each
+rank's sharded proofs) runs with every kernel wrapper's launch count set
+to 0 and read just after; a wrapper that its own path never launched
+fails the run.  It prints the
 phase times, the launch counts, each kernel's bound (tools/measure.py), one
 JSON line of kernels and, last, {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
@@ -630,9 +648,10 @@ def check_launched(counts: dict, path: str) -> None:
 
 def main_path(dev):
     """Setup on the card, zkey/wtns round trip through files, one proof per
-    flavour, no torch.cummax call in either.  Returns the launch counts of
-    the two proofs, the Snarkjs zkey (its device cache built by its proof)
-    and the witness."""
+    flavour, no torch.cummax call in either, each proof's peak device memory
+    above what was allocated before it.  Returns the launch counts of the
+    two proofs and, per flavour, (flavour, zkey, witness, proof, peak GiB);
+    the zkeys' device caches are built by their proofs."""
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
     from groth16_tpu_torch.ops import msm as M
@@ -657,17 +676,24 @@ def main_path(dev):
                   f"(nvars {zkey.header.nvars}, domain 2^{zkey.header.log_domain_size})")
             inputs.append((flavour, zkey, w))
 
+    import torch
     reset_counts()
     proofs = []
     for flavour, zkey, w in inputs:
         tm = {}
         before = read_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         with cummax_callers() as scans:
             prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         if scans:
             raise AssertionError(f"{flavour.value}: a proof called torch.cummax: {scans}")
-        proofs.append((flavour, zkey, prf))
-        print(f"prove {flavour.value}: " + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
+        proofs.append((flavour, zkey, w, prf, peak))
+        print(f"prove {flavour.value}: " + ", ".join(f"{k} {v:.3f}" for k, v in tm.items())
+              + f"; peak device memory {peak:.4f} GiB above the {base / 2**30:.4f} GiB "
+              "allocated before (the zkey's upload included)")
         during = {k: v - before[k] for k, v in read_counts().items()}
         print(f"launches during the {flavour.value} proof: " + json.dumps(during))
         k1 = during["point_add"] + during["point_double_n"] + during["horner"]
@@ -686,14 +712,14 @@ def main_path(dev):
                                  + json.dumps({k: during[k] for k in want}))
     counts = read_counts()
 
-    for flavour, zkey, prf in proofs:
+    for flavour, zkey, _, prf, _ in proofs:
         if prf.pi_a is None or prf.pi_b is None or prf.pi_c is None:
             raise AssertionError(f"{flavour.value}: proof has a point at infinity")
         if not G.verify_proof(G.extract_vkey(zkey), prf):
             raise AssertionError(f"{flavour.value}: proof does not verify")
         print(f"verify {flavour.value}: ok")
     check_launched(counts, "proof")
-    return counts, inputs[0][1], inputs[0][2]
+    return counts, proofs
 
 
 def h1_tree_vs_fold(rng, dev, zkey):
@@ -896,11 +922,208 @@ def batch_phase(dev, zkey):
           "and equals its single proof; one zkey upload")
 
 
+# The sharded phases (groth16_tpu_torch/parallel): the kernels every
+# rank's proof must launch; the merge tree's level kernel and its negation
+# run where a rank's slab of H1 reaches msm.TREE_MIN_N
+SHARD_KERNELS = ("spmv_kernel", "ntt_inner_kernel", "quotient_pointwise_kernel", "point_add",
+                 "horner", "fold_level_kernel", "invert_kernel", "mul_rows_kernel")
+SHARD_TREE_KERNELS = ("level_kernel", "fp_neg_kernel")
+GLOO_RANKS = 2            # ranks sharing the one card over gloo
+LOG2_SHARD = 20           # the sharded NTT and MSM
+SHARD_STEP_SIZES = (16, 20)
+
+
+def sharded_proof_rank(mesh, zpaths, wpath, out):
+    """One rank of a sharded-proof phase: for each flavour's zkey file, two
+    proofs sharded over the ranks with MASK, the first uploading the rank's
+    part of the zkey and building its tables, the second with every launch
+    count set to 0 before it and read after it and torch.cummax counted;
+    the collectives timed (`mesh.timed`); the peak device memory over both
+    above what was allocated before them.  The rank verifies its proof and
+    writes what it saw to out/rank<r>.json."""
+    import torch
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.parallel.prover_shard import generate_proof_sharded
+    from groth16_tpu_torch.tools.profile_proof import cummax_callers
+    mesh.timed = True
+    w = G.parse_witness(wpath)
+    res = {}
+    for value, zpath in zpaths:
+        zkey = G.parse_zkey(zpath)
+        zkey.header.flavour = G.Flavour(value)
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        base = torch.cuda.memory_allocated(mesh.device)
+        cold, warm = {}, {}
+        generate_proof_sharded(zkey, w, G.Mask(*MASK), mesh, cold)
+        reset_counts()
+        with cummax_callers() as scans:
+            prf = generate_proof_sharded(zkey, w, G.Mask(*MASK), mesh, warm)
+        counts = read_counts()
+        res[value] = dict(proof=repr((prf.pi_a, prf.pi_b, prf.pi_c)), cold=cold, warm=warm,
+                          counts=counts, cummax=sum(scans.values()),
+                          verifies=G.verify_proof(G.extract_vkey(zkey), prf),
+                          peak_gib=(torch.cuda.max_memory_allocated(mesh.device) - base) / 2**30)
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def sharded_proof_phase(singles, backend, world, devices, tmp) -> dict:
+    """The 2^16 proof of both flavours sharded over `world` ranks
+    (`sharded_proof_rank`, launch.spawn): every rank's proof must equal the
+    single-card proof and verify, call torch.cummax 0 times and launch the
+    sharded path's kernels.  Prints each rank's phase times, collective
+    times, launches and peak memory against the single proof's.  Returns
+    rank 0's launches, summed over the flavours."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.parallel import launch
+    wpath = os.path.join(tmp, "circuit.wtns")
+    if not os.path.exists(wpath):
+        G.write_witness(wpath, singles[0][2].values)
+    zpaths = []
+    for flavour, zkey, _, _, _ in singles:
+        zpaths.append((flavour.value, os.path.join(tmp, f"{flavour.value}.zkey")))
+        if not os.path.exists(zpaths[-1][1]):
+            G.write_zkey(zpaths[-1][1], zkey)
+    out = tempfile.mkdtemp(dir=tmp)
+    launch.spawn(sharded_proof_rank, world, backend, devices, zpaths, wpath, out)
+    staged = "host-staged" if backend == "gloo" else "on the card"
+    tree = (1 << LOG2) // world >= M.TREE_MIN_N
+    total = {}
+    for rank in range(world):
+        with open(os.path.join(out, f"rank{rank}.json")) as fh:
+            res = json.load(fh)
+        for flavour, _, _, prf, peak in singles:
+            r = res[flavour.value]
+            want = repr((prf.pi_a, prf.pi_b, prf.pi_c))
+            if r["proof"] != want or not r["verifies"]:
+                raise AssertionError(f"rank {rank}/{world} {flavour.value}: the sharded proof "
+                                     "differs from the single-card proof or does not verify")
+            if r["cummax"]:
+                raise AssertionError(f"rank {rank}/{world} {flavour.value}: {r['cummax']} "
+                                     "torch.cummax calls")
+            need = SHARD_KERNELS + (SHARD_TREE_KERNELS if tree else ())
+            missing = [k for k in need if not r["counts"][k]]
+            if missing:
+                raise AssertionError(f"rank {rank}/{world} {flavour.value}: {missing} not launched")
+            w = r["warm"]
+            print(f"rank {rank}/{world} {backend} ({devices[rank % len(devices)]}) "
+                  f"{flavour.value}: proof equals the single-card proof, verifies, 0 cummax; "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in w.items())
+                  + f" s (comm_s: backend {backend}, {staged}; first proof "
+                  f"{r['cold']['total_s']:.4f} s, upload {r['cold']['upload_s']:.4f} s); peak "
+                  f"device memory {r['peak_gib']:.4f} GiB against the single proof's "
+                  f"{peak:.4f} GiB")
+            print(f"launches, rank {rank}/{world} {flavour.value}: "
+                  + json.dumps({k: v for k, v in r["counts"].items() if v}))
+            if rank == 0:
+                for k, v in r["counts"].items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
+def sharded_ntt_msm_rank(mesh, out):
+    """One rank of the 2^LOG2_SHARD phase: four_step_ntt / four_step_intt
+    of its slab against ops/ntt.py `transform` of the whole vector, and the
+    G1 msm_sharded of its slab of 2^LOG2_SHARD affine points against the
+    single-card msm, after affine; each timed with CUDA events (mean of 3
+    after a warm-up) beside the single-card call, with the collectives'
+    share of the sharded time."""
+    import numpy as np
+    import torch
+    from groth16_tpu_torch.ops import curve as C, msm as M, ntt as NT
+    from groth16_tpu_torch.parallel import msm_shard, ntt_shard
+    from groth16_tpu_torch.parallel.mesh import shard_range
+    from groth16_tpu_torch.tools.bench_tree_phases import make_points
+    dev, n = mesh.device, 1 << LOG2_SHARD
+    dom = NT.Domain(LOG2_SHARD)
+    lo, hi = shard_range(n, mesh.rank, mesh.size)
+    mesh.timed = True
+    x = random_scalars(np.random.default_rng(SEED + 1), n, dev)
+    res = {}
+
+    def timed(fn):
+        mesh.comm_s = 0.0
+        ms = cuda_ms(fn, 3)
+        return ms, mesh.comm_s * 1e3 / 4 / ms        # four calls: the warm-up and three
+
+    for kind, fn in (("forward", ntt_shard.four_step_ntt), ("inverse", ntt_shard.four_step_intt)):
+        want = NT.transform(x[None], LOG2_SHARD, kind)[0][lo:hi]
+        exact = torch.equal(fn(dom, mesh, x[lo:hi]).view(torch.int32), want.view(torch.int32))
+        ms, share = timed(lambda: fn(dom, mesh, x[lo:hi]))
+        single = cuda_ms(lambda: NT.transform(x[None], LOG2_SHARD, kind), 3)
+        res[kind] = dict(exact=exact, ms=ms, comm_share=share, single_ms=single)
+    P = make_points(n, dev)
+    s = random_scalars(np.random.default_rng(SEED + 2), n, dev)
+    want = C.to_affine(C.G1, tuple(c[None] for c in M.msm(C.G1, s, P, affine=True)))
+    slab = tuple(c[lo:hi] for c in P)
+    got = msm_shard.msm_sharded(C.G1, mesh, s[lo:hi], slab, affine=True)
+    exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+    ms, share = timed(lambda: msm_shard.msm_sharded(C.G1, mesh, s[lo:hi], slab, affine=True))
+    single = cuda_ms(lambda: C.to_affine(C.G1, tuple(c[None] for c in M.msm(C.G1, s, P,
+                                                                            affine=True))), 3)
+    res["msm G1"] = dict(exact=exact, ms=ms, comm_share=share, single_ms=single)
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def sharded_ntt_msm_phase(dev, tmp):
+    """`sharded_ntt_msm_rank` on GLOO_RANKS ranks sharing the card: each
+    result must equal the single-card one bit for bit."""
+    from groth16_tpu_torch.parallel import launch
+    out = tempfile.mkdtemp(dir=tmp)
+    launch.spawn(sharded_ntt_msm_rank, GLOO_RANKS, "gloo", [dev], out)
+    for rank in range(GLOO_RANKS):
+        with open(os.path.join(out, f"rank{rank}.json")) as fh:
+            res = json.load(fh)
+        for what, r in res.items():
+            if not r["exact"]:
+                raise AssertionError(f"rank {rank}: the sharded {what} at 2^{LOG2_SHARD} differs "
+                                     "from the single-card result")
+            print(f"sharded {what} 2^{LOG2_SHARD}, rank {rank}/{GLOO_RANKS} (gloo, host-staged, "
+                  f"both ranks on one card): {r['ms']:.3f} ms events, collectives "
+                  f"{100 * r['comm_share']:.1f} %; single card {r['single_ms']:.3f} ms; equal")
+
+
+def check_sharded_steps(rng, dev, results):
+    """K3 at rank 1's local steps of two ranks (parallel/ntt_shard.steps: the
+    split strides, the slabs of the outer twiddles and of the eta tables)
+    for the sharded quotient's transforms at 2^16 and 2^20, against
+    `ntt_inner_plain` on the card on the same inputs, bit-exact; timed."""
+    from groth16_tpu_torch.ops import ntt as NT
+    from groth16_tpu_torch.parallel import ntt_shard
+    d, r = 2, 1
+    for log2n in SHARD_STEP_SIZES:
+        eta = NT.Domain(log2n + 1).gen
+        m = (1 << log2n) // d
+        for kind, B in (("inverse_to_coset", 3), ("forward", 3), ("inverse_from_coset_std", 1)):
+            for j, st in enumerate(ntt_shard.steps(log2n, d, r, kind, B, dev, eta)):
+                wire_in = kind == "inverse_to_coset" and j == 0
+                wire_out = kind == "inverse_from_coset_std" and j == 1
+                x = random_scalars(rng, B * m, dev).reshape(B, m, 16)
+                x = x if wire_in else NT.pack(x)
+                got = NT.ntt_inner_kernel(x, st, wire_out)
+                plain = {}
+                t_p = cuda_ms(lambda: plain.setdefault("out", NT.ntt_inner_plain(x, st, wire_out)),
+                              1, warmup=False)
+                err = max_abs_err(got, plain["out"])
+                t_k = cuda_ms(lambda: NT.ntt_inner_kernel(x, st, wire_out), 10)
+                name = (f"sharded 2^{log2n} rank {r} of {d} {kind} step {j + 1} T={st.T} "
+                        f"NB={st.NB} B={B}")
+                print(f"K3 {name}: {t_k:.4f} ms (plain {t_p:.2f} ms), max_abs_err {err}")
+                record(results, "ntt_inner_kernel", name, err, t_k, t_p,
+                       dict(T=st.T, NB=st.NB, B=B, pre=False, post=st.post is not None,
+                            wire_in=wire_in, wire_out=wire_out))
+
+
 def cli_phase():
     """The CLI as a user runs it, in a subprocess on the card: setup, prove
     and verify from the 2^16 circuit's files (exit 0), then a tampered
-    witness against the written zkey (exit 2)."""
+    witness against the written zkey (exit 2), then the sharded proof of the
+    written zkey under torchrun, one NCCL rank a card (exit 0)."""
     import subprocess
+    import torch
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
     r1cs, wtns = synthetic_circuit(LOG2)
@@ -913,16 +1136,23 @@ def cli_phase():
         bad = wtns.values.copy()
         bad[1, 0] = (bad[1, 0] + 1) & 0xFFFF          # the public output changed
         G.write_witness(f["bad.wtns"], bad)
+        cli = [sys.executable, "-m", "groth16_tpu_torch"]
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    f"--nproc-per-node={torch.cuda.device_count()}", "-m",
+                    "groth16_tpu_torch.parallel.launch"]
         runs = (("setup, prove, verify", 0,
-                 ["--setup", "--prove", "--verify", "-t", "-r", f["c.r1cs"], "-w", f["c.wtns"],
-                  "-o", f["proof.json"], "-i", f["public.json"], "--write-zkey", f["c.zkey"]]),
+                 cli + ["--setup", "--prove", "--verify", "-t", "-r", f["c.r1cs"], "-w",
+                        f["c.wtns"], "-o", f["proof.json"], "-i", f["public.json"],
+                        "--write-zkey", f["c.zkey"]]),
                 ("tampered witness", 2,
-                 ["--prove", "--verify", "-t", "-z", f["c.zkey"], "-w", f["bad.wtns"]]))
+                 cli + ["--prove", "--verify", "-t", "-z", f["c.zkey"], "-w", f["bad.wtns"]]),
+                ("sharded proof under torchrun, NCCL, one rank a card", 0,
+                 torchrun + ["--zkey", f["c.zkey"], "--wtns", f["c.wtns"], "--verify"]))
         for what, want, args in runs:
             t0 = time.perf_counter()
-            out = subprocess.run([sys.executable, "-m", "groth16_tpu_torch", *args], cwd=root,
-                                 capture_output=True, text=True, timeout=600)
-            lines = [ln for ln in out.stdout.splitlines() if "took" in ln or "succeeded" in ln]
+            out = subprocess.run(args, cwd=root, capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in out.stdout.splitlines()
+                     if "took" in ln or "succeeded" in ln or "proof in" in ln]
             print(f"CLI {what}: exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
                   + "; ".join(lines))
             ok = f"verification succeeded = {want == 0}" in out.stdout
@@ -963,7 +1193,8 @@ def main() -> int:
     phase("K3 check", lambda: check_ntt_kernel(rng, dev, results))
     phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
     phase("to_affine check", lambda: check_to_affine(rng, dev))
-    counts["proof"], zkey, wtns = phase("proofs", lambda: main_path(dev))
+    counts["proof"], singles = phase("proofs", lambda: main_path(dev))
+    zkey, wtns = singles[0][1], singles[0][2]
     phase("SpMV and Fp negation check", lambda: check_spmv_kernel(rng, dev, results, zkey, wtns))
     phase("quotient profile", lambda: profile_quotient(rng, dev))
     phase("points_to_host profile", lambda: profile_to_host(rng, dev, zkey))
@@ -975,6 +1206,17 @@ def main() -> int:
     phase("2^20 fold-phase run", lambda: fold_phase_path(dev))
     phase("msm_chunked 2^21", lambda: chunked_msm(rng, dev))
     phase("batch of four proofs", lambda: batch_phase(dev, zkey))
+    phase("K3 at rank 1's sharded steps", lambda: check_sharded_steps(rng, dev, results))
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["sharded"] = phase(
+            f"sharded proof, {GLOO_RANKS} ranks on one card (gloo)",
+            lambda: sharded_proof_phase(singles, "gloo", GLOO_RANKS, [dev], tmp))
+        n_cards = torch.cuda.device_count()
+        phase("sharded proof, NCCL, world = device_count",
+              lambda: sharded_proof_phase(singles, "nccl", n_cards,
+                                          [torch.device("cuda", i) for i in range(n_cards)], tmp))
+        phase(f"sharded NTT and MSM at 2^{LOG2_SHARD}, {GLOO_RANKS} ranks",
+              lambda: sharded_ntt_msm_phase(dev, tmp))
     phase("CLI", cli_phase)
 
     clock = k9["sm_clock_max_mhz"]
@@ -1017,7 +1259,7 @@ def main() -> int:
         b, side = bound(name, shape)
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": replaces, "launches": counts[paths[name]][name],
-                        "path": paths[name],
+                        "path": paths[name], "launches_sharded": counts["sharded"].get(name, 0),
                         "max_abs_err": max(r[1] for r in rows if r[1] is not None),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": side,
                         "library_ms": None, "shape": variant})

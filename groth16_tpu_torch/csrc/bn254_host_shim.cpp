@@ -248,14 +248,16 @@ void shim_tree_level(int g2, const uint32_t* apl, const uint32_t* apr, const uin
 }
 
 // K3, one launch: every block in turn, each phase over the block's threads
-// in turn (the loops stand where the kernel synchronises)
+// in turn (the loops stand where the kernel synchronises); strides as
+// csrc/ntt.cu g16_ntt_step takes them
 void shim_ntt_step(const uint32_t* x, uint32_t* out, const uint32_t* pre, const uint32_t* post,
                    const uint32_t* roots, const long* strides, int T, long NB, int B, int dit,
                    int wire_in, int wire_out) {
   int log_t = 0;
   while ((1 << log_t) < T) ++log_t;
   const NttStep s{x, out, pre, post, roots, strides[0], strides[1], strides[2], strides[3],
-                  strides[4], strides[5], T, log_t, dit, wire_in, wire_out};
+                  strides[4], strides[5], T, log_t, dit, wire_in, wire_out, strides[7],
+                  strides[9], (int)strides[6], (int)strides[8]};
   std::vector<uint32_t> sm(8 * T);
   for (long b = 0; b < B; ++b) {
     for (long i = 0; i < NB; ++i) {

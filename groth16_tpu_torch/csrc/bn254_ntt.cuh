@@ -65,12 +65,16 @@ BN_HD int bit_reverse(int q, int bits) {
 
 // One launch of K3: B batches of NB transforms of T points.  Element q
 // (natural order) of transform i in batch b is read at x[b * xb + i * si +
-// q * sq]; it goes to position p of the block's transform (p = q for DIF,
-// bit-reversed q for DIT) and is multiplied by pre[i, p].  After the stages
-// position p holds output k (k = p for DIT, bit-reversed p for DIF); it is
-// multiplied by post[i, p] and written to out[b * ob + i * oi + k * ok].
-// Strides count elements.  roots[h + j] = w^(j T / 2h), w the T-th root of
-// unity: the twiddle of offset j at span h.
+// q * sq + (q >> gbits) * gx]; it goes to position p of the block's
+// transform (p = q for DIF, bit-reversed q for DIT) and is multiplied by
+// pre[i, p].  After the stages position p holds output k (k = p for DIT,
+// bit-reversed p for DIF); it is multiplied by post[i, p] and written to
+// out[b * ob + i * oi + k * ok + (k >> hbits) * hx].  Strides count
+// elements.  The split terms (gx, hx; zero when a step has none) put the
+// blocks of 2^gbits inputs or 2^hbits outputs at their own stride: the
+// sharded NTT's blocks from and to each rank of an all_to_all.  roots[h +
+// j] = w^(j T / 2h), w the T-th root of unity: the twiddle of offset j at
+// span h.
 struct NttStep {
   const uint32_t* x;
   uint32_t* out;
@@ -79,6 +83,8 @@ struct NttStep {
   const uint32_t* roots;  // packed [T]
   long si, sq, oi, ok, xb, ob;
   int T, log_t, dit, wire_in, wire_out;
+  long gx, hx;
+  int gbits, hbits;
 };
 
 // The transform lives in shared memory as eight 32-bit limb planes ([8][T]
@@ -97,7 +103,7 @@ BN_HD void sm_put(uint32_t* sm, int T, int j, const Fr& a) {
 
 BN_HD void ntt_load(const NttStep& s, long b, long i, int q, uint32_t* sm) {
   const uint32_t* x = s.x + b * s.xb * (s.wire_in ? 16 : 8);
-  Fr v = load_elem(x, i * s.si + q * s.sq, s.wire_in);
+  Fr v = load_elem(x, i * s.si + q * s.sq + (long)(q >> s.gbits) * s.gx, s.wire_in);
   const int p = s.dit ? bit_reverse(q, s.log_t) : q;
   if (s.pre) v = v * load_packed8(s.pre + (i * s.T + p) * 8);
   sm_put(sm, s.T, p, v);
@@ -124,7 +130,7 @@ BN_HD void ntt_store(const NttStep& s, long b, long i, int p, const uint32_t* sm
   if (s.post) v = v * load_packed8(s.post + (i * s.T + p) * 8);
   const int k = s.dit ? p : bit_reverse(p, s.log_t);
   uint32_t* out = s.out + b * s.ob * (s.wire_out ? 16 : 8);
-  store_elem(out, i * s.oi + (long)k * s.ok, v, s.wire_out);
+  store_elem(out, i * s.oi + (long)k * s.ok + (long)(k >> s.hbits) * s.hx, v, s.wire_out);
 }
 
 // The quotient's pointwise step at element e of the coset values ev

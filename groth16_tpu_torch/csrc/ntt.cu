@@ -72,28 +72,34 @@ static cudaError_t ntt_block(int T, size_t smem, int* bs) {
   return cudaSuccess;
 }
 
-// strides: si, sq, oi, ok, xb, ob (elements)
-extern "C" int g16_ntt_step(const void* x, void* out, const void* pre, const void* post,
-                            const void* roots, const long* strides, int T, long NB, int B,
-                            int dit, int wire_in, int wire_out, void* stream) {
-  int log_t = 0;
-  while ((1 << log_t) < T) ++log_t;
-  NttStep s{(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)pre, (const uint32_t*)post,
-            (const uint32_t*)roots, strides[0], strides[1], strides[2], strides[3],
-            strides[4], strides[5], T, log_t, dit, wire_in, wire_out};
-  const size_t smem = (size_t)T * 8 * sizeof(uint32_t);
+static int ntt_step(NttStep s, long NB, int B, void* stream) {
+  const size_t smem = (size_t)s.T * 8 * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         ntt_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int threads = 0;
-  const cudaError_t e = ntt_block(T, smem, &threads);
+  const cudaError_t e = ntt_block(s.T, smem, &threads);
   if (e != cudaSuccess) return (int)e;
   if (NB > 0 && B > 0) {
     ntt_step_kernel<<<dim3((unsigned)NB, (unsigned)B), threads, smem, (cudaStream_t)stream>>>(s);
   }
   return (int)cudaGetLastError();
+}
+
+// strides: si, sq, oi, ok, xb, ob, gbits, gx, hbits, hx (elements; gbits and
+// hbits are bit counts, gx and hx 0 for a step without split blocks)
+extern "C" int g16_ntt_step(const void* x, void* out, const void* pre, const void* post,
+                            const void* roots, const long* strides, int T, long NB, int B,
+                            int dit, int wire_in, int wire_out, void* stream) {
+  int log_t = 0;
+  while ((1 << log_t) < T) ++log_t;
+  const NttStep s{(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)pre,
+                  (const uint32_t*)post, (const uint32_t*)roots, strides[0], strides[1],
+                  strides[2], strides[3], strides[4], strides[5], T, log_t, dit, wire_in,
+                  wire_out, strides[7], strides[9], (int)strides[6], (int)strides[8]};
+  return ntt_step(s, NB, B, stream);
 }
 
 extern "C" int g16_quotient_pointwise(const void* ev, long n, const void* scale, int standard,

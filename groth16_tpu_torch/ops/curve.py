@@ -390,7 +390,11 @@ def points_from_host(cv: CurveSpec, pts, device) -> tuple:
 
 def points_to_host(cv: CurveSpec, P) -> list:
     """Projective batch -> host affine points (None = infinity)."""
-    x, y = to_affine(cv, P)
+    return affine_to_host(cv, *to_affine(cv, P))
+
+
+def affine_to_host(cv: CurveSpec, x, y) -> list:
+    """Affine batch ((0, 0) = infinity) -> host affine points (None = infinity)."""
     x = x.cpu().numpy().reshape((-1,) + cv.comp_shape)
     y = y.cpu().numpy().reshape((-1,) + cv.comp_shape)
     out = []

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -174,11 +175,15 @@ def _coset_powers(log2n: int, eta: int, standard: bool, device) -> torch.Tensor:
 @dataclass(frozen=True, eq=False)
 class Step:
     """One K3 launch (csrc/bn254_ntt.cuh `NttStep`).  Element q (natural
-    order) of transform i is read at i * si + q * sq of its batch; it sits at
-    position p (q for DIF, bit-reversed q for DIT) and is multiplied by
-    pre[i * T + p]; after the stages position p holds output k (p for DIT,
-    bit-reversed p for DIF), is multiplied by post[i * T + p] and written at
-    i * oi + k * ok.  Strides count elements."""
+    order) of transform i is read at i * si + q * sq + (q >> gbits) * gx of
+    its batch; it sits at position p (q for DIF, bit-reversed q for DIT) and
+    is multiplied by pre[i * T + p]; after the stages position p holds
+    output k (p for DIT, bit-reversed p for DIF), is multiplied by
+    post[i * T + p] and written at i * oi + k * ok + (k >> hbits) * hx.
+    Batch b starts at b * xb of the input and b * ob of the output (NB * T
+    where they are None).  The split terms (gx, hx) give blocks of inputs or
+    outputs a stride of their own: a sharded transform's blocks from and to
+    each rank (parallel/ntt_shard.py).  Strides count elements."""
 
     T: int
     NB: int
@@ -190,6 +195,41 @@ class Step:
     roots: torch.Tensor
     pre: torch.Tensor | None = None
     post: torch.Tensor | None = None
+    xb: int | None = None
+    ob: int | None = None
+    gbits: int = 0
+    gx: int = 0
+    hbits: int = 0
+    hx: int = 0
+
+    def batch_strides(self) -> tuple:
+        n = self.NB * self.T
+        return (n if self.xb is None else self.xb), (n if self.ob is None else self.ob)
+
+    @cached_property
+    def reach(self) -> tuple:
+        """((least, largest) input offset, (least, largest) output offset)
+        that one batch of the step addresses, worked out once a step."""
+        q = np.arange(self.T, dtype=np.int64)
+
+        def side(si, sq, bits, gx):
+            a = q * sq + (q >> bits) * gx
+            span = (self.NB - 1) * si
+            return int(a.min()) + min(span, 0), int(a.max()) + max(span, 0)
+        return (side(self.si, self.sq, self.gbits, self.gx),
+                side(self.oi, self.ok, self.hbits, self.hx))
+
+
+def _addresses(s: Step, dev) -> tuple:
+    """int64 [NB * T] element offsets within a batch: where element q of
+    transform i is read (row i * T + q), where position p's output is
+    written (row i * T + p)."""
+    i = torch.arange(s.NB, device=dev)[:, None]
+    q = torch.arange(s.T, device=dev)[None, :]
+    k = q if s.dit else bitrev_perm(s.T, dev)[None, :]
+    src = i * s.si + q * s.sq + (q >> s.gbits) * s.gx
+    dst = i * s.oi + k * s.ok + (k >> s.hbits) * s.hx
+    return src.reshape(-1), dst.reshape(-1)
 
 
 def ntt_inner_plain(x: torch.Tensor, s: Step, wire_out: bool) -> torch.Tensor:
@@ -198,11 +238,10 @@ def ntt_inner_plain(x: torch.Tensor, s: Step, wire_out: bool) -> torch.Tensor:
     format if `wire_out`, else packed."""
     T, NB = s.T, s.NB
     dev = x.device
-    i = torch.arange(NB, device=dev)[:, None]
-    q = torch.arange(T, device=dev)[None, :]
+    B, n = x.shape[0], NB * T
+    xb, ob = s.batch_strides()
     rev = bitrev_perm(T, dev)
-    src = (i * s.si + q * s.sq).reshape(-1)
-    dst = (i * s.oi + (q if s.dit else rev[None, :]) * s.ok).reshape(-1)
+    src, dst = _addresses(s, dev)
     roots = unpack(s.roots)
     pre = None if s.pre is None else unpack(s.pre).reshape(NB, T, N_LIMBS)
     post = None if s.post is None else unpack(s.post).reshape(NB, T, N_LIMBS)
@@ -211,29 +250,28 @@ def ntt_inner_plain(x: torch.Tensor, s: Step, wire_out: bool) -> torch.Tensor:
     while h >= 1:
         hs.append(h)
         h //= 2
-    outs = []
-    for xb in x:                                       # one batch at a time: less memory
-        a = unpack(xb)[src].reshape(NB, T, N_LIMBS)
+    flat = F.as_i32(x.reshape(B * n, x.shape[2]))    # CUDA indexes int32, not uint32
+    out = torch.empty((B * n, N_LIMBS), dtype=torch.int64, device=dev)
+    for b in range(B):                                 # one batch at a time: less memory
+        a = unpack(F.as_u32(flat[b * xb + src])).reshape(NB, T, N_LIMBS)
         if s.dit:
             a = a[:, rev]
         if pre is not None:
             a = F.mont_mul(FR, a, pre)
         for h in (reversed(hs) if s.dit else hs):
             v = a.reshape(NB, T // (2 * h), 2, h, N_LIMBS)
-            u, b = v[:, :, 0], v[:, :, 1]
+            u, c = v[:, :, 0], v[:, :, 1]
             w = roots[h + torch.arange(h, device=dev)]
             if s.dit:
-                wb = F.mont_mul(FR, b, w)
+                wb = F.mont_mul(FR, c, w)
                 top, bot = F.add_mod(FR, u, wb), F.sub_mod(FR, u, wb)
             else:
-                top, bot = F.add_mod(FR, u, b), F.mont_mul(FR, F.sub_mod(FR, u, b), w)
+                top, bot = F.add_mod(FR, u, c), F.mont_mul(FR, F.sub_mod(FR, u, c), w)
             a = torch.stack([top, bot], 2).reshape(NB, T, N_LIMBS)
         if post is not None:
             a = F.mont_mul(FR, a, post)
-        out = torch.empty((NB * T, N_LIMBS), dtype=torch.int64, device=dev)
-        out[dst] = a.reshape(NB * T, N_LIMBS)
-        outs.append(out)
-    out = torch.stack(outs)
+        out[b * ob + dst] = a.reshape(n, N_LIMBS)
+    out = out.reshape(B, n, N_LIMBS)
     return out.to(torch.uint32) if wire_out else pack(out)
 
 
@@ -258,18 +296,21 @@ def ntt_inner_kernel(x: torch.Tensor, s: Step, wire_out: bool) -> torch.Tensor:
     n = NB * T
     if x.shape[1] != n:
         raise ValueError(f"a step of {NB} x {T} points takes {n} elements, not {x.shape[1]}")
-    if max((NB - 1) * s.si + (T - 1) * s.sq, (NB - 1) * s.oi + (T - 1) * s.ok) >= n:
-        raise ValueError("step strides reach past the array")
+    B = x.shape[0]
+    xb, ob = s.batch_strides()
+    for (lo, hi), bs in zip(s.reach, (xb, ob)):
+        span = (B - 1) * bs
+        if lo + min(span, 0) < 0 or hi + max(span, 0) >= B * n:
+            raise ValueError("step strides reach past the array")
     for t in (s.roots, s.pre, s.post):
         if t is not None and (t.device != x.device or t.dtype != torch.uint32
                               or t.shape[-1] != PACKED or not t.is_contiguous()):
             raise ValueError("K3 tables must be packed uint32 on the input's device")
     x = x.contiguous()
-    B = x.shape[0]
     out = torch.empty((B, n, N_LIMBS if wire_out else PACKED), dtype=torch.uint32,
                       device=x.device)
     _check_aligned(x, out, s.roots, s.pre, s.post)
-    strides = (ctypes.c_long * 6)(s.si, s.sq, s.oi, s.ok, n, n)
+    strides = (ctypes.c_long * 10)(s.si, s.sq, s.oi, s.ok, xb, ob, s.gbits, s.gx, s.hbits, s.hx)
     rc = cuda.lib().g16_ntt_step(x.data_ptr(), out.data_ptr(), _ptr(s.pre), _ptr(s.post),
                                  s.roots.data_ptr(), strides, T, NB, B, int(s.dit),
                                  int(x.shape[2] == N_LIMBS), int(wire_out),

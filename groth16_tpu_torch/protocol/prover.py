@@ -170,15 +170,18 @@ def _msm_to_host(cv: C.CurveSpec, scalars_std: torch.Tensor, P):
     return C.points_to_host(cv, tuple(x[None] for x in res))[0]
 
 
-def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torch.device,
-                             timings: dict | None = None) -> Proof:
-    """Reference generateProofWithMask (prover.nim:215-304) on `device`, a
-    torch.device the caller names: the proof runs there and nowhere else.
-    The zkey's inputs are uploaded at its first proof on the device and
-    reused after (`zkey_device_args`)."""
-    hdr = zkey.header
-    spec = zkey.spec
-    pts = zkey.ppoints
+def prove_phases(zkey: ZKey, wtns: Witness, mask: Mask, device: torch.device, static_args,
+                 quotient, msms, timings: dict | None = None) -> Proof:
+    """The proof's phases on `device`, shared by `generate_proof_with_mask`
+    and the sharded prover (parallel/prover_shard.py): the zkey and witness
+    checks, the witness upload, the SpMV, the quotient, the five MSMs and
+    the spec-point algebra on host ints (prover.nim:278-302).  The callers
+    differ in three callables: `static_args()` gives the zkey's device
+    inputs (with the SpMV `rows`), `quotient(az, bz, cz)` the H1 scalars,
+    and `msms(static, witness_std, qs_std)` yields the five MSMs' host
+    points in the order A1, B1, B2, H1, C1.  `timings` gets upload_s,
+    spmv_s, quotient_s, msm_*_s and total_s."""
+    hdr, spec, pts = zkey.header, zkey.spec, zkey.ppoints
     if hdr.curve != wtns.curve or hdr.nvars != wtns.nvars:
         raise ValueError("witness does not match the zkey")
     nvars, npubs = hdr.nvars, hdr.npubs
@@ -186,43 +189,33 @@ def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torc
             and hdr.domain_size == len(pts.points_h1)
             and nvars - npubs - 1 == len(pts.points_c1)):
         raise ValueError("zkey point sections do not match its header")
-    device = torch.device(device)
     public_io = limbs_to_ints(wtns.values[: npubs + 1])
 
     t0 = time.perf_counter()
-    static = zkey_device_args(zkey, device)
+    static = static_args()
     witness_std = _dev(wtns.values, device)          # uint32, standard form
     _sync(device)
     tz = time.perf_counter()
     az, bz, cz = KN.spmv(witness_std, static.rows)
     _sync(device)
     t1 = time.perf_counter()
-
-    qs_std = quotient_scalars(hdr.flavour, az, bz, cz, hdr.log_domain_size)
+    qs_std = quotient(az, bz, cz)
     _sync(device)
-    t2 = time.perf_counter()
-
-    zs_std = witness_std[npubs + 1:]
-    r, s = mask.r % FR.modulus, mask.s % FR.modulus
-    marks = [t2]
-
-    def timed(fn, *args):
-        out = fn(*args)
+    marks = [time.perf_counter()]
+    host = []
+    for pt in msms(static, witness_std, qs_std):
+        host.append(pt)
         marks.append(time.perf_counter())
-        return out
+    msm_a, msm_b1, msm_b2, msm_h, msm_c = host
 
+    r, s = mask.r % FR.modulus, mask.s % FR.modulus
     # pi_a = alpha1 + r*delta1 + MSM(w, A1)            (prover.nim:278-282)
-    msm_a = timed(_msm_to_host, C.G1, witness_std, static.a1)
     pi_a = H.g1_add(H.g1_add(spec.alpha1, H.g1_mul(r, spec.delta1)), msm_a)
     # rho = beta1 + s*delta1 + MSM(w, B1)              (prover.nim:285-288)
-    msm_b1 = timed(_msm_to_host, C.G1, witness_std, static.b1)
     rho = H.g1_add(H.g1_add(spec.beta1, H.g1_mul(s, spec.delta1)), msm_b1)
     # pi_b = beta2 + s*delta2 + MSM(w, B2)             (prover.nim:290-294)
-    msm_b2 = timed(_msm_to_host, C.G2, witness_std, static.b2)
     pi_b = H.g2_add(H.g2_add(spec.beta2, H.g2_mul(s, spec.delta2)), msm_b2)
     # pi_c = s*pi_a + r*rho - rs*delta1 + MSM(qs, H1) + MSM(zs, C1)
-    msm_h = timed(_msm_to_host, C.G1, qs_std, static.h1)
-    msm_c = timed(_msm_to_host, C.G1, zs_std, static.c1)
     pi_c = H.g1_mul(s, pi_a)
     pi_c = H.g1_add(pi_c, H.g1_mul(r, rho))
     pi_c = H.g1_add(pi_c, H.g1_mul((-r * s) % FR.modulus, spec.delta1))
@@ -232,12 +225,32 @@ def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torc
 
     if timings is not None:
         timings.update({
-            "upload_s": tz - t0, "spmv_s": t1 - tz, "quotient_s": t2 - t1,
+            "upload_s": tz - t0, "spmv_s": t1 - tz, "quotient_s": marks[0] - t1,
             "msm_a1_s": marks[1] - marks[0], "msm_b1_s": marks[2] - marks[1],
             "msm_b2_s": marks[3] - marks[2], "msm_h1_s": marks[4] - marks[3],
             "msm_c1_s": marks[5] - marks[4], "total_s": t3 - t0,
         })
     return Proof(public_io=public_io, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
+
+
+def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torch.device,
+                             timings: dict | None = None) -> Proof:
+    """Reference generateProofWithMask (prover.nim:215-304) on `device`, a
+    torch.device the caller names: the proof runs there and nowhere else.
+    The zkey's inputs are uploaded at its first proof on the device and
+    reused after (`zkey_device_args`)."""
+    device = torch.device(device)
+    hdr = zkey.header
+
+    def msms(static, w, qs):
+        for cv, sc, P in ((C.G1, w, static.a1), (C.G1, w, static.b1), (C.G2, w, static.b2),
+                          (C.G1, qs, static.h1), (C.G1, w[hdr.npubs + 1:], static.c1)):
+            yield _msm_to_host(cv, sc, P)
+
+    return prove_phases(zkey, wtns, mask, device, lambda: zkey_device_args(zkey, device),
+                        lambda az, bz, cz: quotient_scalars(hdr.flavour, az, bz, cz,
+                                                            hdr.log_domain_size),
+                        msms, timings)
 
 
 def generate_proof_with_trivial_mask(zkey: ZKey, wtns: Witness, device: torch.device,

@@ -215,7 +215,7 @@ def _p(t):
 def _shim_step(lib, x, s, wire_out):
     B, n = x.shape[0], s.NB * s.T
     out = torch.zeros((B, n, 16 if wire_out else 8), dtype=torch.uint32)
-    strides = (ctypes.c_long * 6)(s.si, s.sq, s.oi, s.ok, n, n)
+    strides = (ctypes.c_long * 10)(s.si, s.sq, s.oi, s.ok, n, n, 0, 0, 0, 0)
     lib.shim_ntt_step(_p(x), _p(out), _p(s.pre), _p(s.post), _p(s.roots), strides, s.T, s.NB,
                       B, int(s.dit), int(x.shape[2] == 16), int(wire_out))
     return out
