@@ -17,7 +17,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel at 2^10-2^20, K4 at the level-1 lanes of the H1 and 2^20 trees
      and a G2 level, K5 at a proof's `to_affine` (G1, G2), on column views
      of a row (W = 4096, 2048, 2^16) and on 2^20 point-major coordinates
-     (torch.profiler must show one kernel a call and no copy), the batch
+     (profiled in step 17), the batch
      inversion K6 at widths from 1 to 2^17 (a zero among the totals), the
      fused tree level K8 at the H1 MSM's levels 1 and 2, a narrow level, the
      2^20 tree's level 1 and a G2 level, and `to_affine` on the card (one K6
@@ -28,23 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      fixed mask, in both flavours; each proof must pass verify_proof,
      every kernel of the proof path must have launched during the proofs,
      a proof must call torch.cummax (the plain field arithmetic's carry
-     scan) 0 times, and a proof must launch the SpMV kernel once, Horner 5
+     scan) 0 times, and a proof must call the SpMV kernel once, Horner 5
      times, at most 10 doubling chains, fewer than 400 K1 kernels in all, no
      K4, the fused tree level 80 times and the Fp negation once (the tree's
      signed rows), K6 and K5 5 times each (`to_affine`), K2 once a fold
      level of its four fold MSMs, and K3 4 times (Snarkjs) or 6 times
-     (JensGroth) with one pointwise kernel; the SpMV kernel against its
-     plain version on the card at the 2^16 proof's coefficients and at a
-     seeded set with an empty row, a 2^16-entry row and repeated columns,
-     and the Fp negation at 2^16 G1 coordinates with infinities, bit-exact
-     and timed beside their bounds; then torch.profiler around one 2^16 quotient
-     per flavour and around `points_to_host` of a proof's five MSM results:
-     the trace must hold each of the call's K3 and pointwise launches (K6
-     and K5 launches: 5 each, one of them G2), nothing but copies and
-     memsets may run beside them (and, in `points_to_host`, the copies to
-     the host), so no `cummax` and no plain field-arithmetic kernel; and the
-     quotient on the card against its plain version on the card at 2^16 and
-     2^20, both flavours, timed beside its bound;
+     (JensGroth) with one pointwise kernel; the SpMV kernel (one wrapper
+     call, two launches) against its plain version on the card at the 2^16
+     proof's coefficients, at a seeded set with an empty row, a 2^16-entry
+     row and repeated columns, and at a seeded power-law set (2^16 rows of
+     Zipf lengths up to 2^15, about 2^19 entries), and the Fp negation at
+     2^16 G1 coordinates with infinities, bit-exact and timed beside their
+     bounds; one 2^16 quotient per flavour and `points_to_host` of a
+     proof's five MSM results registered for the profiles (step 17); and
+     the quotient on the card against its plain version on the card at
+     2^16 and 2^20, both flavours, timed beside its bound;
   5. the H1 MSM (2^16 points) through the merge tree and through the fold,
      timed against each other; both must give the same point;
   6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
@@ -91,7 +89,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      `verification succeeded = True`, `--prove --verify -z c.zkey` on a
      witness with its public output changed must exit 2, and the sharded
      proof of c.zkey under torchrun (`-m groth16_tpu_torch.parallel.launch
-     --verify`, NCCL, one rank a card) must exit 0.
+     --verify`, NCCL, one rank a card) must exit 0;
+ 17. the profiles, last: every call registered above runs once, then each
+     under torch.profiler on its own (the profiler traces nothing in a
+     process once a CUDA module has loaded after its first session): K5 at
+     each shape must trace one K5 launch and nothing else; the SpMV at each
+     set its two launches and nothing else (device time against the bound);
+     the quotient each of its K3 and pointwise launches, and
+     `points_to_host` K6 and K5 5 times each (one of them G2), with nothing
+     but copies and memsets beside them (and, in `points_to_host`, the
+     copies to the host), so no `cummax` and no plain field-arithmetic
+     kernel.
 
 Each path (the two proofs, the tree-phase run, the Fp-product run, each
 rank's sharded proofs) runs with every kernel wrapper's launch count set
@@ -160,9 +168,6 @@ K1_MAX_PER_PROOF = 400
 LOG2_FOLD_PHASES = 20  # the fold-phase run
 LOG2_PHASES = 20      # the tree-phase run
 LOG2_CHUNKED = 21     # msm_chunked: two segments of 2^20
-# the SpMV's seeded set: rows, witness length, random entries, the entries
-# of its one dense row (A's row 1, columns from the first 64 wires)
-SPMV_CASE = dict(n_rows=1 << 12, nvars=1 << 12, nnz=1 << 14, dense=1 << 16)
 NEG_POINTS = 1 << 16  # the Fp negation: the H1 tree's y coordinates
 BATCH_SEEDS = (42, 43, 44, 45)
 
@@ -384,24 +389,25 @@ def quotient_phase(rng, dev, results):
 
 
 def profile_quotient(rng, dev):
-    """torch.profiler around one 2^16 quotient per flavour (tables already
-    built by the proofs), each kernel's launches and device time printed:
+    """torch.profiler around one 2^16 quotient per flavour (in the profiles
+    phase), each kernel's launches and device time printed:
     the trace must hold every launch of the two quotient kernels
     (`measure.quotient_launches`), and the device may run nothing else but
     copies (the stack of Az, Bz, Cz) and memsets; a host round trip
     (`Memcpy`), a `cummax` or any other plain field-arithmetic kernel fails
     the run."""
+    import functools
     from groth16_tpu_torch.protocol.prover import quotient_scalars
     from groth16_tpu_torch.protocol.types import Flavour
     from groth16_tpu_torch.tools import measure
     abc = [random_scalars(rng, 1 << LOG2, dev) for _ in range(3)]
     for flavour in (Flavour.Snarkjs, Flavour.JensGroth):
         steps = [n for n, _ in measure.quotient_launches(LOG2, flavour.value)]
-        only_kernels(f"quotient 2^{LOG2} {flavour.value}",
-                     lambda: quotient_scalars(flavour, *abc, LOG2),
-                     {"ntt_step_kernel": steps.count("ntt_inner_kernel"),
-                      "quotient_pointwise_kernel": steps.count("quotient_pointwise_kernel")},
-                     ("copy", "memset"))
+        defer_profile(f"quotient 2^{LOG2} {flavour.value}",
+                      functools.partial(quotient_scalars, flavour, *abc, LOG2),
+                      {"ntt_step_kernel": steps.count("ntt_inner_kernel"),
+                       "quotient_pointwise_kernel": steps.count("quotient_pointwise_kernel")},
+                      ("copy", "memset"))
 
 
 def only_kernels(what, fn, expect: dict, allow: tuple) -> dict:
@@ -427,10 +433,39 @@ def only_kernels(what, fn, expect: dict, allow: tuple) -> dict:
     return names
 
 
+# torch.profiler traces nothing on the card in a process once a CUDA module
+# has loaded after its first session there (seen on an H100 after a kernel
+# library's runtime started up, and after the phases between the K5 checks
+# and the proofs), so the checks register the calls they profile
+# (`defer_profile`) and the profiles phase warms every one up before its
+# first session (`run_profiles`)
+DEFERRED = []
+
+
+def defer_profile(what, fn, expect: dict, allow: tuple, report=None) -> None:
+    """Register one `only_kernels` check; report(names), if given, reads
+    its trace."""
+    DEFERRED.append((what, fn, expect, allow, report))
+
+
+def run_profiles() -> None:
+    """Each registered call once (nothing new loads after the first
+    session), then its `only_kernels` check and report."""
+    import torch
+    for _, fn, _, _, _ in DEFERRED:
+        fn()
+    torch.cuda.synchronize()
+    for what, fn, expect, allow, report in DEFERRED:
+        names = only_kernels(what, fn, expect, allow)
+        if report is not None:
+            report(names)
+
+
 def profile_to_host(rng, dev, zkey):
-    """torch.profiler around `points_to_host` of the five MSM results of a
-    proof (random scalars over the zkey's A1, B1, B2, C1 and H1 points, each
-    MSM as the prover runs it): the trace must hold K6 and K5 once for each
+    """torch.profiler (in the profiles phase) around `points_to_host` of the
+    five MSM results of a proof (random scalars over the zkey's A1, B1, B2,
+    C1 and H1 points, each MSM as the prover runs it): the trace must hold
+    K6 and K5 once for each
     result, the G1 instantiations 4 times and the G2 ones once, and the
     device may run nothing else but copies, memsets and the copies to the
     host (`Memcpy DtoH`); no `cummax`, no plain field kernel."""
@@ -443,11 +478,11 @@ def profile_to_host(rng, dev, zkey):
         P = C.from_affine(cv, torch.from_numpy(pa.x).to(dev), torch.from_numpy(pa.y).to(dev))
         res.append((cv, M.msm(cv, random_scalars(rng, pa.x.shape[0], dev), P, affine=True)))
     n_g2 = sum(cv is C.G2 for cv, _ in res)
-    only_kernels("points_to_host of the five MSM results",
-                 lambda: [C.points_to_host(cv, tuple(x[None] for x in r)) for cv, r in res],
-                 {f"{k}<bn254::{g}>": n for k in ("tree_invert_kernel", "tree_mul_rows_kernel")
-                  for g, n in (("G1", len(res) - n_g2), ("G2", n_g2))},
-                 ("copy", "memset", "memcpy dtoh"))
+    defer_profile("points_to_host of the five MSM results",
+                  lambda: [C.points_to_host(cv, tuple(x[None] for x in r)) for cv, r in res],
+                  {f"{k}<bn254::{g}>": n for k in ("tree_invert_kernel", "tree_mul_rows_kernel")
+                   for g, n in (("G1", len(res) - n_g2), ("G2", n_g2))},
+                  ("copy", "memset", "memcpy dtoh"))
 
 
 def tree_planes(rng, cv, M, dev):
@@ -538,25 +573,22 @@ def mul_rows_case(rng, cv, W, layout, dev) -> tuple:
 
 def check_mul_rows_kernel(rng, dev, results):
     """K5 against `mul_rows_plain` at every shape of K5_SHAPES, on operands
-    where they lie; timed with CUDA events and, over one more call, by
-    torch.profiler, which must show one K5 launch and nothing else (no copy
-    of a view or a point-major array)."""
+    where they lie; timed with CUDA events and, over one more call in the
+    profiles phase, by torch.profiler, which must show one K5 launch and
+    nothing else (no copy of a view or a point-major array)."""
+    import functools
     from groth16_tpu_torch.ops import curve as C, kernels_tree as KT
-    from groth16_tpu_torch.tools import measure
     for name, W, layout in K5_SHAPES:
         cv = C.G1 if name == "G1" else C.G2
         a, b, pm, n, nb = mul_rows_case(rng, cv, W, layout, dev)
         err = max_abs_err(KT.mul_rows_kernel(cv, a, b, point_major=pm),
                           KT.mul_rows_plain(cv, a, b, point_major=pm))
-        t_k = cuda_ms(lambda: KT.mul_rows_kernel(cv, a, b, point_major=pm), 20)
+        fn = functools.partial(KT.mul_rows_kernel, cv, a, b, point_major=pm)
+        t_k = cuda_ms(fn, 20)
         t_p = cuda_ms(lambda: KT.mul_rows_plain(cv, a, b, point_major=pm), 2)
-        names = measure.device_kernels(lambda: KT.mul_rows_kernel(cv, a, b, point_major=pm),
-                                       {"tree_mul_rows_kernel": 1})
-        if len(names) != 1:
-            raise AssertionError(f"K5 {name} W={W} {layout} ran {names}, not one K5 launch")
-        dev_ms = sum(us for _, us in names.values()) / 1e3
-        print(f"K5 {name} W={W} {layout}: {t_k:.4f} ms events, {dev_ms:.4f} ms device "
-              f"(profiler: one launch, no copy; plain {t_p:.2f} ms), max_abs_err {err}")
+        print(f"K5 {name} W={W} {layout}: {t_k:.4f} ms events (plain {t_p:.2f} ms), "
+              f"max_abs_err {err}")
+        defer_profile(f"K5 {name} W={W} {layout}", fn, {"tree_mul_rows_kernel": 1}, ())
         record(results, "mul_rows_kernel", f"{name} W={W} {layout}", err, t_k, t_p,
                dict(curve=name, W=n, Wb=nb))
 
@@ -816,26 +848,6 @@ def chunked_msm(rng, dev):
     print(f"msm_chunked == msm at 2^{LOG2_CHUNKED} (c = {c_seg} per segment, {c_all} unchunked)")
 
 
-def spmv_case(rng, dev, n_rows, nvars, nnz, dense):
-    """A seeded SpMV set (witness uint32 [nvars, 16] standard form, its
-    SpmvRows): `nnz` random entries over rows 0 .. n_rows - 2 (the last row
-    of A and of B stays empty), `dense` more in A's row 1 reading only the
-    first 64 wires (repeated columns), the witness value and a coefficient
-    r - 1 among them."""
-    import numpy as np
-    from groth16_tpu_torch.ops import kernels as KN
-    from groth16_tpu_torch.ops.field import FR
-    from groth16_tpu_torch.ops.limbs import int_to_limbs
-    w = random_scalars(rng, nvars, "cpu").numpy()
-    w[0] = int_to_limbs(FR.modulus - 1)
-    matrix = np.concatenate([rng.integers(0, 2, nnz), np.zeros(dense, np.int64)])
-    row = np.concatenate([rng.integers(0, n_rows - 1, nnz), np.ones(dense, np.int64)])
-    col = np.concatenate([rng.integers(0, nvars, nnz), rng.integers(0, 64, dense)])
-    coeff = random_scalars(rng, nnz + dense, "cpu").numpy()
-    coeff[::1000] = int_to_limbs(FR.modulus - 1)
-    return (torch_from(w, dev), KN.spmv_rows(matrix, row, col, coeff, n_rows, dev))
-
-
 def torch_from(a, dev):
     import torch
     return torch.from_numpy(a).to(dev)
@@ -844,27 +856,46 @@ def torch_from(a, dev):
 def check_spmv_kernel(rng, dev, results, zkey, wtns):
     """The SpMV kernel against `spmv_plain` on the card, bit-exact, at the
     2^16 proof's coefficients (the zkey's device cache, the proof's witness)
-    and at SPMV_CASE; both timed with CUDA events, the longest row's length
-    printed beside the time; then the Fp negation against `fp_neg_plain` at
-    NEG_POINTS G1 coordinates, every 16th an infinity (0), and on G2-shaped
-    coordinates."""
-    import numpy as np
+    and at the seeded dense and power-law sets of tools/bench_spmv.py; each
+    timed with CUDA events, the plain version timed, the bound, its share
+    and the longest row printed, and its device time (both launches) from
+    one profiled call that may run nothing else, in the profiles phase;
+    then the Fp negation
+    against `fp_neg_plain` at NEG_POINTS G1 coordinates, every 16th an
+    infinity (0), and on G2-shaped coordinates."""
     import torch
     from groth16_tpu_torch.ops import kernels as KN
     from groth16_tpu_torch.protocol.prover import zkey_device_args
+    import functools
+    from groth16_tpu_torch.tools import bench_spmv, measure
+    clock = measure.sm_clock_max_mhz()
     cases = [("2^16 proof", torch_from(wtns.values, dev), zkey_device_args(zkey, dev).rows),
-             ("seeded, dense row", *spmv_case(rng, dev, **SPMV_CASE))]
+             bench_spmv.rows_on(dev, bench_spmv.dense_set(rng, **bench_spmv.DENSE)),
+             bench_spmv.rows_on(dev, bench_spmv.power_law_set(rng, **bench_spmv.POWER_LAW))]
     for name, w, m in cases:
         err = max_abs_err(KN.spmv_kernel(w, m), KN.spmv_plain(w, m))
-        t_k = cuda_ms(lambda: KN.spmv_kernel(w, m), 20)
+        fn = functools.partial(KN.spmv_kernel, w, m)
+        t_k = cuda_ms(fn, 20)
         t_p = cuda_ms(lambda: KN.spmv_plain(w, m), 2)
-        lengths = np.diff(m.row_ptr.cpu().numpy())
-        nnz = int(lengths.sum())
-        print(f"SpMV {name}: {m.n_rows} rows, {nnz} entries, witness {w.shape[0]}, longest row "
-              f"{int(lengths.max())}, empty rows {int((lengths == 0).sum())}: {t_k:.4f} ms "
-              f"(plain {t_p:.2f} ms), max_abs_err {err}")
-        record(results, "spmv_kernel", f"{name} rows={m.n_rows} nnz={nnz}", err, t_k, t_p,
-               dict(n_rows=m.n_rows, nnz=nnz, nvars=w.shape[0]))
+        st = bench_spmv.set_stats(w, m)
+        shape = dict(n_rows=st["n_rows"], nnz=st["nnz"], nvars=st["nvars"])
+        b, side = measure.bound_ms(*measure.work("spmv_kernel", **shape), clock)
+        sc = m.schedule
+        print(f"SpMV {name}: {st['n_rows']} rows, {st['nnz']} entries, witness {st['nvars']}, "
+              f"longest row {st['longest']}, empty rows {st['empty']}, E={sc.E} "
+              f"block={sc.block} finish={sc.finish_block}, {sc.carry_row.numel()} carries: "
+              f"{t_k:.4f} ms events (plain {t_p:.2f} ms), bound {b:.5f} ms ({side}), "
+              f"{100 * b / t_k:.1f} % of the bound by events, max_abs_err {err}")
+
+        def report(names, name=name, b=b):
+            dev_ms = sum(us for _, us in names.values()) / 1e3
+            print(f"SpMV {name}: {dev_ms:.4f} ms device, both launches; bound {b:.5f} ms, "
+                  f"{100 * b / dev_ms:.1f} % of the bound by device time")
+
+        defer_profile(f"SpMV {name}", fn, {"spmv_entries_kernel": 1, "spmv_finish_kernel": 1},
+                      (), report)
+        record(results, "spmv_kernel", f"{name} rows={m.n_rows} nnz={st['nnz']}", err, t_k, t_p,
+               shape)
     y = random_scalars(rng, NEG_POINTS, dev)
     y.view(torch.int32)[::16] = 0
     for shape in ((NEG_POINTS, 16), (NEG_POINTS // 2, 2, 16)):
@@ -1218,6 +1249,7 @@ def main() -> int:
         phase(f"sharded NTT and MSM at 2^{LOG2_SHARD}, {GLOO_RANKS} ranks",
               lambda: sharded_ntt_msm_phase(dev, tmp))
     phase("CLI", cli_phase)
+    phase("profiles", run_profiles)
 
     clock = k9["sm_clock_max_mhz"]
     print(f"bounds: an Fp product {measure.FP_MUL_WIDE} widening multiplies at "

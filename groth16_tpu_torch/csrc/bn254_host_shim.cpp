@@ -9,6 +9,7 @@
 // GPU.  Build (groth16_tpu_torch/ops/cuda.py::host_shim):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libbn254shim.so bn254_host_shim.cpp
 
+#include <algorithm>
 #include <vector>
 
 #include "bn254_curve.cuh"
@@ -150,6 +151,33 @@ static void fold_lanes(const uint32_t* rows, const int32_t* order, const int32_t
                          lane / lanes, lane % lanes, lane);
 }
 
+// The block's segmented scan (csrc/spmv.cu `block_seg_scan`) over T threads
+// of W lanes a warp: each warp's shuffle steps (lanes taken from the top, so
+// every lane reads its neighbour's value before this step), the warps' sums
+// scanned as one warp scans them, each thread's previous warps' sum.
+static void spmv_block_scan(int T, int W, const int32_t* key, Fr* s, int32_t* prev_key,
+                            Fr* prev) {
+  const int nw = T / W;
+  for (int w0 = 0; w0 < T; w0 += W)
+    for (int off = 1; off < W; off <<= 1)
+      for (int l = w0 + W - 1; l >= w0 + off; --l) seg_add(s[l], key[l], key[l - off], s[l - off]);
+  std::vector<int32_t> tk(W, SPMV_NO_KEY);
+  std::vector<Fr> tv(W, Fr::zero());
+  for (int q = 0; q < nw; ++q) tk[q] = key[q * W + W - 1], tv[q] = s[q * W + W - 1];
+  for (int off = 1; off < W; off <<= 1)
+    for (int l = W - 1; l >= off; --l) seg_add(tv[l], tk[l], tk[l - off], tv[l - off]);
+  for (int t = 0; t < T; ++t) {
+    const int q = t / W;
+    if (q > 0) seg_add(s[t], key[t], tk[q - 1], tv[q - 1]);
+  }
+  for (int t = 0; t < T; ++t) {
+    const int q = t / W;
+    if (t % W) prev_key[t] = key[t - 1], prev[t] = s[t - 1];
+    else if (q > 0) prev_key[t] = tk[q - 1], prev[t] = tv[q - 1];
+    else prev_key[t] = SPMV_NO_KEY, prev[t] = Fr::zero();
+  }
+}
+
 extern "C" {
 
 // field: 0 = Fp, 1 = Fr, 2 = Fp2; op: 0 = mul, 1 = add, 2 = sub
@@ -276,10 +304,79 @@ void shim_quotient_pointwise(const uint32_t* ev, long n, const uint32_t* scale, 
   for (long e = 0; e < n; ++e) quotient_point(ev, n, e, scale, standard, out);
 }
 
-// the SpMV, row after row: out = uint32[3, n, 16] (Az | Bz | Cz)
-void shim_spmv(const uint32_t* w, const uint32_t* coeff, const int32_t* cols,
-               const long* row_ptr, long n, uint32_t* out) {
-  for (long r = 0; r < n; ++r) spmv_row(w, coeff, cols, row_ptr, n, r, out);
+// The SpMV as its two kernels run it (csrc/spmv.cu): block after block, each
+// step over the block's threads in turn.  W lanes a "warp" (the card's 32);
+// the block scan needs block / W <= W warps, as the card's one warp scanning
+// up to 32 warp sums does.  Returns 0, or 1 for parameters it does not take.
+
+int shim_spmv(const uint32_t* w, const uint32_t* coeff, const int32_t* cols,
+              const int32_t* keys, const long* row_ptr, const int32_t* carry_slot,
+              const int32_t* carry_row, const int32_t* finish, long nnz, long n, int E, int W,
+              int block, int finish_block, uint32_t* sums, uint32_t* carries, long carry_stride,
+              uint32_t* out) {
+  if (W < 1 || block % W || block / W > W || finish_block % W || finish_block / W > W)
+    return 1;
+  const long per_block = (long)E * block;
+  std::vector<SpmvRun> run(block);
+  std::vector<int32_t> key(std::max(block, finish_block)), prev_key(key.size());
+  std::vector<Fr> s(key.size()), prev(key.size());
+  for (long b0 = 0; b0 < nnz; b0 += per_block) {
+    bool goes_on = false;
+    for (int t = 0; t < block; ++t) {
+      const long j0 = b0 + (long)t * E;
+      switch (E) {
+        case 1: run[t] = spmv_run<1>(w, coeff, cols, keys, nnz, j0, sums, 2 * n); break;
+        case 2: run[t] = spmv_run<2>(w, coeff, cols, keys, nnz, j0, sums, 2 * n); break;
+        case 3: run[t] = spmv_run<3>(w, coeff, cols, keys, nnz, j0, sums, 2 * n); break;
+        case 4: run[t] = spmv_run<4>(w, coeff, cols, keys, nnz, j0, sums, 2 * n); break;
+        case 8: run[t] = spmv_run<8>(w, coeff, cols, keys, nnz, j0, sums, 2 * n); break;
+        default: return 1;
+      }
+      key[t] = run[t].last_key;
+      s[t] = run[t].carry;
+      prev_key[t] = SPMV_NO_KEY;
+      prev[t] = Fr::zero();
+      goes_on |= run[t].goes_on;
+    }
+    if (goes_on) spmv_block_scan(block, W, key.data(), s.data(), prev_key.data(), prev.data());
+    for (int t = 0; t < block; ++t) spmv_head(run[t], prev_key[t], prev[t], sums, 2 * n);
+    const int32_t slot = carry_slot[b0 / per_block];
+    if (slot >= 0) store_sum(carries, carry_stride, slot, s[block - 1]);
+  }
+  const int T = finish_block;
+  std::vector<Fr> acc(2 * T);
+  for (long r0 = 0; r0 < n; r0 += T) {
+    const int32_t* f = finish + 4 * (r0 / T);
+    for (int t = 0; t < 2 * T; ++t) acc[t] = Fr::zero();
+    for (int side = 0; side < 2; ++side) {
+      const long base = side ? n + r0 : r0;
+      const int lo = f[2 * side], hi = f[2 * side + 1];
+      for (int c0 = lo; c0 < hi; c0 += T) {
+        for (int t = 0; t < T; ++t) {
+          const bool valid = c0 + t < hi;
+          key[t] = valid ? carry_row[c0 + t] : SPMV_NO_KEY;
+          s[t] = valid ? load_sum(carries, carry_stride, c0 + t) : Fr::zero();
+        }
+        spmv_block_scan(T, W, key.data(), s.data(), prev_key.data(), prev.data());
+        for (int t = 0; t < T; ++t) {
+          const int c = c0 + t;
+          if (c < hi && (t + 1 == T || c + 1 == hi || carry_row[c + 1] != key[t])) {
+            Fr& a = acc[side * T + (key[t] - base)];
+            a = a + s[t];
+          }
+        }
+      }
+    }
+    for (int t = 0; t < T && r0 + t < n; ++t) {
+      const long r = r0 + t;
+      const SpmvRowOut o = spmv_finish_row(spmv_row_sum(sums, 2 * n, row_ptr, r) + acc[t],
+                                           spmv_row_sum(sums, 2 * n, row_ptr, n + r) + acc[T + t]);
+      o.az.store_vec(out + r * 16);
+      o.bz.store_vec(out + (n + r) * 16);
+      o.cz.store_vec(out + (2 * n + r) * 16);
+    }
+  }
+  return 0;
 }
 
 void shim_fp_neg(const uint32_t* x, uint32_t* out, long n) {

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "g16_fp_mul_chain": [_P, _P, _P, _I, _L, _P],
     "g16_issue_rate": [_I, _P, _P, _I, _I, _P],
     "g16_issue_rate_ops": [_I],
-    "g16_spmv": [_P] * 4 + [_L, _P, _P],
+    "g16_spmv": [_P] * 8 + [_L, _L, _I, _I, _I, _P, _P, _L, _P, _P],
     "g16_fp_neg": [_P, _P, _L, _P],
 }
 
@@ -200,11 +200,12 @@ def host_shim():
     L.shim_fp_mul_chain.argtypes = [_P, _P, _P, _I, _L]
     L.shim_ntt_step.argtypes = [_P] * 6 + [_I, _L, _I, _I, _I, _I]
     L.shim_quotient_pointwise.argtypes = [_P, _L, _P, _I, _P]
-    L.shim_spmv.argtypes = [_P] * 4 + [_L, _P]
+    L.shim_spmv.argtypes = [_P] * 8 + [_L, _L, _I, _I, _I, _I, _P, _P, _L, _P]
     L.shim_fp_neg.argtypes = [_P, _P, _L]
     for fn in (L.shim_field, L.shim_point, L.shim_fold, L.shim_tree_phase_a,
                L.shim_tree_mul_rows, L.shim_tree_invert, L.shim_tree_level, L.shim_tree_mid,
                L.shim_fp_mul_chain, L.shim_point_double_n, L.shim_horner, L.shim_field_inv,
-               L.shim_ntt_step, L.shim_quotient_pointwise, L.shim_spmv, L.shim_fp_neg):
+               L.shim_ntt_step, L.shim_quotient_pointwise, L.shim_fp_neg):
         fn.restype = None
+    L.shim_spmv.restype = _I
     return L

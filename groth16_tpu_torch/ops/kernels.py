@@ -305,21 +305,83 @@ def fp_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
 # the prover's SpMV (csrc/spmv.cu g16_spmv)
 # ---------------------------------------------------------------------------
 
+# The SpMV's schedule (csrc/spmv.cu): entries a thread of the entries pass,
+# threads a block of it, rows a block of the finish pass; chosen by the sweep
+# of tools/bench_spmv.py on an H100 (PERF.md: E = 1 in blocks of 256 is the
+# fastest at the 2^16 proof's rows of one entry and at rows of Zipf lengths,
+# and within 10 % of the fastest on a 65,538-entry row)
+SPMV_E = 1
+SPMV_BLOCK = 256
+SPMV_FINISH_BLOCK = 128
+SPMV_ES = (1, 2, 3, 4, 8)   # the E the kernels are built for
+
+
+@dataclass
+class SpmvSchedule:
+    """How the SpMV kernel splits a key's entries, built once per key
+    (`spmv_schedule`): thread t of the entries pass holds entries [t E,
+    t E + E) of `block` threads a block; a block whose last row goes on past
+    it leaves a carry in slot `carry_slot[block]` (-1: none) for row
+    `carry_row[slot]`; finish block q (`finish_block` rows) adds the carries
+    [finish[q, 0], finish[q, 1]) to its A rows and [finish[q, 2], finish[q,
+    3]) to its B rows."""
+
+    E: int
+    block: int
+    finish_block: int
+    keys: torch.Tensor        # int32 [nnz]: each entry's row in the CSR over 2 n_rows
+    carry_slot: torch.Tensor  # int32 [entry blocks]
+    carry_row: torch.Tensor   # int32 [slots], sorted
+    finish: torch.Tensor      # int32 [finish blocks, 4]
+
+
 @dataclass
 class SpmvRows:
     """A zkey's A and B entries as the SpMV reads them: sorted by (matrix,
-    row), CSR over 2 n_rows rows (A's row r is row r, B's is n_rows + r)."""
+    row), CSR over 2 n_rows rows (A's row r is row r, B's is n_rows + r),
+    with the kernel's schedule."""
 
     n_rows: int
     coeff: torch.Tensor     # uint32 [nnz, 16], Montgomery
     cols: torch.Tensor      # int32 [nnz], witness index
     row_ptr: torch.Tensor   # int64 [2 n_rows + 1]
     ncols: int              # 1 + the largest column: the witness length it needs
+    schedule: SpmvSchedule
 
 
-def spmv_rows(matrix, row, col, coeff, n_rows: int, device) -> SpmvRows:
+def spmv_schedule(keys, n_rows: int, device, E: int = SPMV_E, block: int = SPMV_BLOCK,
+                  finish_block: int = SPMV_FINISH_BLOCK) -> SpmvSchedule:
+    """The SpmvSchedule of sorted entry keys (numpy, CSR over 2 n_rows): a
+    carry slot for every entry block whose last entry's row goes on into the
+    next block, and each finish block's range of slots (their rows are
+    sorted, so a block's rows take a contiguous range)."""
+    if E not in SPMV_ES or block < 1 or finish_block < 1:
+        raise ValueError(f"SpMV schedule: E in {SPMV_ES}, blocks >= 1; got {E}, {block}, "
+                         f"{finish_block}")
+    keys = np.asarray(keys, np.int64)
+    span = E * block
+    starts = np.arange(span, keys.size, span)          # each later block's first entry
+    goes_on = keys[starts - 1] == keys[starts]
+    carry_slot = np.full(-(-keys.size // span), -1, np.int64)
+    carry_slot[:starts.size][goes_on] = np.arange(int(goes_on.sum()))
+    carry_row = keys[starts[goes_on] - 1]
+    lo = np.arange(0, n_rows, finish_block)
+    hi = np.minimum(lo + finish_block, n_rows)
+    finish = np.stack([np.searchsorted(carry_row, x) for x in (lo, hi, n_rows + lo, n_rows + hi)],
+                      axis=1)
+
+    def dev32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return SpmvSchedule(E=E, block=block, finish_block=finish_block, keys=dev32(keys),
+                        carry_slot=dev32(carry_slot), carry_row=dev32(carry_row),
+                        finish=dev32(finish.reshape(-1, 4)))
+
+
+def spmv_rows(matrix, row, col, coeff, n_rows: int, device, **schedule) -> SpmvRows:
     """The SpmvRows of sparse entries (numpy; matrix 0 = A, any other = B,
-    as the JAX `abc_core` reads it) on `device`."""
+    as the JAX `abc_core` reads it) on `device`, with the kernel's schedule
+    (`spmv_schedule`'s keyword arguments)."""
     row = np.asarray(row, np.int64)
     if row.size and (row.min() < 0 or row.max() >= n_rows):
         raise ValueError(f"SpMV rows must lie in [0, {n_rows})")
@@ -333,7 +395,8 @@ def spmv_rows(matrix, row, col, coeff, n_rows: int, device) -> SpmvRows:
                         np.asarray(coeff, np.uint32)[order])).to(device),
                     cols=torch.from_numpy(cols.astype(np.int32)).to(device),
                     row_ptr=torch.from_numpy(row_ptr).to(device),
-                    ncols=int(cols.max()) + 1 if cols.size else 0)
+                    ncols=int(cols.max()) + 1 if cols.size else 0,
+                    schedule=spmv_schedule(key[order], n_rows, device, **schedule))
 
 
 def segment_sum_mod(vals_mont: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -378,17 +441,25 @@ def spmv_plain(witness_std: torch.Tensor, m: SpmvRows):
 
 
 def spmv_kernel(witness_std: torch.Tensor, m: SpmvRows):
-    """The SpMV on CUDA tensors (see `spmv_plain`): one launch, one thread a
-    row (csrc/spmv.cu); replaces the XLA `abc_core`
-    (groth16_tpu/protocol/prover.py:89)."""
+    """The SpMV on CUDA tensors (see `spmv_plain`): the entries pass and
+    the finish over the rows' schedule (csrc/spmv.cu), one call and two
+    launches; replaces the XLA `abc_core` (groth16_tpu/protocol/prover.py:89)."""
     _spmv_check(witness_std, m)
     (w,) = _cuda_inputs([witness_std])
-    dev = w.device
-    if any(t.device != dev for t in (m.coeff, m.cols, m.row_ptr)):
+    dev, sc = w.device, m.schedule
+    if any(t.device != dev for t in (m.coeff, m.cols, m.row_ptr, sc.keys, sc.carry_slot,
+                                     sc.carry_row, sc.finish)):
         raise ValueError("the SpMV rows must lie on the witness's device")
-    out = torch.empty((3, m.n_rows, N_LIMBS), dtype=torch.uint32, device=dev)
-    rc = cuda.lib().g16_spmv(*_aligned([w, m.coeff]), m.cols.data_ptr(), m.row_ptr.data_ptr(),
-                             m.n_rows, _aligned([out])[0], cuda.stream_ptr(dev))
+    n = m.n_rows
+    out = torch.empty((3, n, N_LIMBS), dtype=torch.uint32, device=dev)
+    sums = torch.empty((8, 2 * n), dtype=torch.uint32, device=dev)   # word planes
+    slots = max(sc.carry_row.numel(), 1)
+    carries = torch.empty((8, slots), dtype=torch.uint32, device=dev)
+    rc = cuda.lib().g16_spmv(*_aligned([w, m.coeff]), m.cols.data_ptr(), sc.keys.data_ptr(),
+                             m.row_ptr.data_ptr(), sc.carry_slot.data_ptr(),
+                             sc.carry_row.data_ptr(), sc.finish.data_ptr(), m.cols.numel(), n,
+                             sc.E, sc.block, sc.finish_block, sums.data_ptr(), carries.data_ptr(),
+                             slots, *_aligned([out]), cuda.stream_ptr(dev))
     cuda.check(rc, "spmv kernel")
     spmv_kernel.launches += 1
     return out[0], out[1], out[2]

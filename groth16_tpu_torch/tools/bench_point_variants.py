@@ -53,7 +53,8 @@ KERNELS = ("point_add_kernel", "point_double_n_kernel", "horner_kernel", "tree_i
 # every kernel of the library, for --ptxas
 ALL_KERNELS = KERNELS + ("ntt_step_kernel", "quotient_pointwise_kernel", "tree_phase_a_kernel",
                          "tree_mul_rows_kernel", "tree_mid_kernel", "fp_mul_chain_kernel",
-                         "issue_rate_kernel", "spmv_kernel", "fp_neg_kernel")
+                         "issue_rate_kernel", "spmv_entries_kernel", "spmv_finish_kernel",
+                         "fp_neg_kernel")
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PROPS = re.compile(r"Function properties for (\w+)")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")

@@ -171,23 +171,20 @@ def time_ms(fn, device, reps: int = 3, warmup: bool = True) -> float:
 
 
 def device_trace(fn):
-    """(device events, value) of the second of two calls of fn() under
-    torch.profiler (CPU and CUDA activity): the first call is the profiler's
-    warm-up step, since a trace can miss the first device events, and the
-    step's own span, which is no device event, is left out."""
+    """(device events, value) of the second of two calls of fn(), the one
+    under torch.profiler (CPU and CUDA activity); the first warms up
+    outside it (on an H100 a profiler schedule with a warm-up step dropped
+    whole traces now and then, sometimes several in a row; a session of its
+    own around the one call did not)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith("ProfilerStep")], out
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], out
 
 
 def device_kernels(fn, expect: dict, tries: int = 3) -> dict:
@@ -378,7 +375,9 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
         # the sorted entries (a 64-byte coefficient, a 4-byte column), the
         # row offsets and the witness read once, Az, Bz, Cz written; one Fr
         # product an entry, two a row into Montgomery form, one for Cz (the
-        # kernel gathers a witness value an entry, which this does not count)
+        # kernel gathers a witness value an entry, reads each entry's key
+        # and passes row sums and block carries between its two launches:
+        # how it does the work, which this does not count)
         n, nnz = s["n_rows"], s["nnz"]
         return 68 * nnz + 8 * (2 * n + 1) + 64 * s["nvars"] + 3 * 64 * n, nnz + 3 * n
     if name == "fp_neg_kernel":                   # n elements in and out, no product

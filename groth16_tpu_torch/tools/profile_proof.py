@@ -4,21 +4,20 @@
 
 Sets up synthetic_circuit(log2) on the card (the port's fake setup, fixed
 toxic waste), proves once to warm up (which also caches the zkey on the
-card), times three unprofiled proofs, then profiles two more with
-torch.profiler (CPU and CUDA activity; the first is the profiler's warm-up
-step, the second is read).  Prints the profiled proof's wall time, the
-device's busy time in it (the union of the traced kernel and copy
-intervals) and their ratio, then the device time, launch count and share
-of each kernel name, largest first; apart from the table: the `cummax`
-carry scans of the plain field arithmetic (CUMMAX_KERNEL, the scan kernel
-torch.cummax runs), the SpMV's and the negation's launches and device
-time, the host-to-device copies (a proof copies its witness), and, from
-one more proof with torch.cummax wrapped, the functions of the package
-that called each scan (the innermost three frames outside ops/field.py).
-It uses only entry points of the package and `measure.device_trace`, so it
-can profile another checkout that has them (run it by path from that
-checkout's root with `PYTHONPATH=.`).  Needs one CUDA card; imports
-nothing of JAX.
+card), times three unprofiled proofs, then one more warms up and another
+is profiled with torch.profiler (CPU and CUDA activity).  Prints the
+profiled proof's wall time, the device's busy time in it (the union of the
+traced kernel and copy intervals) and their ratio, then the device time,
+launch count and share of each kernel name, largest first; apart from the
+table: the `cummax` carry scans of the plain field arithmetic
+(CUMMAX_KERNEL, the scan kernel torch.cummax runs), the SpMV's two
+kernels' and the negation's launches and device time, the host-to-device
+copies (a proof copies its witness), and, from one more proof with
+torch.cummax wrapped, the functions of the package that called each scan
+(the innermost three frames outside ops/field.py).  It uses only entry
+points of the package and `measure.device_trace`, so it can profile
+another checkout that has them (run it by path from that checkout's root
+with `PYTHONPATH=.`).  Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,9 +30,9 @@ import traceback
 TOP = 25   # kernel names listed
 # the CUDA kernel behind torch.cummax along the last axis (its profiler name)
 CUMMAX_KERNEL = "scan_innermost_dim_with_indices"
-# kernels whose device time is printed whatever their rank: the SpMV and the
-# tree's negation, each too short for the table
-OWN_KERNELS = ("spmv_kernel", "fp_neg_kernel")
+# kernels whose device time is printed whatever their rank: the SpMV's two
+# passes and the tree's negation, each too short for the table
+OWN_KERNELS = ("spmv_entries_kernel", "spmv_finish_kernel", "fp_neg_kernel")
 
 
 @contextlib.contextmanager

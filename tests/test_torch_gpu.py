@@ -349,13 +349,14 @@ def test_small_proof_on_the_card(dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["sparse", "dense rows", "one row"])
+@pytest.mark.parametrize("name", ["sparse", "dense rows", "one row", "power law"])
 def test_spmv_kernel_matches_plain(dev, name):
     """The SpMV kernel against its plain version on the card: empty rows,
-    dense rows, repeated columns, r - 1 (tests/spmv_cases.py)."""
-    from spmv_cases import CASES, coefficient_set
-    seed, n_rows, nvars, nnz, dense = CASES[name]
-    w, matrix, row, col, coeff = coefficient_set(seed, n_rows, nvars, nnz, dense)
+    dense rows, Zipf row lengths, repeated columns, r - 1
+    (tests/spmv_cases.py); rows crossing the card's blocks at the default
+    schedule."""
+    from spmv_cases import case_set
+    n_rows, w, matrix, row, col, coeff = case_set(name)
     m = KN.spmv_rows(matrix, row, col, coeff, n_rows, dev)
     w = torch.from_numpy(w).to(dev)
     before = KN.spmv_kernel.launches

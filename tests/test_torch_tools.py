@@ -3,8 +3,8 @@ bench_mul_kernels run end to end through the plain versions at 2^8 points
 (the tree, the fold and the "auto" MSM give one point; the fold's phases give
 the fold MSM's point; K9's plain version agrees with host ints), their
 command lines refuse to run without CUDA, bench_point_variants' reading of
-ptxas, and tools/measure.py's SASS reading, work counts (the quotient's
-launches included) and kernel bounds.
+ptxas, bench_spmv's seeded sets, and tools/measure.py's SASS reading, work
+counts (the quotient's launches included) and kernel bounds.
 Tolerance 0: exact integer arithmetic."""
 
 import numpy as np
@@ -14,7 +14,7 @@ import torch
 from groth16_tpu_torch.ops import msm_tree as MT
 from groth16_tpu_torch.tools import bench_fold_phases as BF, bench_mul_kernels as BM
 from groth16_tpu_torch.tools import bench_point_variants as BV, bench_tree_phases as BT
-from groth16_tpu_torch.tools import bench_tree_kernels as BK
+from groth16_tpu_torch.tools import bench_spmv as BS, bench_tree_kernels as BK
 from groth16_tpu_torch.tools import measure
 
 # The suite runs six worker processes on a few cores: one intra-op thread
@@ -67,9 +67,9 @@ def test_level_case_slots():
             assert torch.equal(apr[x, s], bpl[x, s]) and not torch.equal(apr[y, s], bpl[y, s])
 
 
-@pytest.mark.parametrize("tool", [BT, BM, BF, BK],
+@pytest.mark.parametrize("tool", [BT, BM, BF, BK, BS],
                          ids=["bench_tree_phases", "bench_mul_kernels", "bench_fold_phases",
-                              "bench_tree_kernels"])
+                              "bench_tree_kernels", "bench_spmv"])
 def test_main_needs_cuda(tool, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -364,6 +364,52 @@ ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem
 def test_ptxas_table_names_every_instantiation():
     assert BV.ptxas_table(PTXAS) == {"fold_kernel G2 affine": (168, 4, 4, 8),
                                      "tree_level_kernel G1": (128, 0, 0, 0)}
+
+
+SPMV_PTXAS = """
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119spmv_entries_kernelILi4EEEvPKjS2_PKiS4_lS4_PjS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119spmv_entries_kernelILi4EEEvPKjS2_PKiS4_lS4_PjS5_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers, 1152 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118spmv_finish_kernelEPKjS1_PKiS3_PKllPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118spmv_finish_kernelEPKjS1_PKiS3_PKllPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 17536 bytes smem
+"""
+
+
+def test_ptxas_table_names_the_spmv_passes():
+    """Each E of the entries pass is its own line, the finish pass one."""
+    assert BV.ptxas_table(SPMV_PTXAS, BV.ALL_KERNELS) == {
+        "spmv_entries_kernel 4": (120, 0, 0, 0), "spmv_finish_kernel": (80, 0, 0, 0)}
+
+
+def test_bench_spmv_sets():
+    """The smoke's SpMV sets at their full size: the dense set's one row of
+    2^16 entries over the first 64 wires (and a few random ones) and its
+    empty last rows; the
+    power-law set's 2^16 rows of A and B, every row 1 to 2^15 entries long,
+    most of one to three, A's row 0 the longest, about 2^19 entries in all,
+    column 0 in about a quarter of the rows."""
+    rng = np.random.default_rng(BS.SEED)
+    name, w, matrix, row, col, coeff, n = BS.dense_set(rng, **BS.DENSE)
+    key = (matrix != 0) * n + row
+    lengths = np.bincount(key, minlength=2 * n)
+    assert 1 << 16 < int(lengths.max()) < (1 << 16) + 16 and int(lengths.argmax()) == 1
+    assert lengths[n - 1] == lengths[2 * n - 1] == 0
+    assert ((key == 1) & (col < 64)).sum() >= 1 << 16
+    assert w.shape == (n, 16) and coeff.shape == (len(row), 16)
+    name, w, matrix, row, col, coeff, n = BS.power_law_set(rng, **BS.POWER_LAW)
+    assert n == 1 << 16 and coeff.shape == (len(row), 16) and w.shape == (1 << 16, 16)
+    key = matrix.astype(np.int64) * n + row
+    lengths = np.bincount(key, minlength=2 * n)
+    assert lengths.min() == 1 and lengths.max() == 1 << 15 and lengths[0] == 1 << 15
+    assert (lengths <= 3).mean() > 0.8
+    assert 1 << 18 < len(row) < 1 << 20
+    with_one = np.zeros(2 * n, bool)
+    with_one[key[col == 0]] = True
+    assert 0.2 < with_one.mean() < 0.3
+    assert (coeff[:, 15] <= 0x3064).all() and (w[:, 15] <= 0x3064).all()   # below r
 
 
 def test_spmv_and_negation_work():
