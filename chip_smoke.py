@@ -25,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. the main path: synthetic_circuit(16) (65,533 constraints, domain 2^16),
      the port's fake setup on the card, write_zkey / write_witness to a temp
      directory, parse_zkey / parse_witness, generate_proof_with_mask with a
-     fixed mask, in both flavours; each proof must pass verify_proof,
+     fixed mask on the staged path (fused=False), in both flavours; each
+     proof must pass verify_proof,
      every kernel of the proof path must have launched during the proofs,
      a proof must call torch.cummax (the plain field arithmetic's carry
      scan) 0 times, and a proof must call the SpMV kernel once, Horner 5
@@ -42,7 +43,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      bounds; one 2^16 quotient per flavour and `points_to_host` of a
      proof's five MSM results registered for the profiles (step 17); and
      the quotient on the card against its plain version on the card at
-     2^16 and 2^20, both flavours, timed beside its bound;
+     2^16 and 2^20, both flavours, timed beside its bound; then the fused
+     path of both flavours (`fused_phase`, prover.FusedProof: one CUDA
+     graph a proof): the capture's launches must be the staged proof's
+     without its five `to_affine`, plus the spec-point algebra's and two
+     `to_affine`; replays through generate_proof_with_mask's default path
+     (the main witness and BATCH_SEEDS') call no kernel wrapper and no
+     torch.cummax and equal their fused=False proofs, which verify; staged
+     and fused proofs timed in turns, the capture and the algebra timed;
+     and one fused Snarkjs proof at 2^18 (`fused_big_phase`, above the JAX
+     package's fused cap of 2^16) equal to its staged proof, both timed;
   5. the H1 MSM (2^16 points) through the merge tree and through the fold,
      timed against each other; both must give the same point;
   6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
@@ -64,10 +74,12 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
      equal to the unchunked MSM at 2^21;
  11. batch mode: generate_proofs over four witnesses of the 2^16 circuit
-     (seeds 42-45) with fixed masks against a freshly parsed zkey: each proof
-     verifies and equals generate_proof_with_mask of its witness and mask,
-     and the zkey goes to the card once; each proof's time, the first apart,
-     and the batch's proofs/s, with the card's name and power limit;
+     (seeds 42-45) with fixed masks against a freshly parsed zkey, on the
+     default (fused) path and with fused=False: each proof verifies and
+     equals generate_proof_with_mask of its witness and mask and the other
+     path's, and the zkey goes to the card once; each proof's time, the
+     first apart, and each batch's proofs/s, with the card's name and power
+     limit;
  12. K3 at rank 1's local steps of a two-rank sharded quotient at 2^16 and
      2^20 (parallel/ntt_shard.steps: split strides, table slabs) against
      its plain version on the card, bit-exact, timed;
@@ -99,7 +111,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      `points_to_host` K6 and K5 5 times each (one of them G2), with nothing
      but copies and memsets beside them (and, in `points_to_host`, the
      copies to the host), so no `cummax` and no plain field-arithmetic
-     kernel.
+     kernel; one replay of each flavour's fused graph must trace the
+     capture's launches and no copy to or from the host, and its device
+     busy share, idle gaps and time by kernel are printed; one replay of a
+     graph of the algebra alone gives its device time.
 
 Each path (the two proofs, the tree-phase run, the Fp-product run, each
 rank's sharded proofs) runs with every kernel wrapper's launch count set
@@ -164,6 +179,16 @@ K6_TIMED = (2048, 1 << 17)
 # c = 16 (2^20)
 DOUBLE_N_SHAPES = ((20, 12), (20, 6))
 HORNER_SHAPES = ((20, 13), (16, 16))
+# K1 as the fused proof's spec-point algebra drives it (prover.spec_algebra,
+# its tables prover.spec_device_args; SPEC_WINDOW = 4 bits, 64 windows):
+# Horner over two points' 64 picks; doublings of the 64 window bases (G1,
+# G2) and of the two points (G1); the widest add round of the 16-entry
+# tables (4 rows of the 64 columns, or of the 2 points, plus the next power
+# of two) and of tree_sum over 64 picks (of 3 G1 points, of 1 G2 point)
+ALGEBRA_HORNER = (2, 64, 4)                    # B, W, c (G1)
+ALGEBRA_DOUBLES = (("G1", 64), ("G2", 64), ("G1", 2))
+ALGEBRA_ADDS = (("G1", (4, 64), (1, 64)), ("G2", (4, 64), (1, 64)), ("G1", (4, 2), (1, 2)),
+                ("G1", (32, 3), (32, 3)), ("G2", (32, 1), (32, 1)))
 K1_MAX_PER_PROOF = 400
 LOG2_FOLD_PHASES = 20  # the fold-phase run
 LOG2_PHASES = 20      # the tree-phase run
@@ -222,7 +247,7 @@ def check_point_kernel(rng, dev, results):
     lanes, G1 and G2: the add, the doubling chain (k = 1 and 3 there, k = 12
     and 6 on 20 points as the bucket reduce runs it) and Horner (W = 20,
     c = 13 and W = 16, c = 16 on sums with an infinity and two equal
-    windows)."""
+    windows); then at the spec-point algebra's shapes (`check_algebra_k1`)."""
     import torch
     from groth16_tpu_torch.ops import curve as C, kernels as KN
     from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
@@ -268,6 +293,54 @@ def check_point_kernel(rng, dev, results):
                   f"max_abs_err {err}")
             record(results, "horner", f"{cv.name} W={W} c={c}", err, t_k, t_p,
                    dict(curve=cv.name, B=1, W=W, c=c))
+        check_algebra_k1(cv, P, results)
+
+
+def check_algebra_k1(cv, P, results):
+    """K1 at the fused proof's spec-point algebra's shapes (ALGEBRA_*), on
+    random points of P (its first 64 are infinity) as the algebra hands
+    them over: Horner's picks with infinities among them, the adds'
+    second operand broadcast along the rows as `curve.multiples` gives
+    it; each against its plain version on the same inputs."""
+    from groth16_tpu_torch.ops import curve as C
+
+    def pts(start, shape):
+        n = 1
+        for d in shape:
+            n *= d
+        return tuple(c[start:start + n].reshape(shape + cv.comp_shape) for c in P)
+
+    if cv.name == "G1":
+        B, W, c = ALGEBRA_HORNER
+        sums = pts(60, (B, W))
+        err = max_abs_err(C.horner(cv, sums, c), C.horner_plain(cv, sums, c))
+        t_k = cuda_ms(lambda: C.horner(cv, sums, c), 5)
+        t_p = cuda_ms(lambda: C.horner_plain(cv, sums, c), 1)
+        print(f"K1 {cv.name} horner B={B} W={W} c={c} (the algebra's): {t_k:.4f} ms "
+              f"(plain {t_p:.2f} ms), max_abs_err {err}")
+        record(results, "horner", f"{cv.name} B={B} W={W} c={c}", err, t_k, t_p,
+               dict(curve=cv.name, B=B, W=W, c=c))
+    for name, n in ALGEBRA_DOUBLES:
+        if name == cv.name:
+            x = pts(32, (n,))
+            err = max_abs_err(C.point_double(cv, x), C.point_double_n_plain(cv, x, 1))
+            t_k = cuda_ms(lambda: C.point_double(cv, x), 20)
+            t_p = cuda_ms(lambda: C.point_double_n_plain(cv, x, 1), 2)
+            print(f"K1 {cv.name} double_n n={n} k=1 (the algebra's): {t_k:.4f} ms "
+                  f"(plain {t_p:.2f} ms), max_abs_err {err}")
+            record(results, "point_double_n", f"{cv.name} n={n} k=1 (algebra)", err, t_k, t_p,
+                   dict(curve=cv.name, n=n, k=1))
+    for name, sa, sb in ALGEBRA_ADDS:
+        if name == cv.name:
+            a, b = pts(40, sa), pts(1000, sb)
+            err = max_abs_err(C.point_add(cv, a, b), C.point_add_plain(cv, a, b))
+            t_k = cuda_ms(lambda: C.point_add(cv, a, b), 20)
+            t_p = cuda_ms(lambda: C.point_add_plain(cv, a, b), 2)
+            n = sa[0] * sa[1]
+            print(f"K1 {cv.name} add {list(sa)} + {list(sb)} (the algebra's): {t_k:.4f} ms "
+                  f"(plain {t_p:.2f} ms), max_abs_err {err}")
+            record(results, "point_add", f"{cv.name} {list(sa)} + {list(sb)}", err, t_k, t_p,
+                   dict(curve=cv.name, n=n))
 
 
 def check_fold_kernel(dev, results):
@@ -442,9 +515,10 @@ def only_kernels(what, fn, expect: dict, allow: tuple) -> dict:
 DEFERRED = []
 
 
-def defer_profile(what, fn, expect: dict, allow: tuple, report=None) -> None:
+def defer_profile(what, fn, expect: dict | None, allow: tuple, report=None) -> None:
     """Register one `only_kernels` check; report(names), if given, reads
-    its trace."""
+    its trace.  With `expect` None the call is traced unchecked and
+    report(device events, fn's value) reads the trace."""
     DEFERRED.append((what, fn, expect, allow, report))
 
 
@@ -452,10 +526,14 @@ def run_profiles() -> None:
     """Each registered call once (nothing new loads after the first
     session), then its `only_kernels` check and report."""
     import torch
+    from groth16_tpu_torch.tools import measure
     for _, fn, _, _, _ in DEFERRED:
         fn()
     torch.cuda.synchronize()
     for what, fn, expect, allow, report in DEFERRED:
+        if expect is None:
+            report(*measure.device_trace(fn))
+            continue
         names = only_kernels(what, fn, expect, allow)
         if report is not None:
             report(names)
@@ -679,11 +757,13 @@ def check_launched(counts: dict, path: str) -> None:
 
 
 def main_path(dev):
-    """Setup on the card, zkey/wtns round trip through files, one proof per
-    flavour, no torch.cummax call in either, each proof's peak device memory
-    above what was allocated before it.  Returns the launch counts of the
-    two proofs and, per flavour, (flavour, zkey, witness, proof, peak GiB);
-    the zkeys' device caches are built by their proofs."""
+    """Setup on the card, zkey/wtns round trip through files, the zkey's
+    upload (timed, its launches printed apart), one staged proof
+    (fused=False) per flavour, no torch.cummax call in either, each
+    proof's peak device memory above what was allocated before the upload.
+    Returns the launch counts of the two proofs, per flavour (flavour, zkey,
+    witness, proof, peak GiB), and each flavour's launches; the zkeys'
+    device caches are built by their proofs."""
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
     from groth16_tpu_torch.ops import msm as M
@@ -709,16 +789,24 @@ def main_path(dev):
             inputs.append((flavour, zkey, w))
 
     import torch
-    reset_counts()
-    proofs = []
+    from groth16_tpu_torch.protocol.prover import zkey_device_args
+    proofs, staged = [], {}
+    counts = {name: 0 for name, _, _ in WRAPPERS}
     for flavour, zkey, w in inputs:
         tm = {}
-        before = read_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        zkey_device_args(zkey, dev)
+        torch.cuda.synchronize()
+        print(f"upload {flavour.value}: {time.perf_counter() - t0:.3f} s (the SpMV's rows and "
+              "schedule, the five point sets), launches "
+              + json.dumps({k: v for k, v in read_counts().items() if v}))
+        reset_counts()
         with cummax_callers() as scans:
-            prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
+            prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm, fused=False)
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         if scans:
             raise AssertionError(f"{flavour.value}: a proof called torch.cummax: {scans}")
@@ -726,7 +814,10 @@ def main_path(dev):
         print(f"prove {flavour.value}: " + ", ".join(f"{k} {v:.3f}" for k, v in tm.items())
               + f"; peak device memory {peak:.4f} GiB above the {base / 2**30:.4f} GiB "
               "allocated before (the zkey's upload included)")
-        during = {k: v - before[k] for k, v in read_counts().items()}
+        during = read_counts()
+        staged[flavour.value] = during
+        for k, v in during.items():
+            counts[k] += v
         print(f"launches during the {flavour.value} proof: " + json.dumps(during))
         k1 = during["point_add"] + during["point_double_n"] + during["horner"]
         if during["horner"] != 5 or during["point_double_n"] > 10 or k1 >= K1_MAX_PER_PROOF:
@@ -742,7 +833,6 @@ def main_path(dev):
         if any(during[k] != v for k, v in want.items()):
             raise AssertionError(f"{flavour.value}: a proof launches {want}, got "
                                  + json.dumps({k: during[k] for k in want}))
-    counts = read_counts()
 
     for flavour, zkey, _, prf, _ in proofs:
         if prf.pi_a is None or prf.pi_b is None or prf.pi_c is None:
@@ -751,7 +841,320 @@ def main_path(dev):
             raise AssertionError(f"{flavour.value}: proof does not verify")
         print(f"verify {flavour.value}: ok")
     check_launched(counts, "proof")
-    return counts, proofs
+    return counts, proofs, staged
+
+
+# the profiler's kernel names of each wrapper a proof launches (one SpMV
+# call is two launches)
+KERNEL_NAMES = {"point_add": ("point_add_kernel",), "point_double_n": ("point_double_n_kernel",),
+                "horner": ("horner_kernel",), "fold_level_kernel": ("fold_kernel",),
+                "ntt_inner_kernel": ("ntt_step_kernel",),
+                "quotient_pointwise_kernel": ("quotient_pointwise_kernel",),
+                "invert_kernel": ("tree_invert_kernel",),
+                "mul_rows_kernel": ("tree_mul_rows_kernel",),
+                "level_kernel": ("tree_level_kernel",),
+                "spmv_kernel": ("spmv_entries_kernel", "spmv_finish_kernel"),
+                "fp_neg_kernel": ("fp_neg_kernel",)}
+FUSED_RUNS = 5      # staged and fused proofs timed in turns, each
+LOG2_FUSED_BIG = 18  # one fused proof above the JAX package's fused cap (2^16)
+FUSED_BIG_RUNS = 3
+TOP_GAPS = 5        # idle gaps of a replay printed
+
+
+def expect_kernels(counts: dict) -> dict:
+    """The launches a trace must hold of each kernel name, from wrapper
+    launch counts."""
+    return {k: counts[w] for w, names in KERNEL_NAMES.items() for k in names}
+
+
+def no_copies(what):
+    """A report that fails if a trace holds a copy between host and card."""
+    def report(names):
+        copies = [k for k in names if "htod" in k.lower() or "dtoh" in k.lower()]
+        if copies:
+            raise AssertionError(f"{what} copied between host and card: {copies}")
+    return report
+
+
+def replay_report(what):
+    """A report of one traced replay: the device's busy time (the union of
+    its kernel and copy intervals) against the span from its first start
+    to its last end and against the host's wall time of the call, the idle
+    gaps between them and device time by kernel."""
+    from groth16_tpu_torch.tools.profile_proof import busy_us
+
+    def report(events, wall):
+        iv = sorted((e.time_range.start, e.time_range.end, e.name) for e in events)
+        busy = busy_us((a, b) for a, b, _ in iv)
+        gaps, end, prev = [], iv[0][1], iv[0][2]
+        for a, b, name in iv[1:]:
+            if a > end:
+                gaps.append((a - end, prev, name))
+            if b >= end:
+                end, prev = b, name
+        span = end - iv[0][0]
+        by_name = {}
+        for a, b, name in iv:
+            key = name.split("(")[0].replace("void ", "")[:48]
+            n, t = by_name.get(key, (0, 0.0))
+            by_name[key] = (n + 1, t + (b - a))
+        print(f"{what}: device busy {busy / 1e3:.4f} ms of a {span / 1e3:.4f} ms device span "
+              f"({100 * busy / span:.1f} %), {wall * 1e3:.3f} ms host wall under the profiler "
+              f"({100 * busy / 1e3 / (wall * 1e3):.1f} %); {len(iv)} device events, {len(gaps)} "
+              f"idle gaps, {sum(g for g, _, _ in gaps) / 1e3:.4f} ms idle in all; largest: "
+              + "; ".join(f"{g:.1f} us after {p.split('(')[0][:40]} before {q.split('(')[0][:40]}"
+                          for g, p, q in sorted(gaps, reverse=True)[:TOP_GAPS]))
+        print(f"{what}, device ms by kernel (launches): "
+              + "; ".join(f"{k} {t / 1e3:.4f} ({n})"
+                          for k, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])))
+    return report
+
+
+def fused_phase(dev, singles, staged):
+    """The fused path (prover.FusedProof: one CUDA graph a proof) of the 2^16
+    proof in both flavours:
+      - a FusedProof warmed up, then captured with every launch count set to
+        0 just before: the capture must launch what the staged proof
+        launched without its five `to_affine` (K6, K5), plus what the
+        spec-point algebra and the fused path's two `to_affine` launch,
+        counted on their own over the core's MSM results; no torch.cummax;
+        the capture's time and the memory allocated after it printed;
+      - the algebra alone: CUDA events around an eager call and around the
+        replay of a graph of it, and its device time from the profiles;
+      - proofs through generate_proof_with_mask on its default path: the
+        first captures the zkey's graph (capture_s), then the main witness
+        under MASK and BATCH_SEEDS' witnesses under their masks replay it,
+        each with no kernel wrapper called and no torch.cummax, each
+        byte-equal to its fused=False proof and verifying; one capture a
+        flavour;
+      - staged and fused proof wall times, FUSED_RUNS each, in turns, the
+        fused core run eagerly beside them, and where the staged proof's
+        time goes (`staged_report`);
+      - one replay registered for the profiles phase twice: its kernels must
+        be the capture's launches with no host copy, and its busy share,
+        idle gaps and device time by kernel are printed.
+    Returns the captures' launch counts, summed over the flavours."""
+    import statistics
+    import torch
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.protocol import prover as PV
+    from groth16_tpu_torch.tools import measure
+    from groth16_tpu_torch.tools.profile_proof import cummax_callers
+    ws = [synthetic_circuit(LOG2, seed)[1] for seed in BATCH_SEEDS]
+    masks = [G.Mask(MASK[0] + i, MASK[1] + 3 * i) for i in range(len(ws))]
+    total = {}
+    for flavour, zkey, w, prf, _ in singles:
+        name = flavour.value
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, pool = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        fp = PV.FusedProof(zkey, dev)
+        fp.warm_up()
+        t1 = time.perf_counter()
+        reset_counts()
+        with cummax_callers() as scans:
+            fp.capture()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        captured = read_counts()
+        held = (torch.cuda.memory_allocated() - base) / 2**30
+        pool = (torch.cuda.memory_reserved() - pool) / 2**30
+        if scans:
+            raise AssertionError(f"{name}: the capture called torch.cummax: {scans}")
+        for k, v in captured.items():
+            total[k] = total.get(k, 0) + v
+
+        msms = PV.core_msms(fp.flavour, fp.log2n, fp.static, fp.witness)
+
+        def algebra(fp=fp, msms=msms):
+            return PV.proof_buffer(*PV.spec_algebra(fp.spec, msms, fp.mask))
+
+        algebra()
+        reset_counts()
+        algebra()
+        alg = read_counts()
+        want = {k: staged[name][k] + alg[k] for k in captured}
+        for k in ("invert_kernel", "mul_rows_kernel"):
+            want[k] = alg[k]        # the staged proof's five to_affine, the fused path's two
+        print(f"fused {name}: warm-up {t1 - t0:.3f} s, capture {t2 - t1:.3f} s; after it "
+              f"{held:.4f} GiB more allocated (the static buffers and the proof buffer), "
+              f"{pool:.4f} GiB more reserved (with the graph's pool); "
+              f"launches at capture " + json.dumps({k: v for k, v in captured.items() if v})
+              + "; the algebra's " + json.dumps({k: v for k, v in alg.items() if v}))
+        if captured != want:
+            raise AssertionError(f"{name}: the capture launched {captured}, not the staged "
+                                 f"proof's plus the algebra's {want}")
+        t_eager = cuda_ms(algebra, 10)
+        g_alg = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g_alg):
+            algebra()
+        t_graph = cuda_ms(g_alg.replay, 20)
+        print(f"fused {name}: the spec-point algebra {t_eager:.4f} ms eager, {t_graph:.4f} ms "
+              "as a graph replay (CUDA events)")
+
+        def alg_report(names, name=name):
+            no_copies(f"the {name} algebra")(names)
+            print(f"fused {name}: the spec-point algebra {sum(us for _, us in names.values()) / 1e3:.4f}"
+                  f" ms device time (kernels of one graph replay)")
+
+        defer_profile(f"the spec-point algebra ({name}), one graph replay", g_alg.replay,
+                      expect_kernels(alg), ("",), alg_report)
+
+        captures = PV.fused_graph.captures
+        tm = {}
+        first = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
+        if (first.pi_a, first.pi_b, first.pi_c) != (prf.pi_a, prf.pi_b, prf.pi_c):
+            raise AssertionError(f"{name}: the first fused proof differs from the staged one")
+        print(f"fused {name}, first proof through the entry point (captures): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tm.items())
+              + f" s; {torch.cuda.memory_allocated() / 2**30:.4f} GiB allocated after it")
+        vkey = G.extract_vkey(zkey)
+        for i, (wi, mi) in enumerate([(w, G.Mask(*MASK))] + list(zip(ws, masks))):
+            reset_counts()
+            with cummax_callers() as scans:
+                got = G.generate_proof_with_mask(zkey, wi, mi, dev)
+            called = {k: v for k, v in read_counts().items() if v}
+            if called or scans:
+                raise AssertionError(f"{name}: replay {i} called wrappers {called} or "
+                                     f"torch.cummax {scans}")
+            want_prf = prf if i == 0 else G.generate_proof_with_mask(zkey, wi, mi, dev,
+                                                                    fused=False)
+            if (got.pi_a, got.pi_b, got.pi_c) != (want_prf.pi_a, want_prf.pi_b, want_prf.pi_c):
+                raise AssertionError(f"{name}: replay {i} differs from its fused=False proof")
+            if not G.verify_proof(vkey, got):
+                raise AssertionError(f"{name}: replay {i} does not verify")
+        if PV.fused_graph.captures != captures + 1:
+            raise AssertionError(f"{name}: {PV.fused_graph.captures - captures} captures, not 1")
+        print(f"fused {name}: {1 + len(ws)} replays (main witness, seeds {BATCH_SEEDS}) equal "
+              "their fused=False proofs and verify; no wrapper call, no cummax; one capture")
+
+        walls, phases = {"staged": [], "fused": [], "eager core": []}, []
+        for _ in range(FUSED_RUNS):
+            for kind, fused in (("staged", False), ("fused", None)):
+                tm = {}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm, fused=fused)
+                torch.cuda.synchronize()
+                walls[kind].append(time.perf_counter() - t)
+                if kind == "staged":
+                    phases.append(tm)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            PV.prove_core_device(fp.flavour, fp.log2n, fp.static, fp.spec, fp.witness, fp.mask)
+            issued = time.perf_counter() - t
+            torch.cuda.synchronize()
+            walls["eager core"].append(time.perf_counter() - t)
+            walls.setdefault("eager issue", []).append(issued)
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        print(measure.card_line(dev))
+        print(f"fused {name}: proof wall s, in turns: staged "
+              + ", ".join(f"{t:.4f}" for t in walls["staged"]) + "; fused "
+              + ", ".join(f"{t:.4f}" for t in walls["fused"])
+              + f"; medians {med['staged']:.4f} / {med['fused']:.4f} s "
+              f"({med['staged'] / med['fused']:.2f}x)")
+        staged_report(name, phases, walls, med, msms)
+
+        fp.load(w, G.Mask(*MASK))
+
+        def replay(fp=fp):
+            t = time.perf_counter()
+            fp.graph.replay()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        defer_profile(f"one replay of the fused {name} proof", replay, expect_kernels(captured),
+                      ("",), no_copies(f"the {name} replay"))
+        defer_profile(f"one replay of the fused {name} proof (timeline)", replay, None, (),
+                      replay_report(f"replay {name}"))
+    return total
+
+
+def staged_report(name, phases, walls, med, msms):
+    """Where the staged proof's time goes against the fused one's, from the
+    turns of `fused_phase`: each staged phase's median and range (which
+    phase carries the spread), the host's spec-point algebra (algebra_s),
+    the host cost of bringing one projective point home (`points_to_host`:
+    K6, K5, the copy and the host ints; the staged proof does it five
+    times), and the fused core run eagerly (no graph, no sync inside): the
+    host's time to issue its launches and its wall to the last kernel's
+    end.  The graph takes away what the eager core's wall has above a
+    replay's; the staged proof's syncs, copies and host algebra are what
+    it has above the eager core."""
+    import statistics
+    import torch
+    from groth16_tpu_torch.ops import curve as C
+    to_host = {}
+    for cv, P in ((C.G1, msms[0]), (C.G2, msms[2])):
+        one = tuple(c[None] for c in P)
+        ts = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            C.points_to_host(cv, one)
+            ts.append(time.perf_counter() - t)
+        to_host[cv.name] = statistics.median(ts)
+    keys = list(phases[0])
+    spread = {k: (min(p[k] for p in phases), statistics.median(p[k] for p in phases),
+                  max(p[k] for p in phases)) for k in keys}
+    print(f"staged {name}, phases over {len(phases)} proofs, min / median / max s: "
+          + "; ".join(f"{k} {a:.4f} / {m:.4f} / {b:.4f}" for k, (a, m, b) in spread.items()))
+    five = 4 * to_host["G1"] + to_host["G2"]
+    print(f"staged {name}: the host algebra {spread['algebra_s'][1]:.4f} s; points_to_host "
+          f"{to_host['G1']:.5f} s a G1 point, {to_host['G2']:.5f} s a G2 point "
+          f"({five:.4f} s for the proof's five); the fused core eagerly: launches issued in "
+          f"{med['eager issue']:.4f} s, done in {med['eager core']:.4f} s (runs "
+          + ", ".join(f"{t:.4f}" for t in walls["eager core"])
+          + f"); replay {med['fused']:.4f} s; staged {med['staged']:.4f} s = eager core "
+          f"{med['eager core']:.4f} + host algebra {spread['algebra_s'][1]:.4f} + points home "
+          f"{five:.4f} + the rest (syncs, the staged glue) "
+          f"{med['staged'] - med['eager core'] - spread['algebra_s'][1] - five:.4f} s")
+
+
+def fused_big_phase(dev):
+    """One Snarkjs proof of synthetic_circuit(LOG2_FUSED_BIG), above the
+    JAX package's fused-module cap of 2^16, on the fused path against the
+    staged one: equal and verifying; the setup, the capture and the memory
+    the graph's pool reserves printed, and FUSED_BIG_RUNS proofs of each
+    path timed in turns."""
+    import statistics
+    import torch
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    r1cs, w = synthetic_circuit(LOG2_FUSED_BIG)
+    t0 = time.perf_counter()
+    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(**TOXIC), G.Flavour.Snarkjs, dev)
+    setup_s = time.perf_counter() - t0
+    staged = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, fused=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved()
+    tm = {}
+    fused = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
+    pool = (torch.cuda.memory_reserved() - pool) / 2**30
+    if (fused.pi_a, fused.pi_b, fused.pi_c) != (staged.pi_a, staged.pi_b, staged.pi_c):
+        raise AssertionError(f"the fused 2^{LOG2_FUSED_BIG} proof differs from the staged one")
+    if not G.verify_proof(G.extract_vkey(zkey), fused):
+        raise AssertionError(f"the fused 2^{LOG2_FUSED_BIG} proof does not verify")
+    walls = {"staged": [], "fused": []}
+    for _ in range(FUSED_BIG_RUNS):
+        for kind, path in (("staged", False), ("fused", None)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, fused=path)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"fused 2^{LOG2_FUSED_BIG} snarkjs (nvars {zkey.header.nvars}; setup {setup_s:.2f} s on "
+          f"the card): equals the staged proof and verifies; first fused proof "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tm.items())
+          + f" s, {pool:.4f} GiB more reserved; proof wall s, in turns: staged "
+          + ", ".join(f"{t:.4f}" for t in walls["staged"]) + "; fused "
+          + ", ".join(f"{t:.4f}" for t in walls["fused"])
+          + f"; medians {med['staged']:.4f} / {med['fused']:.4f} s "
+          f"({med['staged'] / med['fused']:.2f}x)")
 
 
 def h1_tree_vs_fold(rng, dev, zkey):
@@ -910,8 +1313,10 @@ def check_spmv_kernel(rng, dev, results, zkey, wtns):
 
 def batch_phase(dev, zkey):
     """generate_proofs over BATCH_SEEDS' witnesses with fixed masks against
-    a fresh parse of the zkey's file: one upload, each proof verified and
-    equal to its single proof; per-proof times and proofs/s printed."""
+    a fresh parse of the zkey's file, on the default path (fused: the first
+    proof captures the graph, the rest replay it) and with fused=False: one
+    upload for both, each proof verified and equal to its single proof and
+    to the other path's; per-proof times and proofs/s of each printed."""
     import groth16_tpu_torch as G
     import torch
     from groth16_tpu_torch.models.circuits import synthetic_circuit
@@ -925,32 +1330,41 @@ def batch_phase(dev, zkey):
     ws = [synthetic_circuit(LOG2, seed)[1] for seed in BATCH_SEEDS]
     masks = [G.Mask(MASK[0] + i, MASK[1] + 3 * i) for i in range(len(ws))]
     builds = zkey_device_args.builds
-    timings = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    batch = G.generate_proofs(fresh, ws, dev, masks, timings)
-    wall = time.perf_counter() - t0
+    runs = {}
+    for label, fused in (("default (fused)", None), ("fused=False", False)):
+        timings = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = G.generate_proofs(fresh, ws, dev, masks, timings, fused=fused)
+        runs[label] = (batch, timings, time.perf_counter() - t0)
     if zkey_device_args.builds != builds + 1:
-        raise AssertionError(f"the batch uploaded the zkey {zkey_device_args.builds - builds} "
+        raise AssertionError(f"the batches uploaded the zkey {zkey_device_args.builds - builds} "
                              "times, not once")
     vkey = G.extract_vkey(fresh)
-    for i, (w, m, prf) in enumerate(zip(ws, masks, batch)):
+    (fused, _, _), (staged, _, _) = runs.values()
+    for i, (w, m, prf, other) in enumerate(zip(ws, masks, fused, staged)):
         if not G.verify_proof(vkey, prf):
             raise AssertionError(f"batch proof {i} does not verify")
         one = G.generate_proof_with_mask(fresh, w, m, dev)
-        if (prf.pi_a, prf.pi_b, prf.pi_c) != (one.pi_a, one.pi_b, one.pi_c):
-            raise AssertionError(f"batch proof {i} differs from its single proof")
-    if len({prf.pi_a for prf in batch}) != len(batch):
+        if not ((prf.pi_a, prf.pi_b, prf.pi_c) == (one.pi_a, one.pi_b, one.pi_c)
+                == (other.pi_a, other.pi_b, other.pi_c)):
+            raise AssertionError(f"batch proof {i} differs from its single proof or from the "
+                                 "fused=False batch")
+    if len({prf.pi_a for prf in fused}) != len(fused):
         raise AssertionError("the batch's witnesses gave equal proofs")
-    totals = [t["total_s"] for t in timings]
     print(measure.card_line(dev))
-    print(f"batch of {len(batch)} 2^{LOG2} proofs ({fresh.header.flavour.value}): first "
-          f"{totals[0]:.4f} s (upload {timings[0]['upload_s']:.4f} s), then "
-          + ", ".join(f"{t:.4f}" for t in totals[1:]) + f" s (uploads "
-          + ", ".join(f"{t['upload_s']:.4f}" for t in timings[1:])
-          + f" s); {len(batch) / wall:.2f} proofs/s over the batch's {wall:.3f} s, "
-          f"{(len(batch) - 1) / sum(totals[1:]):.2f} proofs/s after the first; each verifies "
-          "and equals its single proof; one zkey upload")
+    for label, (batch, timings, wall) in runs.items():
+        totals = [t["total_s"] for t in timings]
+        first = ", ".join(f"{k} {timings[0][k]:.4f}" for k in ("upload_s", "capture_s")
+                          if k in timings[0])
+        print(f"batch of {len(batch)} 2^{LOG2} proofs ({fresh.header.flavour.value}), {label}: "
+              f"first {totals[0]:.4f} s ({first}), then "
+              + ", ".join(f"{t:.4f}" for t in totals[1:]) + " s (uploads "
+              + ", ".join(f"{t['upload_s']:.4f}" for t in timings[1:])
+              + f" s); {len(batch) / wall:.2f} proofs/s over the batch's {wall:.3f} s, "
+              f"{(len(batch) - 1) / sum(totals[1:]):.2f} proofs/s after the first")
+    print("each batch proof verifies and equals its single proof and the other path's; "
+          "one zkey upload")
 
 
 # The sharded phases (groth16_tpu_torch/parallel): the kernels every
@@ -1148,11 +1562,32 @@ def check_sharded_steps(rng, dev, results):
                             wire_in=wire_in, wire_out=wire_out))
 
 
+# a one-shot proof as the CLI's --prove makes it (parse the zkey and the
+# witness, one generate_proof, the process's first CUDA work inside the
+# clock), then a second proof; argv: zkey, wtns, "default" or "staged"
+ONESHOT = """import sys, time
+import torch
+import groth16_tpu_torch as G
+zkey, wtns = G.parse_zkey(sys.argv[1]), G.parse_witness(sys.argv[2])
+fused = {"default": None, "staged": False}[sys.argv[3]]
+dev = torch.device("cuda")
+t = time.perf_counter()
+G.generate_proof(zkey, wtns, dev, fused=fused)
+first = time.perf_counter() - t
+t = time.perf_counter()
+G.generate_proof(zkey, wtns, dev, fused=fused)
+print(f"oneshot {first:.4f} {time.perf_counter() - t:.4f}")
+"""
+ONESHOT_RUNS = 2    # fresh processes a path, in turns
+
+
 def cli_phase():
     """The CLI as a user runs it, in a subprocess on the card: setup, prove
     and verify from the 2^16 circuit's files (exit 0), then a tampered
     witness against the written zkey (exit 2), then the sharded proof of the
-    written zkey under torchrun, one NCCL rank a card (exit 0)."""
+    written zkey under torchrun, one NCCL rank a card (exit 0); then the
+    CLI's proving step alone (`ONESHOT`) on the default path and with
+    fused=False, ONESHOT_RUNS fresh processes each, in turns."""
     import subprocess
     import torch
     import groth16_tpu_torch as G
@@ -1190,6 +1625,21 @@ def cli_phase():
             if out.returncode != want or not ok:
                 raise AssertionError(f"CLI {what}: exit {out.returncode}, want {want}\n"
                                      f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        shots = {"default": [], "staged": []}
+        for _ in range(ONESHOT_RUNS):
+            for kind, got in shots.items():
+                out = subprocess.run([sys.executable, "-c", ONESHOT, f["c.zkey"], f["c.wtns"],
+                                      kind], cwd=root, capture_output=True, text=True,
+                                     timeout=300)
+                line = [ln for ln in out.stdout.splitlines() if ln.startswith("oneshot ")]
+                if out.returncode or not line:
+                    raise AssertionError(f"one-shot proof ({kind}): exit {out.returncode}\n"
+                                         f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+                got.append(tuple(float(x) for x in line[0].split()[1:]))
+        print("CLI proving step in a fresh process (first proof, with the process's CUDA start, "
+              "upload and, on the default path, warm-up and capture; then a second proof), s, in "
+              "turns: " + "; ".join(f"{k} " + ", ".join(f"{a:.4f} then {b:.4f}" for a, b in v)
+                                    for k, v in shots.items()))
 
 
 def main() -> int:
@@ -1224,7 +1674,9 @@ def main() -> int:
     phase("K3 check", lambda: check_ntt_kernel(rng, dev, results))
     phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
     phase("to_affine check", lambda: check_to_affine(rng, dev))
-    counts["proof"], singles = phase("proofs", lambda: main_path(dev))
+    counts["proof"], singles, staged = phase("proofs", lambda: main_path(dev))
+    counts["fused"] = phase("fused proofs", lambda: fused_phase(dev, singles, staged))
+    phase(f"fused proof at 2^{LOG2_FUSED_BIG}", lambda: fused_big_phase(dev))
     zkey, wtns = singles[0][1], singles[0][2]
     phase("SpMV and Fp negation check", lambda: check_spmv_kernel(rng, dev, results, zkey, wtns))
     phase("quotient profile", lambda: profile_quotient(rng, dev))
@@ -1292,6 +1744,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": replaces, "launches": counts[paths[name]][name],
                         "path": paths[name], "launches_sharded": counts["sharded"].get(name, 0),
+                        "launches_fused": counts["fused"].get(name, 0),
                         "max_abs_err": max(r[1] for r in rows if r[1] is not None),
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": side,
                         "library_ms": None, "shape": variant})

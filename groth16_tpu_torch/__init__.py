@@ -16,7 +16,10 @@ The main path is one proof from a zkey and a witness on one device:
     prf = generate_proof_with_mask(zkey, wtns, Mask(r, s), torch.device("cuda"))
     assert verify_proof(extract_vkey(zkey), prf)
 
-A batch of proofs against one zkey, the zkey's inputs uploaded to the card
+On a CUDA device the proof is one replay of a CUDA graph captured at the
+zkey's first proof there (`fused=None`, the default; `fused=False` takes
+the staged path, the default on the CPU).  A batch of proofs against one
+zkey, the zkey's inputs uploaded to the card once and its graph captured
 once: `generate_proofs(zkey, witnesses, device, masks)`.  The command line:
 `python -m groth16_tpu_torch --setup --prove --verify -r c.r1cs -w c.wtns`
 (`--device cpu` without a card).

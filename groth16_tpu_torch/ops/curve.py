@@ -13,7 +13,9 @@ it, on CPU tensors they run the plain version (`point_add_plain`,
 the independent products of each step stacked into one multiply).  Both give
 bit-identical projective results.  `to_affine` on CUDA tensors inverts Z
 with the merge tree's batch-inversion kernel K6 and multiplies X and Y by
-the inverses with its row-product kernel K5 (csrc/tree.cu).
+the inverses with its row-product kernel K5 (csrc/tree.cu).  `multiples`,
+`window_table`, `window_digits` and `table_picks` are the windowed scalar
+products of the fake setup (fixed base) and the prover's spec-point algebra.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from . import field as F
 from .field import FP
 from .limbs import N_LIMBS
+from ..utils import hostmath as _host
 from ..utils.hostmath import TWIST_B
 
 
@@ -369,6 +372,53 @@ def tree_sum(cv: CurveSpec, P):
                             (X[half:], Y[half:], Z[half:]))
         n = half
     return (X[0], Y[0], Z[0])
+
+
+def cat_points(parts) -> tuple:
+    """Point batches concatenated along their leading axis."""
+    return tuple(F.as_u32(torch.cat([F.as_i32(p[j]) for p in parts])) for j in range(3))
+
+
+def multiples(cv: CurveSpec, P, bits: int) -> tuple:
+    """[d P for d < 2^bits] of a point batch P [...] as [2^bits, ...]: row
+    0 is infinity, row 1 is P, and each of bits - 1 rounds doubles the
+    last power of two and adds it to every row so far (two K1 launches a
+    round on CUDA tensors)."""
+    batch = tuple(P[0].shape[:P[0].ndim - len(cv.comp_shape)])
+    table = cat_points([inf_like(cv, (1,) + batch, P[0].device), tuple(c[None] for c in P)])
+    pk = P
+    for _ in range(1, bits):
+        pk = point_double(cv, pk)
+        table = cat_points([table, point_add(cv, table, tuple(c[None] for c in pk))])
+    return table
+
+
+def window_digits(scalars_std: torch.Tensor, bits: int) -> torch.Tensor:
+    """int64 [n, 256 // bits]: window w of each standard-form scalar
+    (uint32 [n, 16]), bits [bits w, bits (w + 1)); `bits` divides 16."""
+    s = F.i64(scalars_std)
+    shifts = torch.arange(0, 16, bits, device=s.device)
+    return ((s[..., None] >> shifts) & ((1 << bits) - 1)).reshape(s.shape[0], -1)
+
+
+def window_table(cv: CurveSpec, point, bits: int, device) -> tuple:
+    """The fixed-base table of a host point Q (affine ints, None =
+    infinity): T[d, w] = d 2^(bits w) Q for d < 2^bits and the 256 / bits
+    windows of a scalar, projective on `device`.  The window bases come
+    from host doublings, the multiples from `multiples`."""
+    add = _host.g1_add if cv.name == "G1" else _host.g2_add
+    bases, b = [], point
+    for _ in range(256 // bits):
+        bases.append(b)
+        for _ in range(bits):
+            b = add(b, b)
+    return multiples(cv, points_from_host(cv, bases, device), bits)
+
+
+def table_picks(table, digits: torch.Tensor, windows) -> tuple:
+    """T[digits[..., w], w] of a `window_table` for window indices
+    `windows` that broadcast against `digits` (int64)."""
+    return tuple(F.as_u32(F.as_i32(t)[digits, windows]) for t in table)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ from ..ops import field as F
 from ..ops import ntt as NT
 from ..ops.kernels import segment_sum_mod
 from ..ops.field import FP, FR
-from ..ops.limbs import N_LIMBS, ints_to_limbs_bulk
+from ..ops.limbs import ints_to_limbs_bulk
 from ..utils import hostmath as H
 from ..utils import pairing as PR
 from .types import (
@@ -117,37 +117,23 @@ _FB_WINDOW_BITS = 8  # fixed-base window width: 32 windows x 256-entry tables
 
 
 @functools.lru_cache(maxsize=None)
-def _fb_table_np(cv_name: str):
-    """Host tables T[w][d] = d * 2^(8w) * G as affine limbs ((0,0) = infinity)."""
+def _fb_table(cv_name: str, device: str) -> tuple:
+    """The generator's `curve.window_table` on `device`, built once."""
     cv = C.G1 if cv_name == "G1" else C.G2
     gen = H.G1_GEN if cv_name == "G1" else H.G2_GEN
-    fops = H.G1_FIELD if cv_name == "G1" else H.G2_FIELD
-    c = _FB_WINDOW_BITS
-    W = (256 + c - 1) // c
-    xs = np.zeros((W, 1 << c) + cv.comp_shape, np.uint32)
-    ys = np.zeros_like(xs)
-    base = gen
-    for w in range(W):
-        acc = None
-        for d in range(1, 1 << c):
-            acc = H.ec_add(fops, acc, base)
-            xs[w, d] = cv.fops.const(acc[0])
-            ys[w, d] = cv.fops.const(acc[1])
-        for _ in range(c):
-            base = H.ec_add(fops, base, base)
-    return xs, ys
+    return C.window_table(cv, gen, _FB_WINDOW_BITS, torch.device(device))
 
 
 def fixed_base_mul(cv: C.CurveSpec, exps_std: torch.Tensor):
     """Projective [k_i] G for a uint32[n, 16] standard-form scalar batch:
-    byte w of k_i picks T[w][byte], and 32 complete adds sum the picks."""
+    byte w of k_i picks T[byte, w], and 32 complete adds sum the picks one
+    window at a time (a batch of n points live, whatever n)."""
     dev = exps_std.device
-    tx, ty = (F.as_i32(torch.from_numpy(t).to(dev)) for t in _fb_table_np(cv.name))
-    e = F.i64(exps_std)
-    acc = C.inf_like(cv, (e.shape[0],), dev)
-    for w in range(2 * N_LIMBS):
-        d = (e[:, w // 2] >> (8 * (w % 2))) & 0xFF
-        acc = C.point_add(cv, acc, C.from_affine(cv, F.as_u32(tx[w][d]), F.as_u32(ty[w][d])))
+    table = _fb_table(cv.name, str(dev))
+    d = C.window_digits(exps_std, _FB_WINDOW_BITS)
+    acc = C.inf_like(cv, (d.shape[0],), dev)
+    for w in range(d.shape[1]):
+        acc = C.point_add(cv, acc, C.table_picks(table, d[:, w], w))
     return acc
 
 

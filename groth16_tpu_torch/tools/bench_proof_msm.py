@@ -16,16 +16,19 @@ at 2^16 points (5 runs, CUDA events) and at 2^20 (3 runs), each with the
 peak device memory one call allocates above what was allocated before it
 (`max_memory_allocated`); Horner alone on
 the 2^16 tree's window sums; three proofs of synthetic_circuit(16) in each
-flavour on the host clock around a synchronize, with the quotient phase of
-each, all phase times of the last and a digest of its proof points (the
-toxic waste and the mask are fixed, so trees that prove alike print the
-same digest).
+flavour on the host clock around a synchronize on the staged path (every
+tree's; `proof_s_<flavour>`, with the quotient phase of each, all phase
+times of the last and a digest of its proof points: the toxic waste and
+the mask are fixed, so trees that prove alike print the same digest) and,
+where the tree has the fused path (`fused=`), three on it
+(`proof_s_<flavour>_fused`, its digest beside).
 One JSON line at the end.  Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import sys
 import time
@@ -68,27 +71,33 @@ def main() -> int:
                                                     dev, reps)
     r1cs, wtns = synthetic_circuit(16)
     mask = G.Mask(0x1234567890ABCDEF, 0xFEDCBA0987654321)
+    # (key suffix, keyword) of each path the tree has: staged first
+    paths = [("", {})]
+    if "fused" in inspect.signature(G.generate_proof_with_mask).parameters:
+        paths = [("", {"fused": False}), ("_fused", {"fused": True})]
     for flavour in (G.Flavour.Snarkjs, G.Flavour.JensGroth):
         zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(0x1DEA, 0xBEEF, 0x6A33A, 0xDE17A, 0x7A0),
                                     flavour, dev)
-        walls, quotient, tm = [], [], {}
-        for i in range(4):
-            tm = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            prf = G.generate_proof_with_mask(zkey, wtns, mask, dev, tm)
-            torch.cuda.synchronize()
-            if i:
-                walls.append(time.perf_counter() - t0)
-                quotient.append(tm["quotient_s"])
-        if not G.verify_proof(G.extract_vkey(zkey), prf):
-            raise AssertionError(f"the {flavour.value} proof does not verify")
-        res[f"proof_s_{flavour.value}"] = walls
-        res[f"quotient_s_{flavour.value}"] = quotient
-        res[f"proof_phases_s_{flavour.value}"] = tm
-        # fixed toxic waste and mask: two trees that prove alike print one digest
-        pts = repr((prf.pi_a, prf.pi_b, prf.pi_c)).encode()
-        res[f"proof_digest_{flavour.value}"] = hashlib.sha256(pts).hexdigest()[:16]
+        for suffix, kw in paths:
+            walls, quotient, tm = [], [], {}
+            for i in range(4):
+                tm = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prf = G.generate_proof_with_mask(zkey, wtns, mask, dev, tm, **kw)
+                torch.cuda.synchronize()
+                if i:
+                    walls.append(time.perf_counter() - t0)
+                    quotient.append(tm.get("quotient_s"))
+            if not G.verify_proof(G.extract_vkey(zkey), prf):
+                raise AssertionError(f"the {flavour.value} proof does not verify")
+            res[f"proof_s_{flavour.value}{suffix}"] = walls
+            if not suffix:
+                res[f"quotient_s_{flavour.value}"] = quotient
+            res[f"proof_phases_s_{flavour.value}{suffix}"] = tm
+            # fixed toxic waste and mask: two trees that prove alike print one digest
+            pts = repr((prf.pi_a, prf.pi_b, prf.pi_c)).encode()
+            res[f"proof_digest_{flavour.value}{suffix}"] = hashlib.sha256(pts).hexdigest()[:16]
     for k, v in res.items():
         print(f"{k:24s} {v}")
     print(json.dumps(res))

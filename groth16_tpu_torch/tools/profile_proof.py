@@ -1,10 +1,11 @@
 """Where the time of one proof goes on the GPU.
 
-    python3 -m groth16_tpu_torch.tools.profile_proof [--log2 16] [--flavour snarkjs]
+    python3 -m groth16_tpu_torch.tools.profile_proof [--log2 16] [--flavour snarkjs] [--staged]
 
 Sets up synthetic_circuit(log2) on the card (the port's fake setup, fixed
 toxic waste), proves once to warm up (which also caches the zkey on the
-card), times three unprofiled proofs, then one more warms up and another
+card and, on the default fused path, captures its CUDA graph; `--staged`
+proves with fused=False), times three unprofiled proofs, then one more warms up and another
 is profiled with torch.profiler (CPU and CUDA activity).  Prints the
 profiled proof's wall time, the device's busy time in it (the union of the
 traced kernel and copy intervals) and their ratio, then the device time,
@@ -76,6 +77,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2", type=int, default=16, help="circuit size: 2^log2 - 3 constraints")
     ap.add_argument("--flavour", default="snarkjs", choices=["snarkjs", "jens-groth"])
+    ap.add_argument("--staged", action="store_true",
+                    help="the staged path (fused=False) instead of the default")
     args = ap.parse_args()
 
     import torch
@@ -94,7 +97,8 @@ def main() -> int:
 
     def prove():
         t0 = time.perf_counter()
-        prf = G.generate_proof_with_mask(zkey, wtns, mask, dev)
+        kw = {"fused": False} if args.staged else {}
+        prf = G.generate_proof_with_mask(zkey, wtns, mask, dev, **kw)
         torch.cuda.synchronize()
         return prf, time.perf_counter() - t0
 

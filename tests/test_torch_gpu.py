@@ -3,7 +3,9 @@ chains, the wide K6, K2's levels, the fused tree level K8, every K3 step of
 every plan and the quotient's pointwise kernel, K4 at partial blocks, K5 on
 strided and point-major operands included), the SpMV and the Fp negation
 kernels, `to_affine` on the card against the CPU, the merge-tree MSM, the
-chunked MSM, one small proof and a batch of proofs on the card.  Marked `gpu`: they skip without CUDA.  On a GPU
+chunked MSM, one small proof and a batch of proofs on the card, and the
+fused path's CUDA graph (one capture per zkey, device and flavour; replays
+equal to the staged proofs).  Marked `gpu`: they skip without CUDA.  On a GPU
 machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_gpu.py
@@ -397,3 +399,69 @@ def test_batch_proofs_on_the_card(dev):
     singles = [G.generate_proof_with_mask(zkey, w, m, dev) for w, m in zip(ws, masks)]
     assert [(p.pi_a, p.pi_b, p.pi_c) for p in batch] == [(p.pi_a, p.pi_b, p.pi_c) for p in singles]
     assert all(G.verify_proof(G.extract_vkey(zkey), p) for p in batch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flavour", ["snarkjs", "jens-groth"])
+def test_fused_graph_replays_equal_staged(dev, flavour):
+    """The fused path at 2^9: the graph captured at the first proof and
+    replayed for three witnesses and masks gives the fused=False proofs,
+    which verify; one graph per (zkey, device, flavour), and a second zkey
+    gets its own."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.ops.field import FR
+    from groth16_tpu_torch.protocol import prover as PV
+    r1cs = synthetic_circuit(9)[0]
+    toxic = G.ToxicWaste(3, 5, 7, 11, 13)
+    zkey = G.fake_circuit_setup(r1cs, toxic, G.Flavour(flavour), dev)
+    ws = [synthetic_circuit(9, seed)[1] for seed in (42, 43, 44)]
+    q = FR.modulus
+    masks = [G.Mask(17, 19), G.Mask(0, 0), G.Mask(q - 1, q - 1)]
+    captures, timings = PV.fused_graph.captures, []
+    fused = G.generate_proofs(zkey, ws, dev, masks, timings)
+    assert PV.fused_graph.captures == captures + 1
+    assert "capture_s" in timings[0] and not any("capture_s" in t for t in timings[1:])
+    staged = G.generate_proofs(zkey, ws, dev, masks, fused=False)
+    assert [(p.pi_a, p.pi_b, p.pi_c) for p in fused] == [(p.pi_a, p.pi_b, p.pi_c) for p in staged]
+    vkey = G.extract_vkey(zkey)
+    assert all(G.verify_proof(vkey, p) for p in fused)
+    graphs = [k for k in zkey.device_cache if isinstance(k, tuple) and k[0] == "fused"]
+    assert graphs == [("fused", "cuda:0", flavour)]
+    other = G.fake_circuit_setup(r1cs, G.ToxicWaste(2, 3, 5, 7, 9), G.Flavour(flavour), dev)
+    prf = G.generate_proof_with_mask(other, ws[0], masks[0], dev, fused=True)
+    assert PV.fused_graph.captures == captures + 2
+    assert PV.fused_graph(zkey, dev) is zkey.device_cache[graphs[0]]
+    assert G.verify_proof(G.extract_vkey(other), prf)
+    assert (prf.pi_a, prf.pi_b, prf.pi_c) != (fused[0].pi_a, fused[0].pi_b, fused[0].pi_c)
+
+
+@pytest.mark.gpu
+def test_fused_proofs_from_two_threads(dev):
+    """Two threads proving with one zkey at once from a cold cache: one
+    capture, and each thread's proofs are the fused=False proofs of its own
+    witnesses and masks (the graph's buffers are taken in turns)."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.protocol import prover as PV
+    r1cs = synthetic_circuit(9)[0]
+    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
+    ws = [synthetic_circuit(9, seed)[1] for seed in (42, 43, 44, 45)]
+    masks = [G.Mask(17 + i, 19 + 5 * i) for i in range(len(ws))]
+    staged = [G.generate_proof_with_mask(zkey, w, m, dev, fused=False) for w, m in zip(ws, masks)]
+    captures = PV.fused_graph.captures
+    start = threading.Barrier(2)
+
+    def prove(t):
+        start.wait()
+        return [(i, G.generate_proof_with_mask(zkey, ws[i], masks[i], dev))
+                for _ in range(3) for i in (t, t + 2)]
+
+    with ThreadPoolExecutor(2) as pool:
+        runs = [f.result() for f in [pool.submit(prove, t) for t in (0, 1)]]
+    assert PV.fused_graph.captures == captures + 1
+    for i, prf in (pair for run in runs for pair in run):
+        assert (prf.pi_a, prf.pi_b, prf.pi_c) == (staged[i].pi_a, staged[i].pi_b, staged[i].pi_c)
+        assert prf.public_io == staged[i].public_io
