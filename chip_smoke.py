@@ -492,7 +492,7 @@ def only_kernels(what, fn, expect: dict, allow: tuple) -> dict:
     fails the run whatever `allow` says, and every torch.cummax call is also
     counted on the host, where no trace can miss it, and none may run."""
     from groth16_tpu_torch.tools import measure
-    from groth16_tpu_torch.tools.profile_proof import CUMMAX_KERNEL, cummax_callers
+    from groth16_tpu_torch.tools.measure import CUMMAX_KERNEL, cummax_callers
     with cummax_callers() as scans:
         names = measure.device_kernels(fn, expect)
     if scans:
@@ -767,7 +767,7 @@ def main_path(dev):
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
     from groth16_tpu_torch.ops import msm as M
-    from groth16_tpu_torch.tools.profile_proof import cummax_callers
+    from groth16_tpu_torch.tools.measure import cummax_callers
     r1cs, wtns = synthetic_circuit(LOG2)
     m = 1 << FOLD_LOG2
     fold_launches = FOLD_MSMS_PER_PROOF * len(M.fold_schedule(m))
@@ -881,7 +881,7 @@ def replay_report(what):
     its kernel and copy intervals) against the span from its first start
     to its last end and against the host's wall time of the call, the idle
     gaps between them and device time by kernel."""
-    from groth16_tpu_torch.tools.profile_proof import busy_us
+    from groth16_tpu_torch.tools.measure import busy_us
 
     def report(events, wall):
         iv = sorted((e.time_range.start, e.time_range.end, e.name) for e in events)
@@ -940,7 +940,7 @@ def fused_phase(dev, singles, staged):
     from groth16_tpu_torch.models.circuits import synthetic_circuit
     from groth16_tpu_torch.protocol import prover as PV
     from groth16_tpu_torch.tools import measure
-    from groth16_tpu_torch.tools.profile_proof import cummax_callers
+    from groth16_tpu_torch.tools.measure import cummax_callers
     ws = [synthetic_circuit(LOG2, seed)[1] for seed in BATCH_SEEDS]
     masks = [G.Mask(MASK[0] + i, MASK[1] + 3 * i) for i in range(len(ws))]
     total = {}
@@ -1389,7 +1389,7 @@ def sharded_proof_rank(mesh, zpaths, wpath, out):
     import torch
     import groth16_tpu_torch as G
     from groth16_tpu_torch.parallel.prover_shard import generate_proof_sharded
-    from groth16_tpu_torch.tools.profile_proof import cummax_callers
+    from groth16_tpu_torch.tools.measure import cummax_callers
     mesh.timed = True
     w = G.parse_witness(wpath)
     res = {}

@@ -29,6 +29,11 @@ nvcc at first use): the SpMV, K1 (point adds, doubling chains, Horner), K2
 (the fold MSMs), K3 and the quotient's pointwise kernel, K8 (the merge
 tree's levels) with the Fp negation of its signed rows, and K6 and K5 only
 in `to_affine`; on CPU tensors their plain PyTorch versions run.
+
+`tracer` (utils/timing.py) records the program's spans on the profiler's
+clock while a torch profiler records or after `tracer.enable()`, the
+device time of each phase of a fused proof, and counters such as the
+graph pool's size (`tracer.records()`, `phases()`, `counters()`).
 """
 
 from .protocol.types import Flavour, VKey, ZKey, Witness, R1CS, extract_vkey, zkey_from_numpy
@@ -43,6 +48,7 @@ from .files.zkey import parse_zkey, write_zkey
 from .files.r1cs import parse_r1cs, write_r1cs
 from .files.export_json import export_proof, export_public_io
 from .files.export_sage import export_sage
+from .utils import timing as tracer
 
 __all__ = [
     "Flavour", "VKey", "ZKey", "Witness", "R1CS", "extract_vkey", "zkey_from_numpy",
@@ -51,5 +57,5 @@ __all__ = [
     "ToxicWaste", "create_fake_circuit_setup", "fake_circuit_setup",
     "parse_witness", "write_witness", "parse_zkey", "write_zkey",
     "parse_r1cs", "write_r1cs", "export_proof", "export_public_io",
-    "export_sage",
+    "export_sage", "tracer",
 ]

@@ -12,6 +12,9 @@ when verification fails), plus `--device`:
 The setup and the proof run on `--device` (default `cuda`); without a card
 the CLI stops with exit code 1 unless `--device cpu` is given.  The
 `-j/--nthreads` flag is accepted for surface compatibility and does nothing.
+`-t` turns the program's tracer on (`utils/timing.py`) and prints how long
+each step took; with `-v` also the proof's timings, on the card the device
+seconds of each phase of the fused proof among them.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 from contextlib import contextmanager
+
+from .utils import timing as T
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,15 +60,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 @contextmanager
 def _measured(enabled: bool, text: str):
-    t0 = time.perf_counter()
-    yield
+    """The tracer's span `text`; prints "<text> took N.NNNN seconds"."""
+    took: dict = {}
+    with T.span(text, took):
+        yield
     if enabled:
-        print(f"{text} took {time.perf_counter() - t0:.4f} seconds")
+        print(f"{text} took {took[text]:.4f} seconds")
 
 
 def main(argv=None) -> int:
     cfg = build_parser().parse_args(argv)
+    if not cfg.measure_time:
+        return _main(cfg)
+    T.enable()
+    try:
+        return _main(cfg)
+    finally:
+        T.disable()
 
+
+def _main(cfg) -> int:
     import torch
 
     from .files.witness import parse_witness

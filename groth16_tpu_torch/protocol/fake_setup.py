@@ -31,6 +31,7 @@ from ..ops.field import FP, FR
 from ..ops.limbs import ints_to_limbs_bulk
 from ..utils import hostmath as H
 from ..utils import pairing as PR
+from ..utils import timing as T
 from .types import (
     Coeffs, Flavour, GrothHeader, PointArray, ProverPoints, R1CS, SpecPoints,
     VerifierPoints, ZKey,
@@ -145,62 +146,74 @@ def fixed_base_points(cv: C.CurveSpec, exps_std: torch.Tensor) -> PointArray:
 
 def fake_circuit_setup(r1cs: R1CS, toxic: ToxicWaste, flavour: Flavour,
                        device: torch.device) -> ZKey:
-    """Reference fakeCircuitSetup (fake_setup.nim:201-326) on `device`."""
+    """Reference fakeCircuitSetup (fake_setup.nim:201-326) on `device`.
+    The span `fake_setup` (recorded always) holds its steps:
+    `fake_setup.spec` (host products and the pairing), `.terms`
+    (`_flatten_terms`), `.taus` (the exponents, up to a synchronization),
+    `.points` (the six `fixed_base_points`) and `.coeffs`."""
     device = torch.device(device)
-    neqs = r1cs.n_constr
-    npub = r1cs.cfg.n_pub_in + r1cs.cfg.n_pub_out
-    log2 = max(0, (neqs + npub + 1 - 1).bit_length())
-    dom_size = 1 << log2
-    nvars = r1cs.cfg.n_wires
+    with T.span("fake_setup", always=True):
+        neqs = r1cs.n_constr
+        npub = r1cs.cfg.n_pub_in + r1cs.cfg.n_pub_out
+        log2 = max(0, (neqs + npub + 1 - 1).bit_length())
+        dom_size = 1 << log2
+        nvars = r1cs.cfg.n_wires
 
-    header = GrothHeader(curve="bn128", flavour=flavour, p=FP.modulus, r=R,
-                         nvars=nvars, npubs=npub, domain_size=dom_size,
-                         log_domain_size=log2)
-    alpha1 = H.g1_mul(toxic.alpha)
-    beta2 = H.g2_mul(toxic.beta)
-    spec = SpecPoints(
-        alpha1=alpha1,
-        beta1=H.g1_mul(toxic.beta),
-        beta2=beta2,
-        gamma2=H.g2_mul(toxic.gamma),
-        delta1=H.g1_mul(toxic.delta),
-        delta2=H.g2_mul(toxic.delta),
-        alpha_beta=PR.pairing(alpha1, beta2),
-    )
+        header = GrothHeader(curve="bn128", flavour=flavour, p=FP.modulus, r=R,
+                             nvars=nvars, npubs=npub, domain_size=dom_size,
+                             log_domain_size=log2)
+        with T.span("fake_setup.spec", always=True):
+            alpha1 = H.g1_mul(toxic.alpha)
+            beta2 = H.g2_mul(toxic.beta)
+            spec = SpecPoints(
+                alpha1=alpha1,
+                beta1=H.g1_mul(toxic.beta),
+                beta2=beta2,
+                gamma2=H.g2_mul(toxic.gamma),
+                delta1=H.g1_mul(toxic.delta),
+                delta2=H.g2_mul(toxic.delta),
+                alpha_beta=PR.pairing(alpha1, beta2),
+            )
 
-    def mont(x):
-        return F.const(FR.to_mont_limbs(x), device)
+        def mont(x):
+            return F.const(FR.to_mont_limbs(x), device)
 
-    def std(x):
-        return F.from_mont(FR, x).to(torch.uint32)
+        def std(x):
+            return F.from_mont(FR, x).to(torch.uint32)
 
-    terms = _flatten_terms(r1cs)
-    dom = NT.Domain(log2)
-    lag = lagrange_taus(dom, toxic.tau, device)
-    ta, tb, tc = _column_taus(r1cs, lag, terms)
-    combo = F.add_mod(FR, F.add_mod(FR, F.mont_mul(FR, ta, mont(toxic.beta)),
-                                    F.mont_mul(FR, tb, mont(toxic.alpha))), tc)
-    ic_exp = std(F.mont_mul(FR, combo[:npub + 1], mont(pow(toxic.gamma, -1, R))))
-    delta_inv = pow(toxic.delta, -1, R)
-    c1_exp = std(F.mont_mul(FR, combo[npub + 1:], mont(delta_inv)))
-    if flavour == Flavour.JensGroth:
-        # [delta^-1 tau^i Z(tau)]_1 (fake_setup.nim:292-294)
-        z_tau = (pow(toxic.tau, dom_size, R) - 1) % R
-        pw = F.powers(FR, mont(toxic.tau), dom_size)
-        h_exp = std(F.mont_mul(FR, pw, mont(delta_inv * z_tau % R)))
-    else:
-        # [delta^-1 L_{2i+1}(tau)]_1 on the 2N domain (fake_setup.nim:301-304)
-        lag2 = lagrange_taus(NT.Domain(log2 + 1), toxic.tau, device)
-        h_exp = std(F.mont_mul(FR, F.i64(lag2[1::2]), mont(delta_inv)))
-
-    return ZKey(header=header, spec=spec,
-                vpoints=VerifierPoints(points_ic=fixed_base_points(C.G1, ic_exp)),
-                ppoints=ProverPoints(fixed_base_points(C.G1, std(ta)),
-                                     fixed_base_points(C.G1, std(tb)),
-                                     fixed_base_points(C.G2, std(tb)),
-                                     fixed_base_points(C.G1, c1_exp),
-                                     fixed_base_points(C.G1, h_exp)),
-                coeffs=r1cs_to_coeffs(r1cs, terms))
+        with T.span("fake_setup.terms", always=True):
+            terms = _flatten_terms(r1cs)
+        with T.span("fake_setup.taus", always=True):
+            dom = NT.Domain(log2)
+            lag = lagrange_taus(dom, toxic.tau, device)
+            ta, tb, tc = _column_taus(r1cs, lag, terms)
+            combo = F.add_mod(FR, F.add_mod(FR, F.mont_mul(FR, ta, mont(toxic.beta)),
+                                            F.mont_mul(FR, tb, mont(toxic.alpha))), tc)
+            ic_exp = std(F.mont_mul(FR, combo[:npub + 1], mont(pow(toxic.gamma, -1, R))))
+            delta_inv = pow(toxic.delta, -1, R)
+            c1_exp = std(F.mont_mul(FR, combo[npub + 1:], mont(delta_inv)))
+            if flavour == Flavour.JensGroth:
+                # [delta^-1 tau^i Z(tau)]_1 (fake_setup.nim:292-294)
+                z_tau = (pow(toxic.tau, dom_size, R) - 1) % R
+                pw = F.powers(FR, mont(toxic.tau), dom_size)
+                h_exp = std(F.mont_mul(FR, pw, mont(delta_inv * z_tau % R)))
+            else:
+                # [delta^-1 L_{2i+1}(tau)]_1 on the 2N domain (fake_setup.nim:301-304)
+                lag2 = lagrange_taus(NT.Domain(log2 + 1), toxic.tau, device)
+                h_exp = std(F.mont_mul(FR, F.i64(lag2[1::2]), mont(delta_inv)))
+            ta_std, tb_std = std(ta), std(tb)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        with T.span("fake_setup.points", always=True):
+            vpoints = VerifierPoints(points_ic=fixed_base_points(C.G1, ic_exp))
+            ppoints = ProverPoints(fixed_base_points(C.G1, ta_std),
+                                   fixed_base_points(C.G1, tb_std),
+                                   fixed_base_points(C.G2, tb_std),
+                                   fixed_base_points(C.G1, c1_exp),
+                                   fixed_base_points(C.G1, h_exp))
+        with T.span("fake_setup.coeffs", always=True):
+            coeffs = r1cs_to_coeffs(r1cs, terms)
+        return ZKey(header=header, spec=spec, vpoints=vpoints, ppoints=ppoints, coeffs=coeffs)
 
 
 def create_fake_circuit_setup(r1cs: R1CS, flavour: Flavour, device: torch.device) -> ZKey:

@@ -56,6 +56,7 @@ from ..ops import ntt as NT
 from ..ops.field import FR
 from ..ops.limbs import ints_to_limbs, limbs_to_ints
 from ..utils import hostmath as H
+from ..utils import timing as T
 from .types import Flavour, Witness, ZKey
 
 
@@ -123,7 +124,8 @@ def zkey_device_args(zkey: ZKey, device) -> DeviceZKey:
     of proofs (`generate_proofs`) copies only its witnesses (reference: the
     JAX package's `zkey_device_args`, groth16_tpu/protocol/prover.py:374).
     The cache assumes the zkey's arrays do not change after the first
-    proof.  `zkey_device_args.builds` counts the uploads."""
+    proof.  `zkey_device_args.builds` counts the uploads; each is the span
+    `upload`, recorded always, up to a synchronization."""
     key = _device_key(device)
     cached = zkey.device_cache.get(key)
     if cached is not None:
@@ -134,11 +136,13 @@ def zkey_device_args(zkey: ZKey, device) -> DeviceZKey:
     def points(cv, pa):
         return C.from_affine(cv, _dev(pa.x, dev), _dev(pa.y, dev))
 
-    cached = DeviceZKey(
-        rows=KN.spmv_rows(co.matrix, co.row, co.col, co.coeff, zkey.header.domain_size, dev),
-        a1=points(C.G1, pp.points_a1), b1=points(C.G1, pp.points_b1),
-        b2=points(C.G2, pp.points_b2), c1=points(C.G1, pp.points_c1),
-        h1=points(C.G1, pp.points_h1))
+    with T.span("upload", always=True):
+        cached = DeviceZKey(
+            rows=KN.spmv_rows(co.matrix, co.row, co.col, co.coeff, zkey.header.domain_size, dev),
+            a1=points(C.G1, pp.points_a1), b1=points(C.G1, pp.points_b1),
+            b2=points(C.G2, pp.points_b2), c1=points(C.G1, pp.points_c1),
+            h1=points(C.G1, pp.points_h1))
+        _sync(dev)
     zkey.device_cache[key] = cached
     zkey_device_args.builds += 1
     return cached
@@ -281,23 +285,36 @@ def proof_points(buf) -> tuple:
     return pi_a, pi_b, pi_c
 
 
+def _no_mark(phase: str) -> None:
+    pass
+
+
 def core_msms(flavour: Flavour, log2n: int, static: DeviceZKey,
-              witness_std: torch.Tensor) -> tuple:
+              witness_std: torch.Tensor, mark=None) -> tuple:
     """The SpMV, the quotient and the five MSMs of one proof (projective A1,
     B1, B2, H1, C1 sums), each MSM on the path the staged proof takes.  The
-    public part of the witness is what C1 does not cover."""
+    public part of the witness is what C1 does not cover.  `mark(phase)`,
+    where given, is called as each phase of `timing.PHASES` ends."""
+    mark = mark or _no_mark
     az, bz, cz = KN.spmv(witness_std, static.rows)
+    mark("spmv")
     qs = quotient_scalars(flavour, az, bz, cz, log2n)
+    mark("quotient")
     zs = witness_std[witness_std.shape[0] - static.c1[0].shape[0]:]
-    return (M.msm(C.G1, witness_std, static.a1, affine=True),
-            M.msm(C.G1, witness_std, static.b1, affine=True),
-            M.msm(C.G2, witness_std, static.b2, affine=True),
-            M.msm(C.G1, qs, static.h1, affine=True),
-            M.msm(C.G1, zs, static.c1, affine=True))
+    out = []
+    for phase, cv, scalars, P in (("msm_a1", C.G1, witness_std, static.a1),
+                                  ("msm_b1", C.G1, witness_std, static.b1),
+                                  ("msm_b2", C.G2, witness_std, static.b2),
+                                  ("msm_h1", C.G1, qs, static.h1),
+                                  ("msm_c1", C.G1, zs, static.c1)):
+        out.append(M.msm(cv, scalars, P, affine=True))
+        mark(phase)
+    return tuple(out)
 
 
 def prove_core_device(flavour: Flavour, log2n: int, static: DeviceZKey, spec: DeviceSpec,
-                      witness_std: torch.Tensor, mask_std: torch.Tensor) -> torch.Tensor:
+                      witness_std: torch.Tensor, mask_std: torch.Tensor,
+                      mark=None) -> torch.Tensor:
     """One whole proof's device work (the JAX package's prove_core_device,
     groth16_tpu/protocol/prover.py:205-282): SpMV, quotient, five MSMs, the
     spec-point algebra and the affine conversion, with no host round trip
@@ -307,9 +324,15 @@ def prove_core_device(flavour: Flavour, log2n: int, static: DeviceZKey, spec: De
     `mask_std` the mask buffer (`mask_limbs`) on the same device.  Returns
     the `proof_buffer`.
     It runs eagerly on any device: on CPU tensors through the plain
-    versions of the kernels."""
-    return proof_buffer(*spec_algebra(spec, core_msms(flavour, log2n, static, witness_std),
-                                      mask_std))
+    versions of the kernels.  `mark(phase)`, where given, is called as each
+    phase of `timing.PHASES` ends (the fused graph records a timing event
+    there); the eager and CPU paths pass none."""
+    mark = mark or _no_mark
+    pts = spec_algebra(spec, core_msms(flavour, log2n, static, witness_std, mark), mask_std)
+    mark("algebra")
+    buf = proof_buffer(*pts)
+    mark("affine")
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +432,12 @@ class FusedProof:
     both under the object's `lock`, so that threads proving with one zkey
     take turns with its buffers.  A failed capture or replay raises.
     The graph's memory pool keeps one proof's intermediates (about 0.3 GiB
-    at 2^16) for as long as the object lives."""
+    at 2^16) for as long as the object lives.
+    The core records a timing event (`events`) before it and at the end of
+    each phase of `timing.PHASES`, in every capture; the graph holds them
+    as event-record nodes, which take no pool memory.  While tracing is
+    on, `replay()` reads each phase's device seconds into `phases` and the
+    tracer; off, it reads nothing."""
 
     def __init__(self, zkey: ZKey, device):
         self.device = torch.device(_device_key(device))
@@ -419,7 +447,9 @@ class FusedProof:
         hdr = zkey.header
         self.flavour, self.log2n = hdr.flavour, hdr.log_domain_size
         self.static = zkey_device_args(zkey, self.device)
-        self.spec = spec_device_args(zkey, self.device)
+        with T.span("capture.spec", always=True):
+            self.spec = spec_device_args(zkey, self.device)
+            _sync(self.device)
         shape = (hdr.nvars, 16)
         self.witness = torch.zeros(shape, dtype=torch.uint32, device=self.device)
         self.mask = torch.zeros((3, 16), dtype=torch.uint32, device=self.device)
@@ -429,10 +459,17 @@ class FusedProof:
         self.graph = None
         self.out = None
         self.lock = threading.Lock()
+        self.events = [torch.cuda.Event(enable_timing=True, external=True)
+                       for _ in range(len(T.PHASES) + 1)]
+        self.phases: dict = {}
+
+    def _mark(self, phase: str) -> None:
+        self.events[T.PHASES.index(phase) + 1].record()
 
     def _core(self) -> torch.Tensor:
+        self.events[0].record()
         return prove_core_device(self.flavour, self.log2n, self.static, self.spec, self.witness,
-                                 self.mask)
+                                 self.mask, self._mark)
 
     def warm_up(self) -> None:
         """One eager run of the core on a side stream (PyTorch's recipe
@@ -458,22 +495,35 @@ class FusedProof:
 
     def load(self, wtns: Witness, mask: Mask) -> None:
         """Copy a witness and its masks into the static buffers, from pinned
-        host memory, on the current stream (no synchronization)."""
-        self.host_witness.numpy().view(np.uint32)[...] = wtns.values
-        self.host_mask.numpy().view(np.uint32)[...] = mask_limbs(mask)
-        with torch.cuda.device(self.device):
+        host memory, on the current stream (no synchronization): the spans
+        `load.stage` (into the pinned buffers) and `load.enqueue` (the two
+        copies queued)."""
+        with T.span("load.stage"):
+            self.host_witness.numpy().view(np.uint32)[...] = wtns.values
+            self.host_mask.numpy().view(np.uint32)[...] = mask_limbs(mask)
+        with T.span("load.enqueue"), torch.cuda.device(self.device):
             F.as_i32(self.witness).copy_(self.host_witness, non_blocking=True)
             F.as_i32(self.mask).copy_(self.host_mask, non_blocking=True)
 
     def replay(self) -> np.ndarray:
         """Replay the graph on the loaded buffers and return the proof
-        buffer, copied to the host (the one synchronization of a proof)."""
+        buffer, copied to the host (the one synchronization of a proof):
+        the spans `replay` (the launch) and `copy_back` (the copy and the
+        synchronization).  While tracing is on, each phase's device seconds
+        then go to `phases` and to the tracer under the open proof's id."""
         if self.graph is None:
             raise RuntimeError("replay before capture")
         with torch.cuda.device(self.device):
-            self.graph.replay()
-            self.host_out.copy_(F.as_i32(self.out), non_blocking=True)
-            torch.cuda.current_stream().synchronize()
+            with T.span("replay"):
+                self.graph.replay()
+            with T.span("copy_back"):
+                self.host_out.copy_(F.as_i32(self.out), non_blocking=True)
+                torch.cuda.current_stream().synchronize()
+        ev = self.events
+        self.phases = {p: ev[i].elapsed_time(ev[i + 1]) / 1e3
+                       for i, p in enumerate(T.PHASES)} if T.on() else {}
+        if self.phases:
+            T.record_phases(self.phases)
         return self.host_out.numpy().view(np.uint32).copy()
 
 
@@ -489,7 +539,11 @@ def fused_graph(zkey: ZKey, device) -> FusedProof:
     warmed up and captured at the first call and kept in
     `zkey.device_cache` beside its DeviceZKey; `fused_graph.captures`
     counts the captures.  Threads that ask for one key at once wait for
-    its one capture."""
+    its one capture.  The span `capture` (recorded always) holds
+    `capture.spec`, `capture.warm_up` and `capture.graph`; the counter
+    `graph.pool_bytes` adds the device memory the capture reserved, the
+    graph's private pool (torch.cuda.graph empties the allocator's cache
+    before a capture; so does this, before it reads the reserve)."""
     key = _fused_key(zkey, device)
     fp = zkey.device_cache.get(key)
     if fp is not None:
@@ -497,9 +551,15 @@ def fused_graph(zkey: ZKey, device) -> FusedProof:
     with _FUSED_LOCK:
         fp = zkey.device_cache.get(key)
         if fp is None:
-            fp = FusedProof(zkey, device)
-            fp.warm_up()
-            fp.capture()
+            with T.span("capture", always=True):
+                fp = FusedProof(zkey, device)
+                with T.span("capture.warm_up", always=True):
+                    fp.warm_up()
+                with T.span("capture.graph", always=True):
+                    torch.cuda.empty_cache()
+                    before = torch.cuda.memory_reserved(fp.device)
+                    fp.capture()
+                    T.count("graph.pool_bytes", torch.cuda.memory_reserved(fp.device) - before)
             zkey.device_cache[key] = fp
             fused_graph.captures += 1
     return fp
@@ -516,25 +576,36 @@ def _generate_proof_fused(zkey: ZKey, wtns: Witness, mask: Mask, device,
     device, then the witness and masks queued into the static buffers),
     capture_s (the spec points, warm-up and capture, on the proof that
     captured), device_core_s (the replay up to the proof buffer on the
-    host) and total_s."""
-    public_io = _public_io(zkey, wtns)
-    t0 = time.perf_counter()
-    zkey_device_args(zkey, device)
-    t1 = time.perf_counter()
-    captured = _fused_key(zkey, device) not in zkey.device_cache
-    fp = fused_graph(zkey, device)
-    t2 = time.perf_counter()
-    with fp.lock:
-        fp.load(wtns, mask)
-        t3 = time.perf_counter()
-        buf = fp.replay()
-    t4 = time.perf_counter()
-    pi_a, pi_b, pi_c = proof_points(buf)
+    host) and total_s; while tracing is on also `<phase>_device_s`, the
+    device seconds of each phase of `timing.PHASES` inside the replay.
+    Traced, the proof is the root span `proof` over `public_io`, `load`
+    (`load.stage`, `load.enqueue`), `device_core` (`replay`, `copy_back`)
+    and `proof_points`, all under one proof id."""
+    t: dict = {}
+    with T.proof():
+        with T.span("public_io"):
+            public_io = _public_io(zkey, wtns)
+        t0 = time.perf_counter()
+        zkey_device_args(zkey, device)
+        t1 = time.perf_counter()
+        captured = _fused_key(zkey, device) not in zkey.device_cache
+        fp = fused_graph(zkey, device)
+        t2 = time.perf_counter()
+        with fp.lock:
+            with T.span("load", t, "load_s"):
+                fp.load(wtns, mask)
+            with T.span("device_core", t, "device_core_s"):
+                buf = fp.replay()
+            phases = fp.phases
+        with T.span("proof_points"):
+            pi_a, pi_b, pi_c = proof_points(buf)
+        total_s = time.perf_counter() - t0
     if timings is not None:
-        timings.update({"upload_s": (t1 - t0) + (t3 - t2), "device_core_s": t4 - t3,
-                        "total_s": time.perf_counter() - t0})
+        timings.update({"upload_s": (t1 - t0) + t["load_s"], "device_core_s": t["device_core_s"],
+                        "total_s": total_s})
         if captured:
             timings["capture_s"] = t2 - t1
+        timings.update({f"{p}_device_s": s for p, s in phases.items()})
     return Proof(public_io=public_io, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
 
 

@@ -2,8 +2,9 @@
 the least time a kernel could take.
 
 Shared by chip_smoke.py and the tools (bench_tree_phases, bench_fold_phases,
-bench_mul_kernels, bench_point_variants, bench_tree_kernels,
-profile_proof).  A kernel's bound is the larger of two times:
+bench_mul_kernels, bench_point_variants, bench_tree_kernels); chip_smoke's
+count of torch.cummax calls (`cummax_callers`) is here too.  A kernel's
+bound is the larger of two times:
 
   bytes        each input read once and each output written once, over the
                H100's 3.35 TB/s;
@@ -32,10 +33,12 @@ loop (`sass_text`, `loop_opcodes`), whose body is one product.
 
 from __future__ import annotations
 
+import contextlib
 import re
 import shutil
 import subprocess
 import time
+import traceback
 
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
@@ -202,6 +205,47 @@ def device_kernels(fn, expect: dict, tries: int = 3) -> dict:
         if traced == dict(expect):
             return names
     raise AssertionError(f"the profiler traced launches {traced}, not {dict(expect)}: {names}")
+
+
+# the CUDA kernel behind torch.cummax along the last axis (its profiler name)
+CUMMAX_KERNEL = "scan_innermost_dim_with_indices"
+
+
+@contextlib.contextmanager
+def cummax_callers():
+    """Inside the block every torch.cummax call (one scan kernel on the card)
+    is counted under its callers in the package, the innermost three frames
+    outside ops/field.py: yields that {callers: calls} dict."""
+    import torch
+    callers: dict = {}
+    scan = torch.cummax
+
+    def traced(*args, **kwargs):
+        frames = [f"{f.filename.split('groth16_tpu_torch/')[-1]}:{f.lineno} {f.name}"
+                  for f in reversed(traceback.extract_stack()[:-1])
+                  if "groth16_tpu_torch" in f.filename and "ops/field.py" not in f.filename]
+        key = " < ".join(frames[:3]) or "(no frame of the package)"
+        callers[key] = callers.get(key, 0) + 1
+        return scan(*args, **kwargs)
+
+    torch.cummax = traced
+    try:
+        yield callers
+    finally:
+        torch.cummax = scan
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals, microseconds."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
 def short(names: dict) -> dict:

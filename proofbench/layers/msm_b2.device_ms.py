@@ -1,0 +1,15 @@
+"""MSMs and the spec-point algebra: the device time a traced proof of the
+G2 MSM over B2, from the program's timing events inside its graph (the
+tracer's phase `msm_b2`), milliseconds; the mean over the traced proofs."""
+
+from proofbench.harness import port
+
+PHASES = ("msm_b2",)
+
+
+def read(ctx):
+    tracer = getattr(port.G, "tracer", None)
+    rows = [ph for _, ph in tracer.phases()] if tracer is not None else []
+    if not rows:
+        return None
+    return 1e3 * sum(ph[p] for ph in rows for p in PHASES) / len(rows)

@@ -5,11 +5,15 @@ port's staged proof of synthetic_circuit(5) (the naive MSMs) under the
 masks (0, 0), a fixed pair and (q - 1, q - 1); the device algebra's
 window tables and ladders equal the host-int group law for scalars 0, 1,
 q - 1 and random ones, G1 and G2; `fused=True` on a CPU device raises and
-`fused=None` there is the staged path.  The slow lane runs the whole
+`fused=None` there is the staged path.  The tracer's view of the same
+runs: the core's nine phase marks, the fake setup's spans, and
+`_generate_proof_fused`'s timings and spans around a stand-in graph.  The slow lane runs the whole
 `prove_core_device` against the staged proof in both flavours at both
 sizes.  tests/test_torch_fused_guard.py holds JensGroth at the fold's size
 and the capture guard; tests/test_torch_gpu.py the captured graph on the
 card."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ from groth16_tpu_torch.ops import curve as C
 from groth16_tpu_torch.ops.limbs import ints_to_limbs
 from groth16_tpu_torch.protocol import prover as PV
 from groth16_tpu_torch.utils import hostmath as H
+from groth16_tpu_torch.utils import timing as TR
 
 # The suite runs six worker processes on a few cores: one intra-op thread
 # each keeps them from oversubscribing the CPU.
@@ -37,29 +42,37 @@ SCALARS = [0, 1, Q - 1] + [int.from_bytes(RNG.bytes(32), "little") % Q for _ in 
 @pytest.fixture(scope="module")
 def snarkjs5():
     """(zkey, witness, the staged proofs under MASKS and the first one's
-    timings, the fused core's points under MASKS); the two paths share
-    their MSM results where their inputs agree (`shared_msms`)."""
+    timings, the fused core's points under MASKS, and (the phases a marker
+    saw, the proof buffer) of `prove_core_device` whole under MASKS[1] with
+    that marker); the paths share their MSM results where their inputs
+    agree (`shared_msms`)."""
     r1cs, wtns = synthetic_circuit(5)
     zkey = T.fake_circuit_setup(r1cs, T.ToxicWaste(**FIXED_TOXIC), T.Flavour.Snarkjs, CPU)
+    hdr = zkey.header
     with shared_msms():
         staged, timings = staged_proofs(zkey, wtns, MASKS)
-        return zkey, wtns, staged, timings, fused_points(zkey, wtns, MASKS)
+        fused = fused_points(zkey, wtns, MASKS)
+        marks: list = []
+        buf = PV.prove_core_device(hdr.flavour, hdr.log_domain_size, PV.zkey_device_args(zkey, CPU),
+                                   PV.spec_device_args(zkey, CPU), torch.from_numpy(wtns.values),
+                                   torch.from_numpy(PV.mask_limbs(MASKS[1])), marks.append)
+        return zkey, wtns, staged, timings, fused, (marks, buf)
 
 
 @pytest.mark.parametrize("i", range(len(MASKS)), ids=["zero", "fixed", "q-1"])
 def test_core_equals_staged(snarkjs5, i):
-    zkey, _, staged, _, fused = snarkjs5
+    zkey, _, staged, _, fused, _ = snarkjs5
     assert fused[i] == points(staged[i])
     assert T.verify_proof(T.extract_vkey(zkey), staged[i])
 
 
 def test_default_on_cpu_is_staged(snarkjs5):
-    _, _, _, timings, _ = snarkjs5
+    _, _, _, timings, _, _ = snarkjs5
     assert set(timings) == STAGED_KEYS
 
 
 def test_fused_on_cpu_raises(snarkjs5):
-    zkey, wtns, _, _, _ = snarkjs5
+    zkey, wtns, _, _, _, _ = snarkjs5
     with pytest.raises(ValueError):
         T.generate_proof_with_mask(zkey, wtns, MASKS[1], CPU, fused=True)
     with pytest.raises(ValueError):
@@ -142,3 +155,99 @@ def test_prove_core_device_equals_staged_proof(flavour, log2):
                                PV.spec_device_args(zkey, CPU), torch.from_numpy(wtns.values),
                                torch.from_numpy(PV.mask_limbs(MASKS[1])))
     assert PV.proof_points(buf) == points(staged)
+
+
+def test_core_marks_the_nine_phases_in_order(snarkjs5):
+    """`prove_core_device` with a marker calls it once at the end of each
+    phase, in order, and gives the proof it gives without one."""
+    _, _, _, _, fused, (marks, buf) = snarkjs5
+    assert marks == list(TR.PHASES)
+    assert PV.proof_points(buf) == fused[1]
+
+
+def test_fake_setup_records_its_steps(snarkjs5):
+    """The fixture's fake setup is the span `fake_setup` with its five
+    steps as children, in order, recorded with tracing off."""
+    recs = TR.records()
+    roots = [r for r in recs if r.name == "fake_setup"]
+    assert roots
+    root = roots[-1]
+    kids = [r for r in recs if r.parent == root.index]
+    assert [r.name for r in kids] == ["fake_setup.spec", "fake_setup.terms", "fake_setup.taus",
+                                      "fake_setup.points", "fake_setup.coeffs"]
+    assert all(root.start_ns <= k.start_ns <= k.end_ns <= root.end_ns for k in kids)
+
+
+class _Replayed:
+    """A captured FusedProof's stand-in on the CPU: `load` keeps nothing,
+    `replay` returns a fixed proof buffer and, while tracing is on, fixed
+    device phases, as the graph's timing events would give them."""
+
+    def __init__(self, buf):
+        self.lock = threading.Lock()
+        self.buf = buf.numpy()
+        self.phases: dict = {}
+
+    def load(self, wtns, mask):
+        pass
+
+    def replay(self):
+        self.phases = {p: 1e-3 * (i + 1) for i, p in enumerate(TR.PHASES)} if TR.on() else {}
+        if self.phases:
+            TR.record_phases(self.phases)
+        return self.buf
+
+
+@pytest.fixture
+def replayed(snarkjs5, monkeypatch):
+    """`fused_graph` on the CPU gives a `_Replayed` of the fixture's marked
+    proof, kept in the zkey's cache (taken out after the test)."""
+    zkey, wtns, _, _, fused, (_, buf) = snarkjs5
+    key = PV._fused_key(zkey, CPU)
+
+    def graph(zk, device):
+        return zk.device_cache.setdefault(key, _Replayed(buf))
+
+    monkeypatch.setattr(PV, "fused_graph", graph)
+    TR.disable()
+    yield zkey, wtns, fused[1]
+    TR.disable()
+    zkey.device_cache.pop(key, None)
+
+
+def test_fused_timings_keys_are_unchanged(replayed):
+    """`_generate_proof_fused`'s timings keys with tracing off: capture_s on
+    the proof that captured, then upload_s, device_core_s and total_s."""
+    zkey, wtns, points_ = replayed
+    keys = {"upload_s", "device_core_s", "total_s"}
+    sinks = [{}, {}]
+    for sink in sinks:
+        prf = PV._generate_proof_fused(zkey, wtns, MASKS[1], CPU, sink)
+        assert (prf.pi_a, prf.pi_b, prf.pi_c) == points_
+    assert set(sinks[0]) == keys | {"capture_s"} and set(sinks[1]) == keys
+    assert all(v >= 0.0 for s in sinks for v in s.values())
+    assert sinks[1]["total_s"] >= sinks[1]["upload_s"] + sinks[1]["device_core_s"]
+
+
+def test_fused_proof_spans_share_one_proof_id(replayed):
+    """Traced, a fused proof is the root span `proof` over `public_io`,
+    `load`, `device_core` and `proof_points`, one proof id each proof, and
+    its timings carry each phase's device seconds as `<phase>_device_s`."""
+    zkey, wtns, _ = replayed
+    TR.enable()
+    first = len(TR.records())
+    sinks = [{}, {}]
+    for sink in sinks:
+        PV._generate_proof_fused(zkey, wtns, MASKS[1], CPU, sink)
+    TR.disable()
+    recs = TR.records()[first:]
+    roots = [r for r in recs if r.name == "proof"]
+    assert len(roots) == 2 and roots[0].proof != roots[1].proof
+    for root in roots:
+        kids = [r.name for r in recs if r.parent == root.index]
+        assert kids == ["public_io", "load", "device_core", "proof_points"]
+        assert all(r.proof == root.proof for r in recs if r.parent == root.index)
+    assert [p for p, _ in TR.phases()[-2:]] == [r.proof for r in roots]
+    for sink in sinks:
+        assert {k: v for k, v in sink.items() if k.endswith("_device_s")} == \
+            {f"{p}_device_s": 1e-3 * (i + 1) for i, p in enumerate(TR.PHASES)}

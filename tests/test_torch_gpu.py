@@ -465,3 +465,37 @@ def test_fused_proofs_from_two_threads(dev):
     for i, prf in (pair for run in runs for pair in run):
         assert (prf.pi_a, prf.pi_b, prf.pi_c) == (staged[i].pi_a, staged[i].pi_b, staged[i].pi_c)
         assert prf.public_io == staged[i].public_io
+
+
+@pytest.mark.gpu
+def test_fused_phase_events_split_the_replay(dev):
+    """The fused graph's timing events: the capture adds the graph's pool
+    to `graph.pool_bytes`; with tracing on, a replay's nine phases are each
+    positive, reach the timings as `<phase>_device_s` and the tracer under
+    the proof's id, and add up to the first-to-last event span within 2 %;
+    the proof verifies."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.protocol import prover as PV
+    T = G.tracer
+    r1cs, wtns = synthetic_circuit(9)
+    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
+    pool = T.counters().get("graph.pool_bytes", 0)
+    G.generate_proof_with_mask(zkey, wtns, G.Mask(17, 19), dev)
+    assert T.counters()["graph.pool_bytes"] > pool
+    timings: dict = {}
+    T.enable()
+    try:
+        prf = G.generate_proof_with_mask(zkey, wtns, G.Mask(17, 19), dev, timings)
+    finally:
+        T.disable()
+    phases = [timings[f"{p}_device_s"] for p in T.PHASES]
+    assert all(s > 0 for s in phases), phases
+    ev = PV.fused_graph(zkey, dev).events
+    whole = ev[0].elapsed_time(ev[-1]) / 1e3
+    assert abs(sum(phases) - whole) <= 0.02 * whole
+    proof_id, recorded = T.phases()[-1]
+    assert recorded == {p: s for p, s in zip(T.PHASES, phases)}
+    root = [r for r in T.records() if r.name == "proof"][-1]
+    assert root.proof == proof_id
+    assert G.verify_proof(G.extract_vkey(zkey), prf)

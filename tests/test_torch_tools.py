@@ -134,11 +134,11 @@ def test_device_kernels_takes_a_trace_again_until_its_launches_match(monkeypatch
 
 
 def test_cummax_callers_counts_scans_and_restores():
-    """profile_proof.cummax_callers counts each torch.cummax call under its
+    """measure.cummax_callers counts each torch.cummax call under its
     callers in the package (a plain Montgomery product scans once, in
     ops/field.py, which the frames skip) and puts torch.cummax back."""
     from groth16_tpu_torch.ops import field as F
-    from groth16_tpu_torch.tools.profile_proof import cummax_callers
+    from groth16_tpu_torch.tools.measure import cummax_callers
     scan = torch.cummax
     a = torch.arange(32, dtype=torch.int64).reshape(2, 16)
     with cummax_callers() as calls:
