@@ -31,9 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      a proof must call torch.cummax (the plain field arithmetic's carry
      scan) 0 times, and a proof must call the SpMV kernel once, Horner 5
      times, at most 10 doubling chains, fewer than 400 K1 kernels in all, no
-     K4, the fused tree level 80 times and the Fp negation once (the tree's
-     signed rows), K6 and K5 5 times each (`to_affine`), K2 once a fold
-     level of its four fold MSMs, and K3 4 times (Snarkjs) or 6 times
+     K4, the fused tree level 80 times and the Fp negation once where H1
+     takes the merge tree (`msm.tree_path`; never on the H100, where every
+     MSM folds), else neither, K6 and K5 5 times each (`to_affine`), K2 once
+     a fold level of each fold MSM, and K3 4 times (Snarkjs) or 6 times
      (JensGroth) with one pointwise kernel; the SpMV kernel (one wrapper
      call, two launches) against its plain version on the card at the 2^16
      proof's coefficients, at a seeded set with an empty row, a 2^16-entry
@@ -53,8 +54,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      and fused proofs timed in turns, the capture and the algebra timed;
      and one fused Snarkjs proof at 2^18 (`fused_big_phase`, above the JAX
      package's fused cap of 2^16) equal to its staged proof, both timed;
-  5. the H1 MSM (2^16 points) through the merge tree and through the fold,
-     timed against each other; both must give the same point;
+  5. the H1 MSM (2^16 points) through the merge tree (path="tree") and
+     through the fold, timed against each other; both must give the same
+     point;
   6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
      level-1 shape and at the 2^20 one, G2 at a small one, K4 timed beside
      it on the same planes;
@@ -142,7 +144,7 @@ K1_POINTS = 1 << 16
 # c = 13, 20 windows, streams of 2^16: level 0 affine at T = FOLD_T, then
 # the projective levels of msm.fold_schedule
 FOLD_LOG2 = 16
-FOLD_MSMS_PER_PROOF = 4
+FOLD_MSMS_PER_PROOF = 4   # and H1 (2^16 points) where it does not take the tree
 NTT_SIZES = (10, 15, 16, 17, 20)
 NTT_TIMED = (16, 20)
 QUOTIENT_SIZES = (16, 20)
@@ -727,10 +729,10 @@ WRAPPERS = (("point_add", "kernels", "proof"), ("point_double_n", "kernels", "pr
             ("phase_a_kernel", "kernels_tree", "tree phases"),
             ("mul_rows_kernel", "kernels_tree", "proof"),
             ("invert_kernel", "kernels_tree", "proof"),
-            ("level_kernel", "kernels_tree", "proof"),
+            ("level_kernel", "kernels_tree", "tree phases"),
             ("phase_b_kernel", "kernels_tree", "tree phases"),
             ("fp_mul_chain_kernel", "kernels", "fp products"),
-            ("spmv_kernel", "kernels", "proof"), ("fp_neg_kernel", "kernels", "proof"))
+            ("spmv_kernel", "kernels", "proof"), ("fp_neg_kernel", "kernels", "tree phases"))
 
 
 def _wrappers():
@@ -770,7 +772,8 @@ def main_path(dev):
     from groth16_tpu_torch.tools.measure import cummax_callers
     r1cs, wtns = synthetic_circuit(LOG2)
     m = 1 << FOLD_LOG2
-    fold_launches = FOLD_MSMS_PER_PROOF * len(M.fold_schedule(m))
+    h1_tree = M.tree_path(1 << LOG2, True)
+    fold_launches = (FOLD_MSMS_PER_PROOF + (not h1_tree)) * len(M.fold_schedule(m))
     inputs = []
     with tempfile.TemporaryDirectory() as tmp:
         for flavour in (G.Flavour.Snarkjs, G.Flavour.JensGroth):
@@ -825,8 +828,8 @@ def main_path(dev):
                                  f"doubling chains and fewer than {K1_MAX_PER_PROOF} K1 kernels "
                                  f"(got {k1})")
         k3, pointwise = QUOTIENT_LAUNCHES[flavour.value]
-        want = {"spmv_kernel": 1, "fp_neg_kernel": 1,
-                "level_kernel": LEVELS_PER_PROOF, "phase_a_kernel": 0,
+        want = {"spmv_kernel": 1, "fp_neg_kernel": int(h1_tree),
+                "level_kernel": LEVELS_PER_PROOF * h1_tree, "phase_a_kernel": 0,
                 "invert_kernel": TO_AFFINE_PER_PROOF, "mul_rows_kernel": TO_AFFINE_PER_PROOF,
                 "fold_level_kernel": fold_launches,
                 "ntt_inner_kernel": k3, "quotient_pointwise_kernel": pointwise}
@@ -1158,14 +1161,15 @@ def fused_big_phase(dev):
 
 
 def h1_tree_vs_fold(rng, dev, zkey):
-    """The H1 MSM (2^16 points) of the Snarkjs zkey through the merge tree,
-    as the main path runs it, and through the fold; same point, both timed."""
+    """The H1 MSM (2^16 points) of the Snarkjs zkey through the merge tree
+    (path="tree"; the main path folds it) and through the fold; same point,
+    both timed."""
     import torch
     from groth16_tpu_torch.ops import curve as C, msm as M
     pa = zkey.ppoints.points_h1
     P = C.from_affine(C.G1, torch.from_numpy(pa.x).to(dev), torch.from_numpy(pa.y).to(dev))
     s = random_scalars(rng, pa.x.shape[0], dev)
-    runs = {"tree": lambda: M.msm(C.G1, s, P, affine=True),
+    runs = {"tree": lambda: M.msm(C.G1, s, P, affine=True, path="tree"),
             "fold": lambda: M.msm(C.G1, s, P, affine=True, path="fold")}
     out, ms = {}, {}
     for name, fn in runs.items():
@@ -1247,7 +1251,7 @@ def chunked_msm(rng, dev):
     if not all(torch.equal(F.as_i32(a), F.as_i32(b))
                for a, b in zip(out["msm"], out["msm_chunked"])):
         raise AssertionError("msm_chunked differs from the unchunked msm")
-    c_seg, c_all = M.pick_window_bits_tree(1 << 20), M.pick_window_bits_tree(n)
+    c_seg, c_all = M._path_window_bits(1 << 20, True, "auto"), M._path_window_bits(n, True, "auto")
     print(f"msm_chunked == msm at 2^{LOG2_CHUNKED} (c = {c_seg} per segment, {c_all} unchunked)")
 
 
@@ -1369,7 +1373,7 @@ def batch_phase(dev, zkey):
 
 # The sharded phases (groth16_tpu_torch/parallel): the kernels every
 # rank's proof must launch; the merge tree's level kernel and its negation
-# run where a rank's slab of H1 reaches msm.TREE_MIN_N
+# run where a rank's slab of H1 takes the tree (msm.tree_path)
 SHARD_KERNELS = ("spmv_kernel", "ntt_inner_kernel", "quotient_pointwise_kernel", "point_add",
                  "horner", "fold_level_kernel", "invert_kernel", "mul_rows_kernel")
 SHARD_TREE_KERNELS = ("level_kernel", "fp_neg_kernel")
@@ -1434,7 +1438,7 @@ def sharded_proof_phase(singles, backend, world, devices, tmp) -> dict:
     out = tempfile.mkdtemp(dir=tmp)
     launch.spawn(sharded_proof_rank, world, backend, devices, zpaths, wpath, out)
     staged = "host-staged" if backend == "gloo" else "on the card"
-    tree = (1 << LOG2) // world >= M.TREE_MIN_N
+    tree = M.tree_path((1 << LOG2) // world, True)
     total = {}
     for rank in range(world):
         with open(os.path.join(out, f"rank{rank}.json")) as fh:

@@ -26,9 +26,13 @@ once: `generate_proofs(zkey, witnesses, device, masks)`.  The command line:
 
 On CUDA tensors a proof runs these kernels (groth16_tpu_torch/csrc, built by
 nvcc at first use): the SpMV, K1 (point adds, doubling chains, Horner), K2
-(the fold MSMs), K3 and the quotient's pointwise kernel, K8 (the merge
-tree's levels) with the Fp negation of its signed rows, and K6 and K5 only
-in `to_affine`; on CPU tensors their plain PyTorch versions run.
+(the fold MSMs), K3 and the quotient's pointwise kernel, and K6 and K5
+only in `to_affine`; an MSM forced onto the merge tree (`msm(...,
+path="tree")`) runs K8 (its levels) with the Fp negation of its signed
+rows.  On CPU tensors their plain PyTorch versions run.
+
+The tracer's counters `msm.fold` and `msm.tree` count the MSMs' bucket
+phases by the path each took.
 
 `tracer` (utils/timing.py) records the program's spans on the profiler's
 clock while a torch profiler records or after `tracer.enable()`, the

@@ -1,10 +1,11 @@
 """Multi-scalar multiplication (Pippenger, signed windows).
 
 Counterpart of groth16_tpu/ops/msm.py.  The bucket phase takes one of two
-paths, chosen as the JAX package chooses on the TPU (`tree_path`): affine
-MSMs of TREE_MIN_N (2^16) points and more go through the batched-affine
-merge tree (ops/msm_tree.py, kernels K4-K6 and K8); the rest through the
-segmented fold:
+paths (`tree_path`): the batched-affine merge tree (ops/msm_tree.py,
+kernels K4-K6 and K8), which the JAX package takes on the TPU from 2^16
+affine points, and the segmented fold.  On the H100 the fold is the faster
+at every measured size in both groups (TREE_MIN_N), so every MSM folds
+unless its caller forces the tree with path="tree".  The fold:
 
   1. signed (wNAF-style) window digits, |d| <= 2^(c-1), so a window has
      2^(c-1) + 1 buckets and a negative digit negates the point;
@@ -38,6 +39,7 @@ from . import field as F
 from .curve import CurveSpec
 from .kernels import FOLD_T, fold_level, fold_rows
 from .limbs import LIMB_BITS, N_LIMBS
+from ..utils import timing as T
 
 NBITS = 254  # BN254 scalars fit 254 bits
 
@@ -52,17 +54,24 @@ def pick_window_bits_tree(n: int) -> int:
     return max(4, min(16, max(1, n).bit_length() - 4))
 
 
-TREE_MIN_N = 1 << 16   # tree / fold crossover of groth16_tpu/ops/msm.py
+# The least n from which "auto" takes the merge tree; None: never.  The TPU's
+# is 2^16 (groth16_tpu/ops/msm.py).  On an H100 (tools/bench_tree_phases.py
+# crossover, affine points, full-width scalars) the tree lost to the fold at
+# every size from 2^16 to 2^21 in G1 (37.2 against 10.2 ms at 2^16, 116.3
+# against 22.8 at 2^21) and in G2 (41.1 against 13.9, 247.7 against 60.4),
+# and reserved 2-4 times the memory.
+TREE_MIN_N = None
 PATHS = ("auto", "tree", "fold")
 
 
 def tree_path(n: int, affine: bool, path: str = "auto") -> bool:
     """Whether an n-point MSM takes the merge tree (affine points only):
     `path` "tree" or "fold" forces the bucket phase, "auto" takes the tree
-    from TREE_MIN_N points (groth16_tpu/ops/msm.py:tree_path)."""
+    from TREE_MIN_N points, which is never on the H100."""
     if path not in PATHS:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-    return affine and (path == "tree" or (path == "auto" and n >= TREE_MIN_N))
+    auto = TREE_MIN_N is not None and n >= TREE_MIN_N
+    return affine and (path == "tree" or (path == "auto" and auto))
 
 
 def _path_window_bits(n: int, affine: bool, path: str) -> int:
@@ -198,9 +207,13 @@ def _weighted_bucket_reduce(cv: CurveSpec, buckets, n_buckets: int):
 def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
                 affine: bool = False, path: str = "auto"):
     """Per-window Pippenger sums (X, Y, Z) of [W, comp], before Horner: the
-    merge tree where `tree_path` says so, else the fold."""
+    merge tree where `tree_path` says so, else the fold.  Adds 1 to the
+    tracer's counter `msm.tree` or `msm.fold` (once a capture on the fused
+    path, where Python runs only while the graph is recorded)."""
     n = scalars_std.shape[0]
-    if tree_path(n, affine, path):
+    tree = tree_path(n, affine, path)
+    T.count("msm.tree" if tree else "msm.fold", 1)
+    if tree:
         from . import msm_tree as MT
         return MT.window_sums_tree(cv, scalars_std, P, c, MT.WINDOW_GROUP)
     dev = scalars_std.device
@@ -233,9 +246,9 @@ def msm(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False,
 
     `scalars_std`: uint32[N, 16] standard (non-Montgomery) form.  `P`:
     projective batch; `affine=True` when every Z is 0 or Montgomery 1 (the
-    zkey's wire-format points): from TREE_MIN_N points the merge tree runs,
-    below it the first fold level runs mixed adds on x|y rows.  `path`
-    forces the bucket phase (see `tree_path`)."""
+    zkey's wire-format points): the first fold level runs mixed adds on x|y
+    rows, or path="tree" runs the merge tree.  `path` forces the bucket
+    phase (see `tree_path`)."""
     n = scalars_std.shape[0]
     if n < 128:
         return msm_naive(cv, scalars_std, P)

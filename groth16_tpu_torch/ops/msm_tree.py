@@ -1,7 +1,9 @@
 """Batched-affine merge-tree MSM bucket accumulation.
 
 Counterpart of groth16_tpu/ops/msm_tree.py, the bucket phase of affine MSMs
-from TREE_MIN_N (2^16) points up (`msm.tree_path`).  Per window the points
+that msm(path="tree") takes (`msm.tree_path`; the JAX package takes it on
+the TPU from 2^16 points, the port's "auto" never on the H100, where the
+fold is faster, `msm.TREE_MIN_N`).  Per window the points
 are sorted by |digit|; a binary segmented merge tree over the sorted stream
 keeps every partial sum affine, so each addition is a chord / tangent at
 about 7 field products and one batch inversion per block of 512 serves the

@@ -16,10 +16,9 @@ device:
      as four batched K3 launches, then A .* B - C in one pointwise kernel;
      JensGroth also scales by 1/Z there, interpolates and un-shifts in two
      more K3 launches (reference prover.nim:118-181);
-  3. five MSMs: G1 over A1, B1, H1 and C1, G2 over B2, each on the path the
-     JAX package picks: H1 (as many points as the domain, 2^16 and up at
-     real sizes) through the merge tree (kernel K8 a level, the negation
-     kernel for its signed rows), the others through the fold (K2), with K1
+  3. five MSMs: G1 over A1, B1, H1 and C1, G2 over B2, each through the
+     fold (K2; `msm.tree_path`: on the H100 the merge tree, which the JAX
+     package takes for H1 on the TPU, is slower at every size), with K1
      for the bucket reduce and Horner;
   4. the O(1) spec-point algebra (prover.nim:278-302).
 

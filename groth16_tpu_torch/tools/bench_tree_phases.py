@@ -1,11 +1,13 @@
 """Phase by phase, where the time of a merge-tree MSM goes on the GPU.
 
     python3 -m groth16_tpu_torch.tools.bench_tree_phases [log2n] [group]
+    python3 -m groth16_tpu_torch.tools.bench_tree_phases crossover [G1,G2] [16,18,20,21] [bits]
 
 Counterpart of tools/bench_tree_phases.py.  A G1 MSM of 2^log2n points
 (default 2^20) at the tree's window (c = 16 at 2^20), windows in groups of
 `group` (default 4), on points made on the device as bench.py makes them
-(the generator times random 32-bit scalars, then wire-form affine).  Each
+(the generator times random 31-bit integers, then wire-form affine), with
+full-width scalars from a seed (`draw_scalars`).  Each
 phase is timed with CUDA events, mean of 3 after a warm-up:
 
   signed digits (all windows);
@@ -29,8 +31,13 @@ phase is timed with CUDA events, mean of 3 after a warm-up:
 point, then prints one line per phase and one JSON line of the phase times
 with the card's name and power limit and the peak device memory of the tree
 MSM.  The JAX tool's `lax.gather` offset-first variant is left out: it
-compared two XLA formulations of one gather, and PyTorch has one.  Needs one
-CUDA card; imports nothing of JAX.
+compared two XLA formulations of one gather, and PyTorch has one.
+
+`crossover` times the two bucket phases against each other, the sizes and
+the curves (G1, G2) on its command line, scalars full width or of `bits`
+bits: milliseconds and peak memory reserved of msm(path="fold") and
+msm(path="tree") at each size, from which `msm.TREE_MIN_N` is set.  Needs
+one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,21 +46,42 @@ import json
 import sys
 
 
-def make_points(n: int, device, seed: int = 7):
-    """n G1 points k_i G, k_i random 31-bit from a numpy seed, in wire form
-    (projective with Z = Montgomery 1).  The ladder runs on K1; the affine
-    conversion is `curve.to_affine` (K6, then one K5 launch; no Z is 0)."""
+def make_points(n: int, device, seed: int = 7, cv=None):
+    """n points k_i G of `cv` (default G1), k_i random 31-bit from a numpy
+    seed, in wire form (projective with Z = Montgomery 1).  The ladder runs
+    on K1; the affine conversion is `curve.to_affine` (K6, then one K5
+    launch; no Z is 0)."""
     import numpy as np
     import torch
     from groth16_tpu_torch.ops import curve as C
-    from groth16_tpu_torch.utils.hostmath import G1_GEN
+    from groth16_tpu_torch.utils.hostmath import G1_GEN, G2_GEN
+    cv = C.G1 if cv is None else cv
     rng = np.random.default_rng(seed)
     ks = rng.integers(1, 1 << 31, size=n, dtype=np.uint32)
     scal = np.zeros((n, 16), np.uint32)
     scal[:, 0], scal[:, 1] = ks & 0xFFFF, ks >> 16
-    gen = C.points_from_host(C.G1, [G1_GEN], device)
-    P = C.scalar_mul(C.G1, torch.from_numpy(scal).to(device), gen, 32)
-    return C.from_affine(C.G1, *C.to_affine(C.G1, P))
+    gen = C.points_from_host(cv, [G1_GEN if cv.name == "G1" else G2_GEN], device)
+    P = C.scalar_mul(cv, torch.from_numpy(scal).to(device), gen, 32)
+    return C.from_affine(cv, *C.to_affine(cv, P))
+
+
+R_TOP = 0x3064   # the top 16-bit limb of the BN254 group order r
+
+
+def draw_scalars(n: int, seed: int, bits: int = 254):
+    """uint32[n, 16] standard-form scalars (16-bit limbs) from a numpy seed:
+    at bits = 254 full width, uniform below R_TOP * 2^240 < r; below that,
+    uniform `bits`-bit."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
+    if bits >= 254:
+        limbs[:, 15] = rng.integers(0, R_TOP, size=n, dtype=np.uint32)
+        return limbs
+    full, rest = divmod(bits, 16)
+    limbs[:, full] &= (1 << rest) - 1
+    limbs[:, full + 1:] = 0
+    return limbs
 
 
 def level_case(rng, cv, K: int, device) -> tuple:
@@ -158,9 +186,7 @@ def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
     c = M.pick_window_bits_tree(n)
     nb = (1 << (c - 1)) + 1
     rng = np.random.default_rng(3)
-    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
-    limbs[:, 15] &= 0x3FFF
-    sc = torch.from_numpy(limbs).to(dev)
+    sc = torch.from_numpy(draw_scalars(n, 3)).to(dev)
     P = make_points(n, dev)
     ms = {}
 
@@ -262,12 +288,77 @@ def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
     return res
 
 
+def crossover(log2ns=(16, 18, 20, 21), curves=("G1", "G2"), bits: int = 254, device="cuda",
+              reps: int = 3) -> dict:
+    """The tree/fold crossover: msm(path="fold") against msm(path="tree") of
+    affine points at each 2^log2n of `log2ns`, in each curve of `curves`,
+    scalars of `bits` bits from a seed (`draw_scalars`).  Each path: mean
+    milliseconds of `reps` calls after a warm-up (CUDA events), and on a card
+    the peak memory reserved over its calls (`max_memory_reserved`, the
+    allocator's cache emptied and its peak reset before) beside what the
+    inputs hold.  Both paths must give one point.  Prints one line a size
+    and path and one JSON line with the card and the rows; returns it."""
+    import torch
+    from groth16_tpu_torch.ops import curve as C, field as F
+    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.tools import measure
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    rows = []
+    for name in curves:
+        cv = getattr(C, name)
+        for log2n in log2ns:
+            n = 1 << log2n
+            P = make_points(n, dev, cv=cv)
+            sc = torch.from_numpy(draw_scalars(n, 11 + log2n, bits)).to(dev)
+            points = []
+            for path in ("fold", "tree"):
+                out = []
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                inputs = torch.cuda.memory_allocated(dev) / 2**30 if on_card else None
+                ms = measure.time_ms(lambda: out.append(M.msm(cv, sc, P, affine=True, path=path)),
+                                     dev, reps)
+                peak = torch.cuda.max_memory_reserved(dev) / 2**30 if on_card else None
+                points.append(C.to_affine(cv, out[-1]))
+                del out
+                c = M.pick_window_bits_tree(n) if path == "tree" else M.pick_window_bits(n)
+                rows.append(dict(curve=name, log2n=log2n, path=path, c=c, ms=ms,
+                                 peak_reserved_gib=peak, inputs_gib=inputs,
+                                 auto=M.tree_path(n, True) == (path == "tree")))
+                print(f"{name} 2^{log2n} {path:4s} c={c:2d} {ms:10.3f} ms, peak reserved "
+                      + ("not measured (cpu)" if peak is None
+                         else f"{peak:.3f} GiB ({inputs:.3f} GiB inputs)"), flush=True)
+            if not all(torch.equal(F.as_i32(u), F.as_i32(v)) for u, v in zip(*points)):
+                raise AssertionError(f"{name} 2^{log2n}: the tree and the fold give two points")
+            del P, sc, points
+    res = {"tool": "bench_tree_phases.crossover", "card": measure.card_line(dev), "bits": bits,
+           "reps": reps, "rows": rows}
+    print(json.dumps(res))
+    return res
+
+
+USAGE = """usage: bench_tree_phases [log2n] [group]
+       bench_tree_phases crossover [G1,G2] [16,18,20,21] [bits]"""
+
+
 def main(argv=None) -> int:
     import torch
     args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("bench_tree_phases: needs a CUDA device", file=sys.stderr)
         return 2
+    if args and args[0] == "crossover":
+        curves = args[1].split(",") if len(args) > 1 else ("G1", "G2")
+        log2ns = [int(v) for v in args[2].split(",")] if len(args) > 2 else (16, 18, 20, 21)
+        if set(curves) - {"G1", "G2"}:
+            print(USAGE, file=sys.stderr)
+            return 2
+        crossover(log2ns, curves, int(args[3]) if len(args) > 3 else 254)
+        return 0
     run(int(args[0]) if args else 20, int(args[1]) if len(args) > 1 else 4)
     return 0
 

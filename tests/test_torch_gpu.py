@@ -5,8 +5,8 @@ strided and point-major operands included), the SpMV and the Fp negation
 kernels, `to_affine` on the card against the CPU, the merge-tree MSM, the
 chunked MSM, one small proof and a batch of proofs on the card, and the
 fused path's CUDA graph (one capture per zkey, device and flavour; replays
-equal to the staged proofs).  Marked `gpu`: they skip without CUDA.  On a GPU
-machine (no JAX needed):
+equal to the staged proofs, and equal across the tree/fold crossover).
+Marked `gpu`: they skip without CUDA.  On a GPU machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_gpu.py
 """
@@ -329,6 +329,20 @@ def test_msm_chunked_on_the_card(dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_tree_and_fold_agree_on_the_card(dev, cv):
+    """msm(path="tree") (K8 a level, the Fp negation, K6 and K5) and
+    msm(path="fold") at 2^16 points, full-width scalars: one point."""
+    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.tools.bench_tree_phases import draw_scalars, make_points
+    n = 1 << 16
+    P = make_points(n, dev, cv=cv)
+    s = torch.from_numpy(draw_scalars(n, 16)).to(dev)
+    tree, fold = (C.to_affine(cv, M.msm(cv, s, P, affine=True, path=p)) for p in ("tree", "fold"))
+    assert _same(tree, fold)
+
+
+@pytest.mark.gpu
 def test_tree_msm_on_the_card(dev):
     from test_torch_tree import adversarial_case, tree_msm
     ks, pts, want = adversarial_case(C.G1, 40, seed=40)
@@ -499,3 +513,37 @@ def test_fused_phase_events_split_the_replay(dev):
     root = [r for r in T.records() if r.name == "proof"][-1]
     assert root.proof == proof_id
     assert G.verify_proof(G.extract_vkey(zkey), prf)
+
+
+@pytest.mark.gpu
+def test_fused_proof_equal_across_the_crossover(dev, monkeypatch):
+    """A fused 2^16 proof with the port's crossover (every MSM folds)
+    equals the same proof with msm.TREE_MIN_N put back at the TPU's 2^16
+    (H1 on the merge tree), and both verify.  The capture counts each MSM's
+    bucket phase once: with the port's rule no tree and five folds."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.protocol import prover as PV
+    T = G.tracer
+    r1cs, wtns = synthetic_circuit(16)
+    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
+    names = ("msm.tree", "msm.fold")
+    proofs, counts = [], []
+    for tree_min_n in (M.TREE_MIN_N, 1 << 16):
+        monkeypatch.setattr(M, "TREE_MIN_N", tree_min_n)
+        fp = PV.FusedProof(zkey, dev)
+        fp.warm_up()
+        before = T.counters()
+        fp.capture()
+        after = T.counters()
+        counts.append(tuple(after.get(k, 0) - before.get(k, 0) for k in names))
+        del fp
+        for key in [k for k in zkey.device_cache if isinstance(k, tuple) and k[0] == "fused"]:
+            del zkey.device_cache[key]
+        proofs.append(G.generate_proof_with_mask(zkey, wtns, G.Mask(17, 19), dev, fused=True))
+    assert counts[0] == (0, 5)
+    assert counts[1][0] >= 1 and sum(counts[1]) == 5
+    a, b = proofs
+    assert (a.pi_a, a.pi_b, a.pi_c, a.public_io) == (b.pi_a, b.pi_b, b.pi_c, b.public_io)
+    assert G.verify_proof(G.extract_vkey(zkey), a)

@@ -98,27 +98,54 @@ def test_msm_chunked_one_segment_and_ragged_length():
         M.msm_chunked(C.G1, ks, P, 8, device="cpu")             # 300 is not a multiple of 256
 
 
-def test_tree_and_fold_paths_agree(monkeypatch):
-    """msm(path="tree") and msm(path="fold") at n = 512 (below the tree's
-    crossover, so "auto" folds): one affine point, the host's.  The tree's
-    window group is widened to 64 here only to keep the plain (CPU) levels
-    few: every group pays one plain Fermat inversion per level."""
+@pytest.mark.parametrize("cv,n", [(C.G1, 512), (C.G2, 128)], ids=["G1", "G2"])
+def test_tree_and_fold_paths_agree(monkeypatch, cv, n):
+    """msm(path="tree") and msm(path="fold") (G1 at n = 512, G2 at 128):
+    one affine point, the host's.  The tree's window group is widened to 64
+    here only to keep the plain (CPU) levels few: every group pays one plain
+    Fermat inversion per level."""
     from groth16_tpu_torch.ops import msm_tree as MT
     monkeypatch.setattr(MT, "WINDOW_GROUP", 64)
-    ks, P, want = _host_case(C.G1, 512, seed=6)
+    ks, P, want = _host_case(cv, n, seed=6)
     s, P = torch.from_numpy(ks), tuple(torch.from_numpy(c) for c in P)
     for path in ("tree", "fold"):
-        got = M.msm(C.G1, s, P, affine=True, path=path)
-        assert C.points_to_host(C.G1, tuple(c[None] for c in got)) == [want], path
+        got = M.msm(cv, s, P, affine=True, path=path)
+        assert C.points_to_host(cv, tuple(c[None] for c in got)) == [want], path
 
 
 def test_tree_path_takes_the_callers_path():
-    for n in (128, 1 << 16):
+    """"tree" and "fold" force the bucket phase (the tree takes affine
+    points only); "auto" folds at every size, the crossover measured on the
+    H100 (the merge tree lost there from 2^16 to 2^21 points)."""
+    assert M.TREE_MIN_N is None
+    for n in (128, 1 << 16, 1 << 20):
         assert M.tree_path(n, True, "tree") and not M.tree_path(n, True, "fold")
         assert not M.tree_path(n, False, "tree")
-    assert M.tree_path(1 << 16, True, "auto") and not M.tree_path(512, True, "auto")
+        assert not M.tree_path(n, True, "auto") and not M.tree_path(n, True)
     with pytest.raises(ValueError):
         M.tree_path(512, True, "merge")
+
+
+@pytest.mark.parametrize("path,affine,counter",
+                         [("auto", True, "msm.fold"), ("fold", True, "msm.fold"),
+                          ("tree", True, "msm.tree"), ("tree", False, "msm.fold")],
+                         ids=["auto", "fold", "tree", "tree-projective"])
+def test_msm_counts_its_bucket_phase(monkeypatch, path, affine, counter):
+    """An MSM adds 1 to the tracer's counter of the bucket phase it took,
+    `msm.tree` or `msm.fold`, and nothing to the other; its point is the
+    host's (128 G1 points, the fewest that leave the naive ladder)."""
+    from groth16_tpu_torch.ops import msm_tree as MT
+    from groth16_tpu_torch.utils import timing as T
+    monkeypatch.setattr(MT, "WINDOW_GROUP", 64)
+    ks, P, want = _host_case(C.G1, 128, seed=8)
+    s, P = torch.from_numpy(ks), tuple(torch.from_numpy(c) for c in P)
+    names = ("msm.tree", "msm.fold")
+    before = T.counters()
+    got = M.msm(C.G1, s, P, affine=affine, path=path)
+    after = T.counters()
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in names} == \
+        {k: int(k == counter) for k in names}
+    assert C.points_to_host(C.G1, tuple(c[None] for c in got)) == [want]
 
 
 def test_digits_and_window_heuristic_match_jax():

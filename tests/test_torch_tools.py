@@ -32,6 +32,32 @@ def test_tree_phases_run_on_the_cpu(monkeypatch):
     assert len(res["phases_ms"]) == 14
 
 
+def test_tree_crossover_runs_on_the_cpu(monkeypatch):
+    """The crossover sweep at 2^7 G1 points through the plain versions: a
+    fold row and a tree row, the fold the path "auto" takes, one point."""
+    monkeypatch.setattr(MT, "WINDOW_GROUP", 64)
+    res = BT.crossover([7], ["G1"], 254, "cpu", reps=1)
+    assert res["card"] == "cpu" and res["bits"] == 254
+    assert [(r["curve"], r["log2n"], r["path"], r["auto"]) for r in res["rows"]] == \
+        [("G1", 7, "fold", True), ("G1", 7, "tree", False)]
+    assert [r["c"] for r in res["rows"]] == [5, 4]
+    assert all(r["peak_reserved_gib"] is None for r in res["rows"])
+
+
+@pytest.mark.parametrize("bits", [254, 32, 40])
+def test_draw_scalars_width(bits):
+    """draw_scalars: a seed gives the same scalars; full width stays below
+    r with its top limb in use; `bits` bits stay below 2^bits and reach its
+    top half."""
+    from groth16_tpu_torch.ops.limbs import limbs_to_ints
+    from groth16_tpu_torch.utils.hostmath import R
+    a, b = BT.draw_scalars(4096, 5, bits), BT.draw_scalars(4096, 5, bits)
+    assert a.shape == (4096, 16) and a.dtype == np.uint32 and np.array_equal(a, b)
+    ks = limbs_to_ints(a)
+    top = R if bits >= 254 else 1 << bits
+    assert max(ks) < top and max(ks) >= top // 2
+
+
 def test_mul_kernels_run_on_the_cpu():
     res = BM.run(8, 256, "cpu", reps=1)
     assert res["max_abs_err"] == 0 and "sass_multiplies" not in res

@@ -74,13 +74,20 @@ def test_tree_msm_one_bucket_and_tiny():
 
 
 def test_dispatch_matches_jax():
+    """The tree's window and window group are the JAX package's; the
+    crossover is the port's own.  On the H100 the merge tree lost to the
+    fold at every size from 2^16 to 2^21 points in G1 and in G2 alike, so
+    "auto" folds at every size in both (one rule, `tree_path` takes no
+    curve), where the JAX package takes the tree on the TPU from 2^16."""
     from groth16_tpu.ops import msm as JM
-    assert M.TREE_MIN_N == JM.TREE_MIN_N
+    assert M.TREE_MIN_N is None and JM.TREE_MIN_N == 1 << 16
     assert MT.WINDOW_GROUP == 4
     for n in (1, 128, 65535, 65536, 1 << 20, 1 << 22):
         assert M.pick_window_bits_tree(n) == JM.pick_window_bits_tree(n)
-        assert M.tree_path(n, True) == (n >= JM.TREE_MIN_N)
-        assert not M.tree_path(n, False)
+        assert not M.tree_path(n, True) and not M.tree_path(n, False)
+        assert M.tree_path(n, True, "tree") and not M.tree_path(n, False, "tree")
+        assert M._path_window_bits(n, True, "auto") == M.pick_window_bits(n)
+        assert M._path_window_bits(n, True, "tree") == M.pick_window_bits_tree(n)
 
 
 # ---------------------------------------------------------------------------
