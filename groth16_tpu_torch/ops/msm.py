@@ -208,8 +208,10 @@ def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
                 affine: bool = False, path: str = "auto"):
     """Per-window Pippenger sums (X, Y, Z) of [W, comp], before Horner: the
     merge tree where `tree_path` says so, else the fold.  Adds 1 to the
-    tracer's counter `msm.tree` or `msm.fold` (once a capture on the fused
-    path, where Python runs only while the graph is recorded)."""
+    tracer's counter `msm.tree` or `msm.fold`, and on the fold the m points
+    it folds (n padded to a power of two) to `msm.fold_points` and the m - n
+    padding points to `msm.pad_points` (once a capture on the fused path,
+    where Python runs only while the graph is recorded)."""
     n = scalars_std.shape[0]
     tree = tree_path(n, affine, path)
     T.count("msm.tree" if tree else "msm.fold", 1)
@@ -219,6 +221,8 @@ def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
     dev = scalars_std.device
     keys = signed_window_digits(scalars_std, c)
     m = max(FOLD_T, 1 << max(0, (n - 1).bit_length()))
+    T.count("msm.fold_points", m)
+    T.count("msm.pad_points", m - n)
     if affine:
         # x|y rows, (0, 0) = infinity (from_affine encodes it as (0 : 1 : 0))
         y = cv.fops.select(cv.fops.is_zero(P[2]), torch.zeros_like(P[1]), P[1])

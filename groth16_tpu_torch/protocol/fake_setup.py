@@ -6,10 +6,16 @@ in-memory ZKey, on any device.
 
   * Lagrange taus L_k(tau) of the whole domain from ONE inverse NTT of
     [tau^i] (kernel K3 on CUDA);
-  * the per-wire A/B/C column taus from one gather, one Montgomery multiply
-    and one int64 segment sum;
+  * the per-wire A/B/C column taus from a gather, one Montgomery multiply
+    and an int64 segment sum a slice of the R1CS's entries;
   * every point family as a windowed fixed-base ladder: 32 table gathers and
     32 complete adds (kernel K1 on CUDA) per point.
+
+Every step whose work grows with the circuit runs in slices of SLICE rows
+(entries, wires, domain points or points), so that the device memory the
+set-up takes at once stays bounded whatever the circuit's size: a
+Montgomery product in plain PyTorch holds about 10 KB a row while it runs.
+Slices change no byte: every value is canonical.
 
 Byte-identical to the JAX package's setup for the same toxic waste.
 """
@@ -26,7 +32,6 @@ import torch
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import ntt as NT
-from ..ops.kernels import segment_sum_mod
 from ..ops.field import FP, FR
 from ..ops.limbs import ints_to_limbs_bulk
 from ..utils import hostmath as H
@@ -38,6 +43,13 @@ from .types import (
 )
 
 R = FR.modulus
+
+# Rows a step of the set-up takes at once: R1CS entries, wires or domain
+# points of Fr arithmetic (about 2.6 GB of a Montgomery product's
+# intermediates at 2^18), or points of a fixed-base ladder.  A 2^16 circuit
+# (num2bits16's 256,069 entries, the 2^17 Lagrange powers) sets up in one
+# slice.
+SLICE = 1 << 18
 
 
 @dataclass
@@ -83,35 +95,70 @@ def _flatten_terms(r1cs: R1CS):
              ints_to_limbs_bulk(cvals)))
 
 
-def r1cs_to_coeffs(r1cs: R1CS, terms=None) -> Coeffs:
-    """Sparse A/B coefficients incl. the snarkjs dummy A-rows (reference
-    r1csToCoeffs, fake_setup.nim:46-65), values in Montgomery form."""
-    (mats, rows, cols, vals_std), _ = terms or _flatten_terms(r1cs)
-    coeff = F.to_mont(FR, torch.from_numpy(vals_std)).numpy()
-    return Coeffs(matrix=mats, row=rows, col=cols, coeff=coeff)
+def _slices(n: int) -> list:
+    """[start, end) of each slice of n rows (one empty slice where n = 0)."""
+    return [(s, min(n, s + SLICE)) for s in range(0, max(n, 1), SLICE)]
+
+
+def _by_slice(n: int, fn, device, span: str) -> torch.Tensor:
+    """uint32 [n, 16] on `device`, rows [s, e) from fn(s, e), a span `span`
+    (recorded always) a slice."""
+    out = torch.empty((n, 16), dtype=torch.uint32, device=device)
+    for s, e in _slices(n):
+        with T.span(span, always=True):
+            out[s:e] = fn(s, e).to(torch.uint32)
+    return out
+
+
+def _const(x: int, device) -> torch.Tensor:
+    return F.const(FR.to_mont_limbs(x), device)
+
+
+def _powers(tau: int, n: int, device) -> torch.Tensor:
+    """[tau^i]_{i<n}, Montgomery uint32 [n, 16]: `field.powers` over the
+    first slice, each later slice the first times tau^start."""
+    first = F.powers(FR, _const(tau, device), min(n, SLICE))
+
+    def part(s, e):
+        return first[:e - s] if s == 0 else F.mont_mul(FR, first[:e - s],
+                                                        _const(pow(tau, s, R), device))
+    return _by_slice(n, part, device, "fake_setup.taus.slice")
 
 
 def lagrange_taus(dom: NT.Domain, tau: int, device) -> torch.Tensor:
     """[L_k(tau)]_k as uint32[N, 16] Montgomery limbs via ONE inverse NTT:
     iNTT([tau^i])_k = w^k (tau^N - 1) / (N (tau - w^k)) = L_k(tau)."""
-    tau_m = F.const(FR.to_mont_limbs(tau), device)
-    return NT.inverse_ntt(dom, F.powers(FR, tau_m, dom.size).to(torch.uint32))
+    return NT.inverse_ntt(dom, _powers(tau, dom.size, device))
 
 
 def _column_taus(r1cs: R1CS, lag: torch.Tensor, terms):
     """Per-wire tau-evaluations of the A/B/C column polynomials (reference
-    fake_setup.nim:253-266, dummy rows :159-187): int64 Montgomery [nvars, 16]
-    each."""
+    fake_setup.nim:253-266, dummy rows :159-187), Montgomery uint32 [nvars,
+    16] each on lag's device, and the A/B coefficient stream in Montgomery
+    form (uint32 [entries, 16], host; reference r1csToCoeffs,
+    fake_setup.nim:46-65).  Each slice of entries takes its coefficients to
+    Montgomery form, multiplies them by their rows' taus and adds the
+    products into an int64 column sum; the sums are reduced a slice of
+    wires at a time."""
     m = r1cs.cfg.n_wires
     dev = lag.device
     (mats, rows, cols, vals_std), (crows, ccols, cvals_std) = terms
-    all_rows = torch.from_numpy(np.concatenate([rows, crows]).astype(np.int64)).to(dev)
-    seg = np.concatenate([cols.astype(np.int64) + mats.astype(np.int64) * m,
-                          ccols.astype(np.int64) + 2 * m])
-    vals = torch.from_numpy(np.concatenate([vals_std, cvals_std])).to(dev)
-    prods = F.mont_mul(FR, F.to_mont(FR, F.i64(vals)), F.i64(F.as_i32(lag)[all_rows]))
-    t_all = segment_sum_mod(prods, torch.from_numpy(seg).to(dev), 3 * m)
-    return t_all[:m], t_all[m:2 * m], t_all[2 * m:]
+    lag32 = F.as_i32(lag)
+    acc = torch.zeros((3 * m, 16), dtype=torch.int64, device=dev)
+    coeff = np.empty_like(vals_std)
+    for rw, seg, vals, out in ((rows, cols.astype(np.int64) + mats.astype(np.int64) * m, vals_std,
+                                coeff), (crows, ccols.astype(np.int64) + 2 * m, cvals_std, None)):
+        for s, e in _slices(len(rw)):
+            with T.span("fake_setup.taus.slice", always=True):
+                v = F.to_mont(FR, F.i64(torch.from_numpy(vals[s:e]).to(dev)))
+                if out is not None:
+                    out[s:e] = v.to(torch.uint32).cpu().numpy()
+                at = torch.from_numpy(rw[s:e].astype(np.int64)).to(dev)
+                acc.index_add_(0, torch.from_numpy(seg[s:e]).to(dev),
+                               F.mont_mul(FR, v, F.i64(lag32[at])))
+    t_all = _by_slice(3 * m, lambda s, e: F.reduce_columns(FR, acc[s:e]), dev,
+                      "fake_setup.taus.slice")
+    return t_all[:m], t_all[m:2 * m], t_all[2 * m:], coeff
 
 
 _FB_WINDOW_BITS = 8  # fixed-base window width: 32 windows x 256-entry tables
@@ -128,7 +175,8 @@ def _fb_table(cv_name: str, device: str) -> tuple:
 def fixed_base_mul(cv: C.CurveSpec, exps_std: torch.Tensor):
     """Projective [k_i] G for a uint32[n, 16] standard-form scalar batch:
     byte w of k_i picks T[byte, w], and 32 complete adds sum the picks one
-    window at a time (a batch of n points live, whatever n)."""
+    window at a time (a batch of n points live: `fixed_base_points` hands
+    it a slice at a time)."""
     dev = exps_std.device
     table = _fb_table(cv.name, str(dev))
     d = C.window_digits(exps_std, _FB_WINDOW_BITS)
@@ -139,9 +187,16 @@ def fixed_base_mul(cv: C.CurveSpec, exps_std: torch.Tensor):
 
 
 def fixed_base_points(cv: C.CurveSpec, exps_std: torch.Tensor) -> PointArray:
-    """[k_i] G as a wire-layout PointArray; zero scalars give (0, 0)."""
-    x, y = C.to_affine(cv, fixed_base_mul(cv, exps_std))
-    return PointArray(x=x.cpu().numpy(), y=y.cpu().numpy())
+    """[k_i] G as a wire-layout PointArray; zero scalars give (0, 0).  SLICE
+    points at a time go up the ladder, to affine and to the host, each
+    slice the span `fake_setup.points.slice` (recorded always)."""
+    xs, ys = [], []
+    for s, e in _slices(exps_std.shape[0]):
+        with T.span("fake_setup.points.slice", always=True):
+            x, y = C.to_affine(cv, fixed_base_mul(cv, exps_std[s:e]))
+            xs.append(x.cpu().numpy())
+            ys.append(y.cpu().numpy())
+    return PointArray(x=np.concatenate(xs), y=np.concatenate(ys))
 
 
 def fake_circuit_setup(r1cs: R1CS, toxic: ToxicWaste, flavour: Flavour,
@@ -149,8 +204,12 @@ def fake_circuit_setup(r1cs: R1CS, toxic: ToxicWaste, flavour: Flavour,
     """Reference fakeCircuitSetup (fake_setup.nim:201-326) on `device`.
     The span `fake_setup` (recorded always) holds its steps:
     `fake_setup.spec` (host products and the pairing), `.terms`
-    (`_flatten_terms`), `.taus` (the exponents, up to a synchronization),
-    `.points` (the six `fixed_base_points`) and `.coeffs`."""
+    (`_flatten_terms`), `.taus` (the exponents and the Montgomery
+    coefficients, up to a synchronization), `.points` (the six
+    `fixed_base_points`) and `.coeffs`; `.taus.slice` and `.points.slice`
+    are one slice each inside them.  On a CUDA device the tracer's counter
+    `fake_setup.peak_bytes` keeps the largest device reserve
+    (`torch.cuda.max_memory_reserved`) seen at a set-up's end."""
     device = torch.device(device)
     with T.span("fake_setup", always=True):
         neqs = r1cs.n_constr
@@ -175,33 +234,40 @@ def fake_circuit_setup(r1cs: R1CS, toxic: ToxicWaste, flavour: Flavour,
                 alpha_beta=PR.pairing(alpha1, beta2),
             )
 
-        def mont(x):
-            return F.const(FR.to_mont_limbs(x), device)
-
         def std(x):
             return F.from_mont(FR, x).to(torch.uint32)
+
+        def scaled(src, k: int):
+            """std(src[s:e] * k) a slice at a time."""
+            return lambda s, e: std(F.mont_mul(FR, src[s:e], _const(k, device)))
+
+        def sliced(n, fn):
+            return _by_slice(n, fn, device, "fake_setup.taus.slice")
 
         with T.span("fake_setup.terms", always=True):
             terms = _flatten_terms(r1cs)
         with T.span("fake_setup.taus", always=True):
             dom = NT.Domain(log2)
             lag = lagrange_taus(dom, toxic.tau, device)
-            ta, tb, tc = _column_taus(r1cs, lag, terms)
-            combo = F.add_mod(FR, F.add_mod(FR, F.mont_mul(FR, ta, mont(toxic.beta)),
-                                            F.mont_mul(FR, tb, mont(toxic.alpha))), tc)
-            ic_exp = std(F.mont_mul(FR, combo[:npub + 1], mont(pow(toxic.gamma, -1, R))))
+            ta, tb, tc, coeff = _column_taus(r1cs, lag, terms)
+            del lag
+            ab = (_const(toxic.beta, device), _const(toxic.alpha, device))
+            combo = sliced(nvars, lambda s, e: F.add_mod(FR, F.add_mod(
+                FR, F.mont_mul(FR, ta[s:e], ab[0]), F.mont_mul(FR, tb[s:e], ab[1])), tc[s:e]))
+            ic_exp = sliced(npub + 1, scaled(combo, pow(toxic.gamma, -1, R)))
             delta_inv = pow(toxic.delta, -1, R)
-            c1_exp = std(F.mont_mul(FR, combo[npub + 1:], mont(delta_inv)))
+            c1_exp = sliced(nvars - npub - 1, scaled(combo[npub + 1:], delta_inv))
             if flavour == Flavour.JensGroth:
                 # [delta^-1 tau^i Z(tau)]_1 (fake_setup.nim:292-294)
                 z_tau = (pow(toxic.tau, dom_size, R) - 1) % R
-                pw = F.powers(FR, mont(toxic.tau), dom_size)
-                h_exp = std(F.mont_mul(FR, pw, mont(delta_inv * z_tau % R)))
+                pw = _powers(toxic.tau, dom_size, device)
+                h_exp = sliced(dom_size, scaled(pw, delta_inv * z_tau % R))
             else:
                 # [delta^-1 L_{2i+1}(tau)]_1 on the 2N domain (fake_setup.nim:301-304)
                 lag2 = lagrange_taus(NT.Domain(log2 + 1), toxic.tau, device)
-                h_exp = std(F.mont_mul(FR, F.i64(lag2[1::2]), mont(delta_inv)))
-            ta_std, tb_std = std(ta), std(tb)
+                h_exp = sliced(dom_size, scaled(lag2[1::2], delta_inv))
+            del combo, tc
+            ta_std, tb_std = (sliced(nvars, lambda s, e, t=t: std(t[s:e])) for t in (ta, tb))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         with T.span("fake_setup.points", always=True):
@@ -212,7 +278,10 @@ def fake_circuit_setup(r1cs: R1CS, toxic: ToxicWaste, flavour: Flavour,
                                    fixed_base_points(C.G1, c1_exp),
                                    fixed_base_points(C.G1, h_exp))
         with T.span("fake_setup.coeffs", always=True):
-            coeffs = r1cs_to_coeffs(r1cs, terms)
+            mats, rows, cols, _ = terms[0]
+            coeffs = Coeffs(matrix=mats, row=rows, col=cols, coeff=coeff)
+        if device.type == "cuda":
+            T.peak("fake_setup.peak_bytes", torch.cuda.max_memory_reserved(device))
         return ZKey(header=header, spec=spec, vpoints=vpoints, ppoints=ppoints, coeffs=coeffs)
 
 

@@ -179,6 +179,12 @@ def count(name: str, value) -> None:
         _counters[name] = _counters.get(name, 0) + value
 
 
+def peak(name: str, value) -> None:
+    """Keep the larger of the counter `name` and `value`."""
+    with _counters_lock:
+        _counters[name] = max(_counters.get(name, value), value)
+
+
 def records() -> list:
     """The recorder's Records, oldest first (at most LIMIT)."""
     return list(_records)
