@@ -918,7 +918,8 @@ def fused_phase(dev, singles, staged):
     proof in both flavours:
       - a FusedProof warmed up, then captured with every launch count set to
         0 just before: the capture must launch what the staged proof
-        launched without its five `to_affine` (K6, K5), plus what the
+        launched without its five `to_affine` (K6, K5) and with one Horner
+        an entry of `prover.CHAIN_LAUNCHES` for its five, plus what the
         spec-point algebra and the fused path's two `to_affine` launch,
         counted on their own over the core's MSM results; no torch.cummax;
         the capture's time and the memory allocated after it printed;
@@ -981,6 +982,8 @@ def fused_phase(dev, singles, staged):
         want = {k: staged[name][k] + alg[k] for k in captured}
         for k in ("invert_kernel", "mul_rows_kernel"):
             want[k] = alg[k]        # the staged proof's five to_affine, the fused path's two
+        # the staged proof's five Horners, the fused core's one an entry of CHAIN_LAUNCHES
+        want["horner"] = alg["horner"] + len(PV.CHAIN_LAUNCHES)
         print(f"fused {name}: warm-up {t1 - t0:.3f} s, capture {t2 - t1:.3f} s; after it "
               f"{held:.4f} GiB more allocated (the static buffers and the proof buffer), "
               f"{pool:.4f} GiB more reserved (with the graph's pool); "

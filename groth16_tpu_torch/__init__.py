@@ -32,12 +32,14 @@ path="tree")`) runs K8 (its levels) with the Fp negation of its signed
 rows.  On CPU tensors their plain PyTorch versions run.
 
 The tracer's counters `msm.fold` and `msm.tree` count the MSMs' bucket
-phases by the path each took.
+phases by the path each took, `msm.side_chains` the Horner chains the
+fused path runs on side streams.
 
 `tracer` (utils/timing.py) records the program's spans on the profiler's
 clock while a torch profiler records or after `tracer.enable()`, the
-device time of each phase of a fused proof, and counters such as the
-graph pool's size (`tracer.records()`, `phases()`, `counters()`).
+device time of each phase of a fused proof and of its side branch, and
+counters such as the graph pool's size (`tracer.records()`, `phases()`,
+`side_chains()`, `counters()`).
 """
 
 from .protocol.types import Flavour, VKey, ZKey, Witness, R1CS, extract_vkey, zkey_from_numpy

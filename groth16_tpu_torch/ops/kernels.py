@@ -65,11 +65,18 @@ def _aligned(tensors) -> list:
     return ptrs
 
 
-def _k1_launch(fn_name: str, cv, ins, out_shape, *tail):
-    """Allocate three output coordinates, launch one K1 function on the
-    current stream and raise on a launch error."""
+def _k1_launch(fn_name: str, cv, ins, out_shape, *tail, out=None):
+    """Launch one K1 function on the current stream into `out` (three
+    contiguous uint32 coordinates of `out_shape` on the inputs' device;
+    allocated here where None) and raise on a launch error."""
     dev = ins[0].device
-    outs = [torch.empty(out_shape, dtype=torch.uint32, device=dev) for _ in range(3)]
+    if out is None:
+        out = [torch.empty(out_shape, dtype=torch.uint32, device=dev) for _ in range(3)]
+    elif len(out) != 3 or any(o.shape != torch.Size(out_shape) or o.dtype != torch.uint32
+                              or o.device != dev or not o.is_contiguous() for o in out):
+        raise ValueError(f"{fn_name} writes three contiguous uint32 coordinates of "
+                         f"{tuple(out_shape)} on {dev}")
+    outs = list(out)
     rc = getattr(cuda.lib(), fn_name)(int(cv.name == "G2"), *_aligned(ins + outs), *tail,
                                       cuda.stream_ptr(dev))
     cuda.check(rc, f"{fn_name} kernel")
@@ -114,10 +121,11 @@ def horner_shape(cv: C.CurveSpec, sums) -> tuple:
     return lead[:-1], lead[-1]
 
 
-def horner(cv: C.CurveSpec, sums, c: int):
+def horner(cv: C.CurveSpec, sums, c: int, out=None):
     """K1 Horner: sum_w 2^(c w) S_w of CUDA window sums [W, comp] (or
-    [B, W, comp]: one thread per independent Horner) in one launch.
-    Replaces groth16_tpu/ops/kernels.py:288 `_point_call` as
+    [B, W, comp]: one thread per independent Horner) in one launch, into
+    `out` where given (three coordinates of [..., comp]; allocated here
+    where None).  Replaces groth16_tpu/ops/kernels.py:288 `_point_call` as
     groth16_tpu/ops/msm.py:515 `horner_combine` drives it (one `lax.scan` in
     one program there); bound on this card by the latency of one thread's
     (W - 1)(9 c + 14) serial products.  Plain version: `curve.horner_plain`."""
@@ -127,7 +135,8 @@ def horner(cv: C.CurveSpec, sums, c: int):
     B = 1
     for d in batch:
         B *= d
-    out = _k1_launch("g16_horner", cv, _cuda_inputs(tuple(sums)), batch + cv.comp_shape, B, W, c)
+    out = _k1_launch("g16_horner", cv, _cuda_inputs(tuple(sums)), batch + cv.comp_shape, B, W, c,
+                     out=out)
     horner.launches += 1
     return out
 

@@ -25,8 +25,10 @@ Every projective point operation goes through `curve.point_add`,
 `point_double_n` and `horner` (kernel K1 on CUDA tensors: the doubling
 chains of the bucket reduce and the whole Horner are one launch each).  Below 128 points the batched
 double-and-add ladder (`msm_naive`) runs instead.  `msm_chunked` streams
-point sets larger than one device segment.  Results are projective; their
-affine forms equal the JAX package's for the same inputs.
+point sets larger than one device segment.  The fused prover stops each
+MSM before step 4 (`msm_sums`) and runs the Horners beside the next MSMs'
+bucket phases (`SideChains`).  Results are projective; their affine forms
+equal the JAX package's for the same inputs.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 from . import curve as C
 from . import field as F
 from .curve import CurveSpec
+from . import kernels as KN
 from .kernels import FOLD_T, fold_level, fold_rows
 from .limbs import LIMB_BITS, N_LIMBS
 from ..utils import timing as T
@@ -258,6 +261,121 @@ def msm(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False,
         return msm_naive(cv, scalars_std, P)
     c = _path_window_bits(n, affine, path)
     return horner_combine(cv, window_sums(cv, scalars_std, P, c, affine, path), c)
+
+
+def msm_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False,
+             path: str = "auto"):
+    """`msm` up to its Horner: (window sums (X, Y, Z) of [W, comp], their
+    width c) where a bucket phase runs, or (`msm`'s point, None) below 128
+    points, where no Horner follows."""
+    n = scalars_std.shape[0]
+    if n < 128:
+        return msm(cv, scalars_std, P, affine, path), None
+    c = _path_window_bits(n, affine, path)
+    return window_sums(cv, scalars_std, P, c, affine, path), c
+
+
+class SideChains:
+    """The Horner chains of several MSMs, run beside the bucket phases that
+    follow them.
+
+    `horner(cv, parts)` takes `msm_sums` results of one curve, ready on the
+    current stream, and returns each MSM's point: the Horners of the parts
+    with window sums come from one K1 launch (so their sums must share one
+    width), the finished points pass through.  On CUDA
+    tensors each launch forks a side stream of its own from the current
+    stream, so that no chain queues behind another (a G2 chain beside K2
+    can outlast the next two bucket phases); the side streams come from
+    the high-priority pool, apart from the default-priority streams a
+    capture or a warm-up runs on, so a fork never lands on the stream it
+    forks from (the priority itself did not move a replay's time on an
+    H100).  The sums are
+    stacked and the outputs allocated on the current stream before the
+    fork, so no side stream allocates (in a CUDA graph's pool every stream
+    that allocates gets segments of its own), and both are held until the
+    last `join`, so that no later allocation on the current stream takes
+    their blocks while a chain reads or writes them.  `join(k)` makes the
+    current stream wait for the chains of the first k points `horner`
+    returned, `join()` for all of them: call it before reading a point,
+    and `join()` before a capture ends.  Each launch adds its chains to the
+    tracer's counter `msm.side_chains` (once a capture on the fused path).
+    `marks`, where given, is a pair of timing events recorded on the side
+    streams, before the first launch and after the last chain ends.  On
+    CPU tensors nothing forks: the same launches run inline, through the
+    plain version."""
+
+    def __init__(self, marks=None):
+        self.marks = marks
+        self.forked = 0           # chains forked
+        self.launches: list = []  # (side stream, event after its launch)
+        self.source: list = []    # the index in `launches` of each point returned, or None
+        self.held: list = []      # what the launches since the last full join read and write
+
+    def horner(self, cv: CurveSpec, parts) -> list:
+        out = [x for x, _ in parts]
+        todo = [i for i, (_, c) in enumerate(parts) if c is not None]
+        source = [None] * len(parts)
+        if todo:
+            got = self._launch(cv, [parts[i] for i in todo])
+            for k, i in enumerate(todo):
+                out[i] = got if len(todo) == 1 else tuple(x[k] for x in got)
+                source[i] = len(self.launches) - 1 if got[0].is_cuda else None
+        self.source += source
+        return out
+
+    def _launch(self, cv: CurveSpec, parts) -> tuple:
+        """One Horner launch over the window sums of `parts` (one width)."""
+        c = parts[0][1]
+        if any(w != c for _, w in parts):
+            raise ValueError(f"one Horner launch takes sums of one width, got "
+                             f"{[w for _, w in parts]}")
+        if len(parts) == 1:
+            sums = tuple(x.contiguous() for x in parts[0][0])
+        else:
+            sums = tuple(F.as_u32(torch.stack([F.as_i32(x[j]) for x, _ in parts]))
+                         for j in range(3))
+        dev = sums[0].device
+        if dev.type == "cpu":
+            return C.horner(cv, sums, c)
+        got = tuple(torch.empty(sums[0].shape[:-1 - len(cv.comp_shape)] + cv.comp_shape,
+                                dtype=torch.uint32, device=dev) for _ in range(3))
+        side = self._fork(dev)
+        self.held += [sums, got]
+        if self.marks is not None and not self.launches:
+            self.marks[0].record(side)
+        with torch.cuda.stream(side):
+            KN.horner(cv, sums, c, out=got)
+        done = torch.cuda.Event()
+        done.record(side)
+        self.launches.append((side, done))
+        self.forked += len(parts)
+        T.count("msm.side_chains", len(parts))
+        return got
+
+    def _fork(self, dev) -> torch.cuda.Stream:
+        """A side stream, after the current stream's work so far."""
+        side = torch.cuda.Stream(dev, priority=-1)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        return side
+
+    def join(self, k: int | None = None) -> None:
+        """The current stream waits for the chains of the first k points
+        `horner` returned, or for every chain where k is None (the side
+        streams join into the last one, which records the end mark)."""
+        if k is not None:
+            for i in sorted({i for i in self.source[:k] if i is not None}):
+                side, done = self.launches[i]
+                torch.cuda.current_stream(side.device).wait_event(done)
+            return
+        if not self.held:
+            return
+        side, _ = self.launches[-1]
+        for _, done in self.launches[:-1]:
+            side.wait_event(done)
+        if self.marks is not None:
+            self.marks[1].record(side)
+        torch.cuda.current_stream(side.device).wait_stream(side)
+        self.held.clear()
 
 
 def _on(device, x) -> torch.Tensor:

@@ -29,7 +29,9 @@ affine conversion on the device with no host round trip and no branch on
 device data; on a CUDA device it is captured once per (zkey, device,
 flavour) as a CUDA graph (`FusedProof`, which also holds the spec points
 and the window tables of delta1 and delta2 on the device), and a proof is
-one replay, whose only device-to-host traffic is the three proof points.  `fused=None` takes
+one replay, whose only device-to-host traffic is the three proof points;
+there the MSMs' Horner chains run on side streams beside the next bucket
+phases (`core_msms`, `msm.SideChains`).  `fused=None` takes
 the fused path on a CUDA device and the staged one on the CPU, where no
 graph exists; both give the same proof for the same mask.
 
@@ -241,7 +243,7 @@ def mask_limbs(mask: Mask) -> np.ndarray:
     return ints_to_limbs([r, s, (-r * s) % FR.modulus])
 
 
-def spec_algebra(spec: DeviceSpec, msms, mask_std: torch.Tensor) -> tuple:
+def spec_algebra(spec: DeviceSpec, msms, mask_std: torch.Tensor, join=None) -> tuple:
     """The masked spec-point algebra of reference prover.nim:278-302 on the
     device (the JAX package's prove_core_device, prover.py:231-281), of the
     five MSM results (A1, B1, B2, H1, C1; projective, no batch axis) and the
@@ -254,15 +256,24 @@ def spec_algebra(spec: DeviceSpec, msms, mask_std: torch.Tensor) -> tuple:
 
     r delta1, s delta1, -rs delta1 and s delta2 from the window tables
     (`table_mul`), s pi_a and r rho as one batch of two (`window_mul`).
-    Returns projective (pi_a, pi_b, pi_c)."""
-    msm_a, msm_b1, msm_b2, msm_h, msm_c = (tuple(c[None] for c in P) for P in msms)
+    What reads only the masks and the spec points runs first, then what
+    reads A1 and B1, the ladder among it, then the rest.  `join(k)`, where
+    given, is called before the first read of the first k MSM results
+    (`msm.SideChains.join`: k = 2, then every result), so that the ladder
+    runs while the last chains may still run.  Returns projective (pi_a,
+    pi_b, pi_c)."""
+    join = join or _no_join
     fixed = table_mul(C.G1, spec.delta1, mask_std)                     # r, s, -rs delta1
     s_delta2 = table_mul(C.G2, spec.delta2, mask_std[1:2])
     a_rho = C.point_add(C.G1, spec.alpha1_beta1, tuple(c[:2] for c in fixed))
-    a_rho = C.point_add(C.G1, a_rho, C.cat_points([msm_a, msm_b1]))   # pi_a, rho
-    pi_b = C.point_add(C.G2, C.point_add(C.G2, spec.beta2, s_delta2), msm_b2)
+    b_s = C.point_add(C.G2, spec.beta2, s_delta2)
     s_r = F.as_u32(torch.stack([F.as_i32(mask_std[1]), F.as_i32(mask_std[0])]))
+    msm_a, msm_b1, msm_b2, msm_h, msm_c = (tuple(c[None] for c in P) for P in msms)
+    join(2)
+    a_rho = C.point_add(C.G1, a_rho, C.cat_points([msm_a, msm_b1]))   # pi_a, rho
     post = window_mul(C.G1, a_rho, s_r)                                  # s pi_a, r rho
+    join()
+    pi_b = C.point_add(C.G2, b_s, msm_b2)
     pi_c = C.tree_sum(C.G1, C.cat_points([post, tuple(c[2:] for c in fixed), msm_h, msm_c]))
     return tuple(c[0] for c in a_rho), tuple(c[0] for c in pi_b), pi_c
 
@@ -288,32 +299,57 @@ def _no_mark(phase: str) -> None:
     pass
 
 
+def _no_join(k: int | None = None) -> None:
+    pass
+
+
+# The Horner launches of the five MSMs, in the order their window sums are
+# ready: A1 and B1 share one (one n, so one width); H1 and C1 differ in
+# width at 2^16, and each launch forks a side stream of its own, so they go
+# apart.
+CHAIN_LAUNCHES = (("msm_a1", "msm_b1"), ("msm_b2",), ("msm_h1",), ("msm_c1",))
+
+
 def core_msms(flavour: Flavour, log2n: int, static: DeviceZKey,
-              witness_std: torch.Tensor, mark=None) -> tuple:
+              witness_std: torch.Tensor, mark=None, chains=None) -> tuple:
     """The SpMV, the quotient and the five MSMs of one proof (projective A1,
     B1, B2, H1, C1 sums), each MSM on the path the staged proof takes.  The
     public part of the witness is what C1 does not cover.  `mark(phase)`,
-    where given, is called as each phase of `timing.PHASES` ends."""
+    where given, is called as each phase of `timing.PHASES` ends: an MSM's
+    phase is its bucket phase (`msm.msm_sums`).  The Horner chains go to
+    `chains` (an `msm.SideChains`) one launch of CHAIN_LAUNCHES at a time,
+    as its window sums are ready, so that on CUDA tensors they run beside
+    the bucket phases that follow; the caller joins `chains` before it
+    reads a result.  Without `chains` they run in one of its own, joined
+    before the return."""
     mark = mark or _no_mark
+    own = chains is None
+    if own:
+        chains = M.SideChains()
     az, bz, cz = KN.spmv(witness_std, static.rows)
     mark("spmv")
     qs = quotient_scalars(flavour, az, bz, cz, log2n)
     mark("quotient")
     zs = witness_std[witness_std.shape[0] - static.c1[0].shape[0]:]
+    sets = {"msm_a1": (C.G1, witness_std, static.a1), "msm_b1": (C.G1, witness_std, static.b1),
+            "msm_b2": (C.G2, witness_std, static.b2), "msm_h1": (C.G1, qs, static.h1),
+            "msm_c1": (C.G1, zs, static.c1)}
     out = []
-    for phase, cv, scalars, P in (("msm_a1", C.G1, witness_std, static.a1),
-                                  ("msm_b1", C.G1, witness_std, static.b1),
-                                  ("msm_b2", C.G2, witness_std, static.b2),
-                                  ("msm_h1", C.G1, qs, static.h1),
-                                  ("msm_c1", C.G1, zs, static.c1)):
-        out.append(M.msm(cv, scalars, P, affine=True))
-        mark(phase)
+    for launch in CHAIN_LAUNCHES:
+        parts = []
+        for phase in launch:
+            cv, scalars, P = sets[phase]
+            parts.append(M.msm_sums(cv, scalars, P, affine=True))
+            mark(phase)
+        out += chains.horner(cv, parts)
+    if own:
+        chains.join()
     return tuple(out)
 
 
 def prove_core_device(flavour: Flavour, log2n: int, static: DeviceZKey, spec: DeviceSpec,
                       witness_std: torch.Tensor, mask_std: torch.Tensor,
-                      mark=None) -> torch.Tensor:
+                      mark=None, chains=None) -> torch.Tensor:
     """One whole proof's device work (the JAX package's prove_core_device,
     groth16_tpu/protocol/prover.py:205-282): SpMV, quotient, five MSMs, the
     spec-point algebra and the affine conversion, with no host round trip
@@ -325,9 +361,13 @@ def prove_core_device(flavour: Flavour, log2n: int, static: DeviceZKey, spec: De
     It runs eagerly on any device: on CPU tensors through the plain
     versions of the kernels.  `mark(phase)`, where given, is called as each
     phase of `timing.PHASES` ends (the fused graph records a timing event
-    there); the eager and CPU paths pass none."""
+    there); the eager and CPU paths pass none.  The MSMs' Horner chains run
+    in `chains` (an `msm.SideChains`; one of its own where None), on side
+    streams on CUDA tensors, joined inside the phase `algebra`."""
     mark = mark or _no_mark
-    pts = spec_algebra(spec, core_msms(flavour, log2n, static, witness_std, mark), mask_std)
+    chains = chains if chains is not None else M.SideChains()
+    msms = core_msms(flavour, log2n, static, witness_std, mark, chains)
+    pts = spec_algebra(spec, msms, mask_std, chains.join)
     mark("algebra")
     buf = proof_buffer(*pts)
     mark("affine")
@@ -434,9 +474,14 @@ class FusedProof:
     at 2^16) for as long as the object lives.
     The core records a timing event (`events`) before it and at the end of
     each phase of `timing.PHASES`, in every capture; the graph holds them
-    as event-record nodes, which take no pool memory.  While tracing is
+    as event-record nodes, which take no pool memory.  The MSMs' Horner
+    chains run on side streams (`msm.SideChains`), between a pair of timing
+    events of their own (`side_marks`); `side_chains` is the number of
+    chains the last run of the core forked.  While tracing is
     on, `replay()` reads each phase's device seconds into `phases` and the
-    tracer; off, it reads nothing."""
+    tracer, and the side branch's, first launch to last, into
+    `side_chains_s` and the tracer (`timing.record_side_chains`); off, it
+    reads nothing."""
 
     def __init__(self, zkey: ZKey, device):
         self.device = torch.device(_device_key(device))
@@ -461,14 +506,21 @@ class FusedProof:
         self.events = [torch.cuda.Event(enable_timing=True, external=True)
                        for _ in range(len(T.PHASES) + 1)]
         self.phases: dict = {}
+        self.side_marks = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                                for _ in range(2))
+        self.side_chains = 0
+        self.side_chains_s = None
 
     def _mark(self, phase: str) -> None:
         self.events[T.PHASES.index(phase) + 1].record()
 
     def _core(self) -> torch.Tensor:
         self.events[0].record()
-        return prove_core_device(self.flavour, self.log2n, self.static, self.spec, self.witness,
-                                 self.mask, self._mark)
+        chains = M.SideChains(self.side_marks)
+        out = prove_core_device(self.flavour, self.log2n, self.static, self.spec, self.witness,
+                                self.mask, self._mark, chains)
+        self.side_chains = chains.forked
+        return out
 
     def warm_up(self) -> None:
         """One eager run of the core on a side stream (PyTorch's recipe
@@ -509,7 +561,8 @@ class FusedProof:
         buffer, copied to the host (the one synchronization of a proof):
         the spans `replay` (the launch) and `copy_back` (the copy and the
         synchronization).  While tracing is on, each phase's device seconds
-        then go to `phases` and to the tracer under the open proof's id."""
+        then go to `phases` and to the tracer under the open proof's id, and
+        the side branch's to `side_chains_s` and the tracer."""
         if self.graph is None:
             raise RuntimeError("replay before capture")
         with torch.cuda.device(self.device):
@@ -521,8 +574,12 @@ class FusedProof:
         ev = self.events
         self.phases = {p: ev[i].elapsed_time(ev[i + 1]) / 1e3
                        for i, p in enumerate(T.PHASES)} if T.on() else {}
+        self.side_chains_s = None
         if self.phases:
             T.record_phases(self.phases)
+            if self.side_chains:
+                self.side_chains_s = self.side_marks[0].elapsed_time(self.side_marks[1]) / 1e3
+                T.record_side_chains(self.side_chains_s)
         return self.host_out.numpy().view(np.uint32).copy()
 
 

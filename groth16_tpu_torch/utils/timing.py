@@ -22,10 +22,10 @@ Tracing is on while a torch profiler records, or between `enable()` and
 span without a sink costs one check and a shared null context, and
 records nothing.
 
-The recorder, the device phases (`record_phases`) and the counters
-(`count`) live at module level, bounded, so that they outlive the zkey
-whose proofs filled them; `records()`, `phases()` and `counters()` read
-them.
+The recorder, the device phases (`record_phases`), the side branch's
+device seconds (`record_side_chains`) and the counters (`count`) live at
+module level, bounded, so that they outlive the zkey whose proofs filled
+them; `records()`, `phases()`, `side_chains()` and `counters()` read them.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ class Record(NamedTuple):
 
 _records: deque = deque(maxlen=LIMIT)
 _phases: deque = deque(maxlen=LIMIT)     # (proof id, {phase: device seconds})
+_side: deque = deque(maxlen=LIMIT)       # (proof id, side branch device seconds)
 _counters: dict = {}
 _counters_lock = threading.Lock()
 _index = itertools.count()
@@ -173,6 +174,14 @@ def record_phases(seconds: dict) -> None:
     _phases.append((current_proof(), dict(seconds)))
 
 
+def record_side_chains(seconds: float) -> None:
+    """Keep one fused proof's side-branch device seconds (its MSMs' Horner
+    chains, `msm.SideChains`: from before the first launch to after the
+    last) under the id of the proof open on this thread, apart from the
+    phases of PHASES, which the side branch overlaps."""
+    _side.append((current_proof(), seconds))
+
+
 def count(name: str, value) -> None:
     """Add `value` to the counter `name`, which starts at 0."""
     with _counters_lock:
@@ -196,14 +205,22 @@ def phases() -> list:
     return list(_phases)
 
 
+def side_chains() -> list:
+    """[(proof id, side branch device seconds)] of the traced fused
+    proofs, oldest first (at most LIMIT)."""
+    return list(_side)
+
+
 def counters() -> dict:
     with _counters_lock:
         return dict(_counters)
 
 
 def clear() -> None:
-    """Empty the recorder, the phases and the counters."""
+    """Empty the recorder, the phases, the side branch's seconds and the
+    counters."""
     _records.clear()
     _phases.clear()
+    _side.clear()
     with _counters_lock:
         _counters.clear()

@@ -3,7 +3,9 @@
 (utils/hostmath.py) and the JAX package's point_double / point_add, and the
 kernels' per-thread arithmetic built with g++ (csrc/bn254_host_shim.cpp:
 shim_point_double_n, shim_horner, shim_field_inv, shim_tree_invert) against
-the plain versions and `pow(a, p - 2, p)`.  Tolerance 0 throughout: exact
+the plain versions and `pow(a, p - 2, p)`; the
+fused core's MSM step with its chains deferred (`msm.msm_sums`,
+`msm.SideChains`) against `msm.msm`.  Tolerance 0 throughout: exact
 integer arithmetic, canonical residues."""
 
 import ctypes
@@ -18,6 +20,7 @@ from groth16_tpu.ops import curve as JC
 from groth16_tpu_torch.ops import cuda, curve as C, field as F, kernels_tree as KT, msm as M
 from groth16_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from groth16_tpu_torch.utils import hostmath as H
+from groth16_tpu_torch.utils import timing as TR
 
 # The suite runs six worker processes on a few cores: one intra-op thread
 # each keeps them from oversubscribing the CPU.
@@ -132,6 +135,53 @@ def test_chain_headers_match_plain(shim, cv):
     shim.shim_horner(g2, B, W, c, _ptrs(flat), _ptrs(outs))
     plain = C.horner_plain(cv, S, c)
     assert all(np.array_equal(o, p.numpy()) for o, p in zip(outs, plain))
+
+
+@pytest.mark.parametrize("cv,sizes", [(C.G1, (8, 128, 128)), (C.G2, (4, 128))],
+                         ids=["G1", "G2"])
+def test_side_chains_equal_msm(cv, sizes, monkeypatch):
+    """The fused core's MSM step (`msm_sums`, then one `SideChains.horner`
+    over MSMs of one curve, the chains deferred) gives `msm`'s points, bit
+    for bit: below 128 points `msm`'s naive point passes through, MSMs at
+    the fold's size share one launch (a batch of Horners); sums of two
+    widths in one launch are refused.  The bucket phase and the naive MSM
+    are stand-ins, sums of the points' neighbours (the fold tests and
+    tests/test_torch_fused_guard.py hold the real ones; here they would
+    cost seconds each).  On CPU tensors nothing forks: `msm.side_chains`
+    does not move and `join` has nothing to wait for."""
+    fo, g = _group(cv)
+    pts, acc = [], None
+    for _ in range(max(sizes)):                                 # (i + 1) G
+        acc = H.ec_add(fo, acc, g)
+        pts.append(acc)
+    P = C.points_from_host(cv, pts, "cpu")
+    rng = np.random.default_rng(5)
+    cases = []
+    for n in sizes:
+        limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
+        limbs[:, 15] &= 0x2FFF
+        cases.append((torch.from_numpy(limbs), tuple(x[:n] for x in P)))
+
+    def sums(cv, s, P, c, *args):
+        W = -(-(M.NBITS + 1) // c)
+        k = int(s[0, 0]) % 8                                    # other sums for other scalars
+        return C.point_add(cv, tuple(x[k:k + W] for x in P), tuple(x[k + 1:k + W + 1] for x in P))
+
+    monkeypatch.setattr(M, "msm_naive", lambda cv, s, P: tuple(x[-1].clone() for x in P))
+    monkeypatch.setattr(M, "window_sums", sums)
+    before = TR.counters().get("msm.side_chains", 0)
+    chains = M.SideChains()
+    parts = [M.msm_sums(cv, s, P, affine=True) for s, P in cases]
+    assert [c for _, c in parts] == [None if n < 128 else M.pick_window_bits(n) for n in sizes]
+    got = chains.horner(cv, parts)
+    chains.join()
+    assert chains.forked == 0 and TR.counters().get("msm.side_chains", 0) == before
+    for (s, P), pt in zip(cases, got):
+        want = M.msm(cv, s, P, affine=True)
+        assert all(torch.equal(F.as_i32(x), F.as_i32(y)) for x, y in zip(pt, want))
+    wide = (parts[-1][0], parts[-1][1] + 1)
+    with pytest.raises(ValueError):
+        chains.horner(cv, [parts[-1], wide])
 
 
 def _field_cases(n, seed):

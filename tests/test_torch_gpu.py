@@ -96,7 +96,8 @@ def test_point_kernel_matches_plain(dev, cv):
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_point_chain_kernels_match_plain(dev, cv):
     """K1's doubling chain and Horner (one window axis and a batch of
-    Horners) with infinities and two equal windows, bit for bit."""
+    Horners, into given outputs too) with infinities and two equal
+    windows, bit for bit."""
     from groth16_tpu_torch.protocol.fake_setup import fixed_base_mul
     rng = np.random.default_rng(3)
     n = 600
@@ -113,6 +114,13 @@ def test_point_chain_kernels_match_plain(dev, cv):
     one = tuple(x[1] for x in S)
     assert _same(KN.horner(cv, one, c), C.horner_plain(cv, one, c))
     assert KN.horner(cv, one, c)[0].shape == cv.comp_shape
+    out = tuple(torch.empty((B,) + cv.comp_shape, dtype=torch.uint32, device=dev)
+                for _ in range(3))
+    got = KN.horner(cv, S, c, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    assert _same(out, C.horner_plain(cv, S, c))
+    with pytest.raises(ValueError):
+        KN.horner(cv, S, c, out=tuple(x[:2] for x in out))
     torch.cuda.synchronize()
 
 
@@ -513,6 +521,69 @@ def test_fused_phase_events_split_the_replay(dev):
     root = [r for r in T.records() if r.name == "proof"][-1]
     assert root.proof == proof_id
     assert G.verify_proof(G.extract_vkey(zkey), prf)
+
+
+def _pool_capture(fp) -> tuple:
+    """Warm `fp` up and capture it: (the device memory the capture reserved,
+    the tracer's `msm.side_chains` across the capture)."""
+    from groth16_tpu_torch.utils import timing as T
+    fp.warm_up()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(fp.device)
+    chains = T.counters().get("msm.side_chains", 0)
+    fp.capture()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_reserved(fp.device) - reserved,
+            T.counters().get("msm.side_chains", 0) - chains)
+
+
+@pytest.mark.gpu
+def test_fused_side_chains_replays_equal_staged(dev, monkeypatch):
+    """The fused core's Horner chains on side streams at 2^12: one
+    capture forks its five chains (`msm.side_chains`); 20 replays
+    alternating two witnesses and the three masks of fused_cases.MASKS are
+    byte-equal to the fused=False proofs (a side-branch read of a block the
+    main stream took back would change a proof); traced, a replay records
+    the side branch's device seconds; and the capture's pool is no larger
+    than that of the same core with its chains inline on the main stream
+    (no side stream allocates)."""
+    from fused_cases import MASKS
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import synthetic_circuit
+    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.protocol import prover as PV
+    T = G.tracer
+    r1cs = synthetic_circuit(12)[0]
+    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
+    ws = [synthetic_circuit(12, seed)[1] for seed in (42, 43)]
+    staged = {(i, j): G.generate_proof_with_mask(zkey, w, m, dev, fused=False)
+              for i, w in enumerate(ws) for j, m in enumerate(MASKS)}
+    fp = PV.FusedProof(zkey, dev)
+    pool, chains = _pool_capture(fp)
+    assert chains == 5 and fp.side_chains == 5
+    for k in range(20):
+        i, j = k % 2, k % 3
+        fp.load(ws[i], MASKS[j])
+        got = PV.proof_points(fp.replay())
+        want = staged[i, j]
+        assert got == (want.pi_a, want.pi_b, want.pi_c), (k, i, j)
+    T.enable()
+    try:
+        fp.load(ws[0], MASKS[1])
+        fp.replay()
+    finally:
+        T.disable()
+    assert fp.side_chains_s is not None and fp.side_chains_s > 0
+    assert T.side_chains()[-1][1] == fp.side_chains_s
+    del fp
+    monkeypatch.setattr(M.SideChains, "_fork", lambda self, d: torch.cuda.current_stream(d))
+    inline = PV.FusedProof(zkey, dev)
+    pool_inline, _ = _pool_capture(inline)
+    inline.load(ws[1], MASKS[2])
+    want = staged[1, 2]
+    assert PV.proof_points(inline.replay()) == (want.pi_a, want.pi_b, want.pi_c)
+    assert pool <= pool_inline, (pool, pool_inline)
 
 
 @pytest.mark.gpu
