@@ -17,94 +17,89 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel at 2^10-2^20, K4 at the level-1 lanes of the H1 and 2^20 trees
      and a G2 level, K5 at a proof's `to_affine` (G1, G2), on column views
      of a row (W = 4096, 2048, 2^16) and on 2^20 point-major coordinates
-     (profiled in step 17), the batch
+     (profiled in step 16), the batch
      inversion K6 at widths from 1 to 2^17 (a zero among the totals), the
      fused tree level K8 at the H1 MSM's levels 1 and 2, a narrow level, the
      2^20 tree's level 1 and a G2 level, and `to_affine` on the card (one K6
      and one K5 launch) against the CPU;
   4. the main path: synthetic_circuit(16) (65,533 constraints, domain 2^16),
      the port's fake setup on the card, write_zkey / write_witness to a temp
-     directory, parse_zkey / parse_witness, generate_proof_with_mask with a
-     fixed mask on the staged path (fused=False), in both flavours; each
-     proof must pass verify_proof,
+     directory, parse_zkey / parse_witness, and a proof with a fixed mask
+     from the core run eagerly on the card (`prove_core_device`'s two
+     parts, no graph), in both flavours; each proof must pass verify_proof,
      every kernel of the proof path must have launched during the proofs,
      a proof must call torch.cummax (the plain field arithmetic's carry
-     scan) 0 times, and a proof must call the SpMV kernel once, Horner 5
-     times, at most 10 doubling chains, fewer than 400 K1 kernels in all, no
-     K4, the fused tree level 80 times and the Fp negation once where H1
-     takes the merge tree (`msm.tree_path`; never on the H100, where every
-     MSM folds), else neither, K6 and K5 5 times each (`to_affine`), K2 once
-     a fold level of each fold MSM, and K3 4 times (Snarkjs) or 6 times
-     (JensGroth) with one pointwise kernel; the SpMV kernel (one wrapper
+     scan) 0 times, a proof's MSMs (`core_msms`) must call the SpMV kernel
+     once, Horner 4 times (`prover.CHAIN_LAUNCHES`), at most 10 doubling
+     chains, fewer than 400 K1 kernels in all, no tree kernel (K4, K8, the
+     Fp negation), no K6 or K5, K2 once a fold level of each of the five
+     MSMs, and K3 4 times (Snarkjs) or 6 times (JensGroth) with one
+     pointwise kernel, and its algebra K6 and K5 twice each (`to_affine`);
+     the SpMV kernel (one wrapper
      call, two launches) against its plain version on the card at the 2^16
      proof's coefficients, at a seeded set with an empty row, a 2^16-entry
      row and repeated columns, and at a seeded power-law set (2^16 rows of
      Zipf lengths up to 2^15, about 2^19 entries), and the Fp negation at
      2^16 G1 coordinates with infinities, bit-exact and timed beside their
      bounds; one 2^16 quotient per flavour and `points_to_host` of a
-     proof's five MSM results registered for the profiles (step 17); and
+     proof's five MSM results registered for the profiles (step 16); and
      the quotient on the card against its plain version on the card at
-     2^16 and 2^20, both flavours, timed beside its bound; then the fused
-     path of both flavours (`fused_phase`, prover.FusedProof: one CUDA
-     graph a proof): the capture's launches must be the staged proof's
-     without its five `to_affine`, plus the spec-point algebra's and two
-     `to_affine`; replays through generate_proof_with_mask's default path
-     (the main witness and BATCH_SEEDS') call no kernel wrapper and no
-     torch.cummax and equal their fused=False proofs, which verify; staged
-     and fused proofs timed in turns, the capture and the algebra timed;
-     and one fused Snarkjs proof at 2^18 (`fused_big_phase`, above the JAX
-     package's fused cap of 2^16) equal to its staged proof, both timed;
-  5. the H1 MSM (2^16 points) through the merge tree (path="tree") and
-     through the fold, timed against each other; both must give the same
-     point;
-  6. K7 (the tree's mid kernel) against its plain version, G1 at the H1
+     2^16 and 2^20, both flavours, timed beside its bound; then the proof's
+     CUDA graph in both flavours (`fused_phase`, prover.FusedProof: one
+     graph a proof): the capture's launches must be those of the eager
+     core's two parts; replays through generate_proof_with_mask (the main
+     witness and BATCH_SEEDS') call no kernel wrapper and no torch.cummax
+     and equal the eager core's proofs (`eager_proof`), which verify;
+     replays and the eager core timed in turns, the capture and the
+     algebra timed; and one Snarkjs proof at 2^18 (`fused_big_phase`,
+     above the JAX package's fused cap of 2^16) equal to the eager core's,
+     both timed;
+  5. K7 (the tree's mid kernel) against its plain version, G1 at the H1
      level-1 shape and at the 2^20 one, G2 at a small one, K4 timed beside
      it on the same planes;
-  7. the Fp-product path: tools/bench_mul_kernels.run, K9 against its plain
+  6. the Fp-product path: tools/bench_mul_kernels.run, K9 against its plain
      version and host ints, timed, with the opcode mix of one product read
      from K9's SASS, the multiply issue rates an SM a clock that the bound
      rests on (mad.lo, mad.wide, the carry-chain pair, mad.hi);
-  8. the tree-phase path: tools/bench_tree_phases.run at 2^20 G1 points, the
+  7. the tree-phase path: tools/bench_tree_phases.run at 2^20 G1 points, the
      merge tree's phases timed (K4, K7; K5 in the halvings); its level-1 mid
      must equal the plain K7 on the same inputs, the halvings (K5 on views,
      into halves of one output) + narrow inversion must equal the one wide
-     K6 launch on the level-1 totals, and the tree, the fold and
-     msm(path="auto") must give one point;
-  9. the fold-phase path: tools/bench_fold_phases at 2^20 G1 points (each K2
+     K6 launch on the level-1 totals, and the tree (`msm_tree.msm`) and the
+     fold (`msm.msm`) must give one point;
+  8. the fold-phase path: tools/bench_fold_phases at 2^20 G1 points (each K2
      level, the bucket reduce, Horner, the fold MSM's peak memory; the
-     phases must give msm(path="fold")'s point);
- 10. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
+     phases must give msm.msm's point);
+  9. msm_chunked at 2^21 points from host numpy in two segments of 2^20,
      equal to the unchunked MSM at 2^21;
- 11. batch mode: generate_proofs over four witnesses of the 2^16 circuit
-     (seeds 42-45) with fixed masks against a freshly parsed zkey, on the
-     default (fused) path and with fused=False: each proof verifies and
-     equals generate_proof_with_mask of its witness and mask and the other
-     path's, and the zkey goes to the card once; each proof's time, the
-     first apart, and each batch's proofs/s, with the card's name and power
-     limit;
- 12. K3 at rank 1's local steps of a two-rank sharded quotient at 2^16 and
+ 10. batch mode: generate_proofs over four witnesses of the 2^16 circuit
+     (seeds 42-45) with fixed masks against a freshly parsed zkey: each
+     proof verifies and equals generate_proof_with_mask of its witness and
+     mask and the eager core's proof, and the zkey goes to the card once;
+     each proof's time, the first apart, and the batch's proofs/s, with
+     the card's name and power limit;
+ 11. K3 at rank 1's local steps of a two-rank sharded quotient at 2^16 and
      2^20 (parallel/ntt_shard.steps: split strides, table slabs) against
      its plain version on the card, bit-exact, timed;
- 13. the sharded proof (parallel/prover_shard.generate_proof_sharded) of
+ 12. the sharded proof (parallel/prover_shard.generate_proof_sharded) of
      the 2^16 circuit, both flavours, from the zkey and wtns files, on two
      gloo ranks sharing the card (launch.spawn; collectives host-staged),
-     then 14. on torch.cuda.device_count() NCCL ranks, one a card: every
+     then 13. on torch.cuda.device_count() NCCL ranks, one a card: every
      rank's proof must equal the single-card proof of step 4 and verify,
-     call torch.cummax 0 times and launch the sharded path's kernels (K8
-     and the negation where a rank's H1 slab takes the tree); each rank's
-     phase and collective times, launches and peak device memory against
-     the single proof's are printed;
- 15. the sharded NTT (four_step_ntt / four_step_intt) and G1 msm_sharded at
+     call torch.cummax 0 times and launch the sharded path's kernels; each
+     rank's phase and collective times, launches and peak device memory
+     against the single proof's are printed;
+ 14. the sharded NTT (four_step_ntt / four_step_intt) and G1 msm_sharded at
      2^20 on two gloo ranks sharing the card, equal to the single-card
      transform and MSM, timed with CUDA events with the collectives' share;
- 16. the CLI: the 2^16 circuit's .r1cs and .wtns written with the port's
+ 15. the CLI: the 2^16 circuit's .r1cs and .wtns written with the port's
      writers, `python3 -m groth16_tpu_torch --setup --prove --verify -t ...
      --write-zkey c.zkey` as a subprocess on the card must exit 0 with
      `verification succeeded = True`, `--prove --verify -z c.zkey` on a
      witness with its public output changed must exit 2, and the sharded
      proof of c.zkey under torchrun (`-m groth16_tpu_torch.parallel.launch
      --verify`, NCCL, one rank a card) must exit 0;
- 17. the profiles, last: every call registered above runs once, then each
+ 16. the profiles, last: every call registered above runs once, then each
      under torch.profiler on its own (the profiler traces nothing in a
      process once a CUDA module has loaded after its first session): K5 at
      each shape must trace one K5 launch and nothing else; the SpMV at each
@@ -140,11 +135,11 @@ MASK = (0x1234567890ABCDEF1234567890ABCDEF, 0xFEDCBA0987654321FEDCBA0987654321)
 TOXIC = dict(alpha=0x1DEA, beta=0xBEEF, gamma=0x6A33A, delta=0xDE17A, tau=0x7A0)
 LOG2 = 16
 K1_POINTS = 1 << 16
-# K2 runs the fold MSMs at 2^16 - 1 points (A1, B1, C1 in G1, B2 in G2) as
-# c = 13, 20 windows, streams of 2^16: level 0 affine at T = FOLD_T, then
-# the projective levels of msm.fold_schedule
+# K2 runs the fold MSMs at 2^16 - 1 and 2^16 points (A1, B1, C1 and H1 in
+# G1, B2 in G2) as c = 13, 20 windows, streams of 2^16: level 0 affine at
+# T = FOLD_T, then the projective levels of msm.fold_schedule
 FOLD_LOG2 = 16
-FOLD_MSMS_PER_PROOF = 4   # and H1 (2^16 points) where it does not take the tree
+FOLD_MSMS_PER_PROOF = 5
 NTT_SIZES = (10, 15, 16, 17, 20)
 NTT_TIMED = (16, 20)
 QUOTIENT_SIZES = (16, 20)
@@ -168,8 +163,7 @@ K5_SHAPES = (("G1", 1, "proof"), ("G2", 1, "proof"), ("G1", 4096, "views"),
 # 4 windows: 2^21 additions) and a G2 level
 LEVEL_SHAPES = (("G1", 1 << 17, False), ("G1", 1 << 16, True), ("G1", 64, True),
                 ("G1", 1 << 21, False), ("G2", 4096, True))
-LEVELS_PER_PROOF = 80     # H1: 5 groups of 2^18 elements, 16 levels each
-TO_AFFINE_PER_PROOF = 5
+TO_AFFINE_PER_PROOF = 2   # pi_a and pi_c in one G1 batch, pi_b in G2
 # K6 widths held against the plain version (curve, M, a zero among the
 # totals); timed at 2048 (the widest row of the one-block K6 it replaced) and
 # at the 2^20 tree's level 1
@@ -758,22 +752,39 @@ def check_launched(counts: dict, path: str) -> None:
             raise AssertionError(f"kernel wrapper {name} was not launched by the {path} path")
 
 
+def eager_proof(zkey, w, mask, dev):
+    """The proof of witness `w` under `mask` from the core run eagerly on
+    the card (`prove_core_device`, no graph): the reference the replays are
+    held against."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.protocol import prover as PV
+    hdr = zkey.header
+    buf = PV.prove_core_device(hdr.flavour, hdr.log_domain_size, PV.zkey_device_args(zkey, dev),
+                               PV.spec_args(zkey, dev), PV.to_device(w.values, dev),
+                               PV.to_device(PV.mask_limbs(mask), dev))
+    pi_a, pi_b, pi_c = PV.proof_points(buf.cpu())
+    return G.Proof(public_io=PV.public_io(zkey, w), pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
+
+
 def main_path(dev):
     """Setup on the card, zkey/wtns round trip through files, the zkey's
-    upload (timed, its launches printed apart), one staged proof
-    (fused=False) per flavour, no torch.cummax call in either, each
-    proof's peak device memory above what was allocated before the upload.
-    Returns the launch counts of the two proofs, per flavour (flavour, zkey,
-    witness, proof, peak GiB), and each flavour's launches; the zkeys'
-    device caches are built by their proofs."""
+    upload (timed, its launches printed apart), then per flavour one proof
+    from the core run eagerly on the card in its two parts, each with the
+    launch counts set to 0 before it and read after it: `core_msms` (the
+    SpMV, the quotient and the five MSMs) and the spec-point algebra with
+    the affine conversion.  No torch.cummax call in either; each proof's
+    peak device memory above what was allocated before the upload.
+    Returns the launch counts of the two proofs, per flavour (flavour,
+    zkey, witness, proof, peak GiB), and each flavour's `core_msms`
+    launches."""
+    import torch
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
     from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.protocol import prover as PV
     from groth16_tpu_torch.tools.measure import cummax_callers
     r1cs, wtns = synthetic_circuit(LOG2)
-    m = 1 << FOLD_LOG2
-    h1_tree = M.tree_path(1 << LOG2, True)
-    fold_launches = (FOLD_MSMS_PER_PROOF + (not h1_tree)) * len(M.fold_schedule(m))
+    fold_launches = FOLD_MSMS_PER_PROOF * len(M.fold_schedule(1 << FOLD_LOG2))
     inputs = []
     with tempfile.TemporaryDirectory() as tmp:
         for flavour in (G.Flavour.Snarkjs, G.Flavour.JensGroth):
@@ -791,51 +802,67 @@ def main_path(dev):
                   f"(nvars {zkey.header.nvars}, domain 2^{zkey.header.log_domain_size})")
             inputs.append((flavour, zkey, w))
 
-    import torch
-    from groth16_tpu_torch.protocol.prover import zkey_device_args
-    proofs, staged = [], {}
+    proofs, msm_counts = [], {}
     counts = {name: 0 for name, _, _ in WRAPPERS}
     for flavour, zkey, w in inputs:
-        tm = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         reset_counts()
         t0 = time.perf_counter()
-        zkey_device_args(zkey, dev)
+        static = PV.zkey_device_args(zkey, dev)
+        spec = PV.spec_args(zkey, dev)
         torch.cuda.synchronize()
         print(f"upload {flavour.value}: {time.perf_counter() - t0:.3f} s (the SpMV's rows and "
-              "schedule, the five point sets), launches "
+              "schedule, the five point sets, the spec points' tables), launches "
               + json.dumps({k: v for k, v in read_counts().items() if v}))
+        hdr = zkey.header
+        witness = PV.to_device(w.values, dev)
+        mask = PV.to_device(PV.mask_limbs(G.Mask(*MASK)), dev)
         reset_counts()
+        t0 = time.perf_counter()
         with cummax_callers() as scans:
-            prf = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm, fused=False)
+            msms = PV.core_msms(hdr.flavour, hdr.log_domain_size, static, witness)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            during = read_counts()
+            reset_counts()
+            buf = PV.proof_buffer(*PV.spec_algebra(spec, msms, mask))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        alg = read_counts()
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         if scans:
             raise AssertionError(f"{flavour.value}: a proof called torch.cummax: {scans}")
+        pi_a, pi_b, pi_c = PV.proof_points(buf.cpu())
+        prf = G.Proof(public_io=PV.public_io(zkey, w), pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
         proofs.append((flavour, zkey, w, prf, peak))
-        print(f"prove {flavour.value}: " + ", ".join(f"{k} {v:.3f}" for k, v in tm.items())
-              + f"; peak device memory {peak:.4f} GiB above the {base / 2**30:.4f} GiB "
-              "allocated before (the zkey's upload included)")
-        during = read_counts()
-        staged[flavour.value] = during
-        for k, v in during.items():
-            counts[k] += v
-        print(f"launches during the {flavour.value} proof: " + json.dumps(during))
+        print(f"prove {flavour.value}, the core eagerly: SpMV, quotient and MSMs {t1 - t0:.3f} s, "
+              f"algebra and affine {t2 - t1:.3f} s; peak device memory {peak:.4f} GiB above "
+              f"the {base / 2**30:.4f} GiB allocated before (the zkey's upload included)")
+        msm_counts[flavour.value] = during
+        for k in counts:
+            counts[k] += during[k] + alg[k]
+        print(f"launches during the {flavour.value} proof's core_msms: " + json.dumps(during)
+              + "; its algebra: " + json.dumps({k: v for k, v in alg.items() if v}))
         k1 = during["point_add"] + during["point_double_n"] + during["horner"]
-        if during["horner"] != 5 or during["point_double_n"] > 10 or k1 >= K1_MAX_PER_PROOF:
-            raise AssertionError(f"{flavour.value}: a proof launches Horner 5 times, at most 10 "
-                                 f"doubling chains and fewer than {K1_MAX_PER_PROOF} K1 kernels "
-                                 f"(got {k1})")
+        if (during["horner"] != len(PV.CHAIN_LAUNCHES) or during["point_double_n"] > 10
+                or k1 >= K1_MAX_PER_PROOF):
+            raise AssertionError(f"{flavour.value}: a proof's MSMs launch Horner "
+                                 f"{len(PV.CHAIN_LAUNCHES)} times, at most 10 doubling chains "
+                                 f"and fewer than {K1_MAX_PER_PROOF} K1 kernels (got {k1})")
         k3, pointwise = QUOTIENT_LAUNCHES[flavour.value]
-        want = {"spmv_kernel": 1, "fp_neg_kernel": int(h1_tree),
-                "level_kernel": LEVELS_PER_PROOF * h1_tree, "phase_a_kernel": 0,
-                "invert_kernel": TO_AFFINE_PER_PROOF, "mul_rows_kernel": TO_AFFINE_PER_PROOF,
-                "fold_level_kernel": fold_launches,
+        want = {"spmv_kernel": 1, "fp_neg_kernel": 0, "level_kernel": 0, "phase_a_kernel": 0,
+                "invert_kernel": 0, "mul_rows_kernel": 0, "fold_level_kernel": fold_launches,
                 "ntt_inner_kernel": k3, "quotient_pointwise_kernel": pointwise}
         if any(during[k] != v for k, v in want.items()):
-            raise AssertionError(f"{flavour.value}: a proof launches {want}, got "
+            raise AssertionError(f"{flavour.value}: a proof's MSMs launch {want}, got "
                                  + json.dumps({k: during[k] for k in want}))
+        if alg["invert_kernel"] != TO_AFFINE_PER_PROOF or alg["mul_rows_kernel"] != TO_AFFINE_PER_PROOF:
+            raise AssertionError(f"{flavour.value}: the algebra runs `to_affine` "
+                                 f"{TO_AFFINE_PER_PROOF} times (K6, K5), got "
+                                 + json.dumps({k: alg[k] for k in ("invert_kernel",
+                                                                   "mul_rows_kernel")}))
 
     for flavour, zkey, _, prf, _ in proofs:
         if prf.pi_a is None or prf.pi_b is None or prf.pi_c is None:
@@ -844,7 +871,7 @@ def main_path(dev):
             raise AssertionError(f"{flavour.value}: proof does not verify")
         print(f"verify {flavour.value}: ok")
     check_launched(counts, "proof")
-    return counts, proofs, staged
+    return counts, proofs, msm_counts
 
 
 # the profiler's kernel names of each wrapper a proof launches (one SpMV
@@ -858,7 +885,7 @@ KERNEL_NAMES = {"point_add": ("point_add_kernel",), "point_double_n": ("point_do
                 "level_kernel": ("tree_level_kernel",),
                 "spmv_kernel": ("spmv_entries_kernel", "spmv_finish_kernel"),
                 "fp_neg_kernel": ("fp_neg_kernel",)}
-FUSED_RUNS = 5      # staged and fused proofs timed in turns, each
+FUSED_RUNS = 5      # replays and eager cores timed in turns, each
 LOG2_FUSED_BIG = 18  # one fused proof above the JAX package's fused cap (2^16)
 FUSED_BIG_RUNS = 3
 TOP_GAPS = 5        # idle gaps of a replay printed
@@ -913,27 +940,25 @@ def replay_report(what):
     return report
 
 
-def fused_phase(dev, singles, staged):
-    """The fused path (prover.FusedProof: one CUDA graph a proof) of the 2^16
-    proof in both flavours:
+def fused_phase(dev, singles, msm_counts):
+    """The proof's CUDA graph (prover.FusedProof: one graph a proof) of the
+    2^16 proof in both flavours:
       - a FusedProof warmed up, then captured with every launch count set to
-        0 just before: the capture must launch what the staged proof
-        launched without its five `to_affine` (K6, K5) and with one Horner
-        an entry of `prover.CHAIN_LAUNCHES` for its five, plus what the
-        spec-point algebra and the fused path's two `to_affine` launch,
-        counted on their own over the core's MSM results; no torch.cummax;
-        the capture's time and the memory allocated after it printed;
+        0 just before: the capture must launch what `core_msms` launched in
+        `main_path` plus what the spec-point algebra and its two
+        `to_affine` launch, counted on their own over the core's MSM
+        results; no torch.cummax; the capture's time and the memory
+        allocated after it printed;
       - the algebra alone: CUDA events around an eager call and around the
         replay of a graph of it, and its device time from the profiles;
       - proofs through generate_proof_with_mask on its default path: the
         first captures the zkey's graph (capture_s), then the main witness
         under MASK and BATCH_SEEDS' witnesses under their masks replay it,
         each with no kernel wrapper called and no torch.cummax, each
-        byte-equal to its fused=False proof and verifying; one capture a
-        flavour;
-      - staged and fused proof wall times, FUSED_RUNS each, in turns, the
-        fused core run eagerly beside them, and where the staged proof's
-        time goes (`staged_report`);
+        byte-equal to the proof of the core run eagerly on the card
+        (`eager_proof`) and verifying; one capture a flavour;
+      - proof wall times through the entry point (a replay) and of the core
+        run eagerly, FUSED_RUNS each, in turns;
       - one replay registered for the profiles phase twice: its kernels must
         be the capture's launches with no host copy, and its busy share,
         idle gaps and device time by kernel are printed.
@@ -979,19 +1004,15 @@ def fused_phase(dev, singles, staged):
         reset_counts()
         algebra()
         alg = read_counts()
-        want = {k: staged[name][k] + alg[k] for k in captured}
-        for k in ("invert_kernel", "mul_rows_kernel"):
-            want[k] = alg[k]        # the staged proof's five to_affine, the fused path's two
-        # the staged proof's five Horners, the fused core's one an entry of CHAIN_LAUNCHES
-        want["horner"] = alg["horner"] + len(PV.CHAIN_LAUNCHES)
+        want = {k: msm_counts[name][k] + alg[k] for k in captured}
         print(f"fused {name}: warm-up {t1 - t0:.3f} s, capture {t2 - t1:.3f} s; after it "
               f"{held:.4f} GiB more allocated (the static buffers and the proof buffer), "
               f"{pool:.4f} GiB more reserved (with the graph's pool); "
               f"launches at capture " + json.dumps({k: v for k, v in captured.items() if v})
               + "; the algebra's " + json.dumps({k: v for k, v in alg.items() if v}))
         if captured != want:
-            raise AssertionError(f"{name}: the capture launched {captured}, not the staged "
-                                 f"proof's plus the algebra's {want}")
+            raise AssertionError(f"{name}: the capture launched {captured}, not core_msms' "
+                                 f"plus the algebra's {want}")
         t_eager = cuda_ms(algebra, 10)
         g_alg = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g_alg):
@@ -1012,7 +1033,7 @@ def fused_phase(dev, singles, staged):
         tm = {}
         first = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
         if (first.pi_a, first.pi_b, first.pi_c) != (prf.pi_a, prf.pi_b, prf.pi_c):
-            raise AssertionError(f"{name}: the first fused proof differs from the staged one")
+            raise AssertionError(f"{name}: the first fused proof differs from the eager core's")
         print(f"fused {name}, first proof through the entry point (captures): "
               + ", ".join(f"{k} {v:.4f}" for k, v in tm.items())
               + f" s; {torch.cuda.memory_allocated() / 2**30:.4f} GiB allocated after it")
@@ -1025,28 +1046,23 @@ def fused_phase(dev, singles, staged):
             if called or scans:
                 raise AssertionError(f"{name}: replay {i} called wrappers {called} or "
                                      f"torch.cummax {scans}")
-            want_prf = prf if i == 0 else G.generate_proof_with_mask(zkey, wi, mi, dev,
-                                                                    fused=False)
+            want_prf = prf if i == 0 else eager_proof(zkey, wi, mi, dev)
             if (got.pi_a, got.pi_b, got.pi_c) != (want_prf.pi_a, want_prf.pi_b, want_prf.pi_c):
-                raise AssertionError(f"{name}: replay {i} differs from its fused=False proof")
+                raise AssertionError(f"{name}: replay {i} differs from the eager core's proof")
             if not G.verify_proof(vkey, got):
                 raise AssertionError(f"{name}: replay {i} does not verify")
         if PV.fused_graph.captures != captures + 1:
             raise AssertionError(f"{name}: {PV.fused_graph.captures - captures} captures, not 1")
         print(f"fused {name}: {1 + len(ws)} replays (main witness, seeds {BATCH_SEEDS}) equal "
-              "their fused=False proofs and verify; no wrapper call, no cummax; one capture")
+              "the eager core's proofs and verify; no wrapper call, no cummax; one capture")
 
-        walls, phases = {"staged": [], "fused": [], "eager core": []}, []
+        walls = {"fused": [], "eager core": []}
         for _ in range(FUSED_RUNS):
-            for kind, fused in (("staged", False), ("fused", None)):
-                tm = {}
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm, fused=fused)
-                torch.cuda.synchronize()
-                walls[kind].append(time.perf_counter() - t)
-                if kind == "staged":
-                    phases.append(tm)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev)
+            torch.cuda.synchronize()
+            walls["fused"].append(time.perf_counter() - t)
             torch.cuda.synchronize()
             t = time.perf_counter()
             PV.prove_core_device(fp.flavour, fp.log2n, fp.static, fp.spec, fp.witness, fp.mask)
@@ -1056,12 +1072,12 @@ def fused_phase(dev, singles, staged):
             walls.setdefault("eager issue", []).append(issued)
         med = {k: statistics.median(v) for k, v in walls.items()}
         print(measure.card_line(dev))
-        print(f"fused {name}: proof wall s, in turns: staged "
-              + ", ".join(f"{t:.4f}" for t in walls["staged"]) + "; fused "
-              + ", ".join(f"{t:.4f}" for t in walls["fused"])
-              + f"; medians {med['staged']:.4f} / {med['fused']:.4f} s "
-              f"({med['staged'] / med['fused']:.2f}x)")
-        staged_report(name, phases, walls, med, msms)
+        print(f"fused {name}: proof wall s, in turns: replay "
+              + ", ".join(f"{t:.4f}" for t in walls["fused"]) + "; the core eagerly "
+              + ", ".join(f"{t:.4f}" for t in walls["eager core"])
+              + f" (launches issued in {med['eager issue']:.4f} s); medians "
+              f"{med['fused']:.4f} / {med['eager core']:.4f} s "
+              f"({med['eager core'] / med['fused']:.2f}x)")
 
         fp.load(w, G.Mask(*MASK))
 
@@ -1078,53 +1094,12 @@ def fused_phase(dev, singles, staged):
     return total
 
 
-def staged_report(name, phases, walls, med, msms):
-    """Where the staged proof's time goes against the fused one's, from the
-    turns of `fused_phase`: each staged phase's median and range (which
-    phase carries the spread), the host's spec-point algebra (algebra_s),
-    the host cost of bringing one projective point home (`points_to_host`:
-    K6, K5, the copy and the host ints; the staged proof does it five
-    times), and the fused core run eagerly (no graph, no sync inside): the
-    host's time to issue its launches and its wall to the last kernel's
-    end.  The graph takes away what the eager core's wall has above a
-    replay's; the staged proof's syncs, copies and host algebra are what
-    it has above the eager core."""
-    import statistics
-    import torch
-    from groth16_tpu_torch.ops import curve as C
-    to_host = {}
-    for cv, P in ((C.G1, msms[0]), (C.G2, msms[2])):
-        one = tuple(c[None] for c in P)
-        ts = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            C.points_to_host(cv, one)
-            ts.append(time.perf_counter() - t)
-        to_host[cv.name] = statistics.median(ts)
-    keys = list(phases[0])
-    spread = {k: (min(p[k] for p in phases), statistics.median(p[k] for p in phases),
-                  max(p[k] for p in phases)) for k in keys}
-    print(f"staged {name}, phases over {len(phases)} proofs, min / median / max s: "
-          + "; ".join(f"{k} {a:.4f} / {m:.4f} / {b:.4f}" for k, (a, m, b) in spread.items()))
-    five = 4 * to_host["G1"] + to_host["G2"]
-    print(f"staged {name}: the host algebra {spread['algebra_s'][1]:.4f} s; points_to_host "
-          f"{to_host['G1']:.5f} s a G1 point, {to_host['G2']:.5f} s a G2 point "
-          f"({five:.4f} s for the proof's five); the fused core eagerly: launches issued in "
-          f"{med['eager issue']:.4f} s, done in {med['eager core']:.4f} s (runs "
-          + ", ".join(f"{t:.4f}" for t in walls["eager core"])
-          + f"); replay {med['fused']:.4f} s; staged {med['staged']:.4f} s = eager core "
-          f"{med['eager core']:.4f} + host algebra {spread['algebra_s'][1]:.4f} + points home "
-          f"{five:.4f} + the rest (syncs, the staged glue) "
-          f"{med['staged'] - med['eager core'] - spread['algebra_s'][1] - five:.4f} s")
-
-
 def fused_big_phase(dev):
     """One Snarkjs proof of synthetic_circuit(LOG2_FUSED_BIG), above the
-    JAX package's fused-module cap of 2^16, on the fused path against the
-    staged one: equal and verifying; the setup, the capture and the memory
-    the graph's pool reserves printed, and FUSED_BIG_RUNS proofs of each
-    path timed in turns."""
+    JAX package's fused-module cap of 2^16, through the entry point (one
+    graph replay) against the core run eagerly on the card: equal and
+    verifying; the setup, the capture and the memory the graph's pool
+    reserves printed, and FUSED_BIG_RUNS proofs of each timed in turns."""
     import statistics
     import torch
     import groth16_tpu_torch as G
@@ -1133,54 +1108,36 @@ def fused_big_phase(dev):
     t0 = time.perf_counter()
     zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(**TOXIC), G.Flavour.Snarkjs, dev)
     setup_s = time.perf_counter() - t0
-    staged = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, fused=False)
+    eager = eager_proof(zkey, w, G.Mask(*MASK), dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     pool = torch.cuda.memory_reserved()
     tm = {}
     fused = G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, tm)
     pool = (torch.cuda.memory_reserved() - pool) / 2**30
-    if (fused.pi_a, fused.pi_b, fused.pi_c) != (staged.pi_a, staged.pi_b, staged.pi_c):
-        raise AssertionError(f"the fused 2^{LOG2_FUSED_BIG} proof differs from the staged one")
+    if (fused.pi_a, fused.pi_b, fused.pi_c) != (eager.pi_a, eager.pi_b, eager.pi_c):
+        raise AssertionError(f"the fused 2^{LOG2_FUSED_BIG} proof differs from the eager core's")
     if not G.verify_proof(G.extract_vkey(zkey), fused):
         raise AssertionError(f"the fused 2^{LOG2_FUSED_BIG} proof does not verify")
-    walls = {"staged": [], "fused": []}
+    runs = {"eager core": lambda: eager_proof(zkey, w, G.Mask(*MASK), dev),
+            "fused": lambda: G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev)}
+    walls = {k: [] for k in runs}
     for _ in range(FUSED_BIG_RUNS):
-        for kind, path in (("staged", False), ("fused", None)):
+        for kind, fn in runs.items():
             torch.cuda.synchronize()
             t = time.perf_counter()
-            G.generate_proof_with_mask(zkey, w, G.Mask(*MASK), dev, fused=path)
+            fn()
             torch.cuda.synchronize()
             walls[kind].append(time.perf_counter() - t)
     med = {k: statistics.median(v) for k, v in walls.items()}
     print(f"fused 2^{LOG2_FUSED_BIG} snarkjs (nvars {zkey.header.nvars}; setup {setup_s:.2f} s on "
-          f"the card): equals the staged proof and verifies; first fused proof "
+          f"the card): equals the eager core's proof and verifies; first fused proof "
           + ", ".join(f"{k} {v:.4f}" for k, v in tm.items())
-          + f" s, {pool:.4f} GiB more reserved; proof wall s, in turns: staged "
-          + ", ".join(f"{t:.4f}" for t in walls["staged"]) + "; fused "
+          + f" s, {pool:.4f} GiB more reserved; proof wall s, in turns: the core eagerly "
+          + ", ".join(f"{t:.4f}" for t in walls["eager core"]) + "; fused "
           + ", ".join(f"{t:.4f}" for t in walls["fused"])
-          + f"; medians {med['staged']:.4f} / {med['fused']:.4f} s "
-          f"({med['staged'] / med['fused']:.2f}x)")
-
-
-def h1_tree_vs_fold(rng, dev, zkey):
-    """The H1 MSM (2^16 points) of the Snarkjs zkey through the merge tree
-    (path="tree"; the main path folds it) and through the fold; same point,
-    both timed."""
-    import torch
-    from groth16_tpu_torch.ops import curve as C, msm as M
-    pa = zkey.ppoints.points_h1
-    P = C.from_affine(C.G1, torch.from_numpy(pa.x).to(dev), torch.from_numpy(pa.y).to(dev))
-    s = random_scalars(rng, pa.x.shape[0], dev)
-    runs = {"tree": lambda: M.msm(C.G1, s, P, affine=True, path="tree"),
-            "fold": lambda: M.msm(C.G1, s, P, affine=True, path="fold")}
-    out, ms = {}, {}
-    for name, fn in runs.items():
-        out[name] = C.to_affine(C.G1, fn())
-        ms[name] = cuda_ms(fn, 3)
-    max_abs_err(out["tree"], out["fold"])
-    print(f"H1 MSM n={s.shape[0]}: tree {ms['tree']:.1f} ms, fold {ms['fold']:.1f} ms, "
-          "same point")
+          + f"; medians {med['eager core']:.4f} / {med['fused']:.4f} s "
+          f"({med['eager core'] / med['fused']:.2f}x)")
 
 
 def fp_product_path(dev, results):
@@ -1217,7 +1174,7 @@ def tree_phase_path(dev, results):
 
 def fold_phase_path(dev):
     """tools/bench_fold_phases.run: the 2^20 fold MSM phase by phase (its
-    result must equal msm(path="fold")'s)."""
+    result must equal msm.msm's)."""
     from groth16_tpu_torch.tools import bench_fold_phases as BF
     return BF.run(LOG2_FOLD_PHASES, dev)
 
@@ -1254,7 +1211,7 @@ def chunked_msm(rng, dev):
     if not all(torch.equal(F.as_i32(a), F.as_i32(b))
                for a, b in zip(out["msm"], out["msm_chunked"])):
         raise AssertionError("msm_chunked differs from the unchunked msm")
-    c_seg, c_all = M._path_window_bits(1 << 20, True, "auto"), M._path_window_bits(n, True, "auto")
+    c_seg, c_all = M.pick_window_bits(1 << 20), M.pick_window_bits(n)
     print(f"msm_chunked == msm at 2^{LOG2_CHUNKED} (c = {c_seg} per segment, {c_all} unchunked)")
 
 
@@ -1320,10 +1277,10 @@ def check_spmv_kernel(rng, dev, results, zkey, wtns):
 
 def batch_phase(dev, zkey):
     """generate_proofs over BATCH_SEEDS' witnesses with fixed masks against
-    a fresh parse of the zkey's file, on the default path (fused: the first
-    proof captures the graph, the rest replay it) and with fused=False: one
-    upload for both, each proof verified and equal to its single proof and
-    to the other path's; per-proof times and proofs/s of each printed."""
+    a fresh parse of the zkey's file (the first proof captures the graph,
+    the rest replay it): one upload, each proof verified and equal to its
+    single proof and to the eager core's proof (`eager_proof`); per-proof
+    times and proofs/s printed."""
     import groth16_tpu_torch as G
     import torch
     from groth16_tpu_torch.models.circuits import synthetic_circuit
@@ -1337,49 +1294,44 @@ def batch_phase(dev, zkey):
     ws = [synthetic_circuit(LOG2, seed)[1] for seed in BATCH_SEEDS]
     masks = [G.Mask(MASK[0] + i, MASK[1] + 3 * i) for i in range(len(ws))]
     builds = zkey_device_args.builds
-    runs = {}
-    for label, fused in (("default (fused)", None), ("fused=False", False)):
-        timings = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch = G.generate_proofs(fresh, ws, dev, masks, timings, fused=fused)
-        runs[label] = (batch, timings, time.perf_counter() - t0)
+    timings = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = G.generate_proofs(fresh, ws, dev, masks, timings)
+    wall = time.perf_counter() - t0
     if zkey_device_args.builds != builds + 1:
-        raise AssertionError(f"the batches uploaded the zkey {zkey_device_args.builds - builds} "
+        raise AssertionError(f"the batch uploaded the zkey {zkey_device_args.builds - builds} "
                              "times, not once")
     vkey = G.extract_vkey(fresh)
-    (fused, _, _), (staged, _, _) = runs.values()
-    for i, (w, m, prf, other) in enumerate(zip(ws, masks, fused, staged)):
+    for i, (w, m, prf) in enumerate(zip(ws, masks, batch)):
         if not G.verify_proof(vkey, prf):
             raise AssertionError(f"batch proof {i} does not verify")
         one = G.generate_proof_with_mask(fresh, w, m, dev)
+        eager = eager_proof(fresh, w, m, dev)
         if not ((prf.pi_a, prf.pi_b, prf.pi_c) == (one.pi_a, one.pi_b, one.pi_c)
-                == (other.pi_a, other.pi_b, other.pi_c)):
+                == (eager.pi_a, eager.pi_b, eager.pi_c)):
             raise AssertionError(f"batch proof {i} differs from its single proof or from the "
-                                 "fused=False batch")
-    if len({prf.pi_a for prf in fused}) != len(fused):
+                                 "eager core's")
+    if len({prf.pi_a for prf in batch}) != len(batch):
         raise AssertionError("the batch's witnesses gave equal proofs")
     print(measure.card_line(dev))
-    for label, (batch, timings, wall) in runs.items():
-        totals = [t["total_s"] for t in timings]
-        first = ", ".join(f"{k} {timings[0][k]:.4f}" for k in ("upload_s", "capture_s")
-                          if k in timings[0])
-        print(f"batch of {len(batch)} 2^{LOG2} proofs ({fresh.header.flavour.value}), {label}: "
-              f"first {totals[0]:.4f} s ({first}), then "
-              + ", ".join(f"{t:.4f}" for t in totals[1:]) + " s (uploads "
-              + ", ".join(f"{t['upload_s']:.4f}" for t in timings[1:])
-              + f" s); {len(batch) / wall:.2f} proofs/s over the batch's {wall:.3f} s, "
-              f"{(len(batch) - 1) / sum(totals[1:]):.2f} proofs/s after the first")
-    print("each batch proof verifies and equals its single proof and the other path's; "
+    totals = [t["total_s"] for t in timings]
+    first = ", ".join(f"{k} {timings[0][k]:.4f}" for k in ("upload_s", "capture_s")
+                      if k in timings[0])
+    print(f"batch of {len(batch)} 2^{LOG2} proofs ({fresh.header.flavour.value}): "
+          f"first {totals[0]:.4f} s ({first}), then "
+          + ", ".join(f"{t:.4f}" for t in totals[1:]) + " s (uploads "
+          + ", ".join(f"{t['upload_s']:.4f}" for t in timings[1:])
+          + f" s); {len(batch) / wall:.2f} proofs/s over the batch's {wall:.3f} s, "
+          f"{(len(batch) - 1) / sum(totals[1:]):.2f} proofs/s after the first")
+    print("each batch proof verifies and equals its single proof and the eager core's; "
           "one zkey upload")
 
 
 # The sharded phases (groth16_tpu_torch/parallel): the kernels every
-# rank's proof must launch; the merge tree's level kernel and its negation
-# run where a rank's slab of H1 takes the tree (msm.tree_path)
+# rank's proof must launch
 SHARD_KERNELS = ("spmv_kernel", "ntt_inner_kernel", "quotient_pointwise_kernel", "point_add",
                  "horner", "fold_level_kernel", "invert_kernel", "mul_rows_kernel")
-SHARD_TREE_KERNELS = ("level_kernel", "fp_neg_kernel")
 GLOO_RANKS = 2            # ranks sharing the one card over gloo
 LOG2_SHARD = 20           # the sharded NTT and MSM
 SHARD_STEP_SIZES = (16, 20)
@@ -1428,7 +1380,6 @@ def sharded_proof_phase(singles, backend, world, devices, tmp) -> dict:
     times, launches and peak memory against the single proof's.  Returns
     rank 0's launches, summed over the flavours."""
     import groth16_tpu_torch as G
-    from groth16_tpu_torch.ops import msm as M
     from groth16_tpu_torch.parallel import launch
     wpath = os.path.join(tmp, "circuit.wtns")
     if not os.path.exists(wpath):
@@ -1440,8 +1391,7 @@ def sharded_proof_phase(singles, backend, world, devices, tmp) -> dict:
             G.write_zkey(zpaths[-1][1], zkey)
     out = tempfile.mkdtemp(dir=tmp)
     launch.spawn(sharded_proof_rank, world, backend, devices, zpaths, wpath, out)
-    staged = "host-staged" if backend == "gloo" else "on the card"
-    tree = M.tree_path((1 << LOG2) // world, True)
+    route = "host-staged" if backend == "gloo" else "on the card"
     total = {}
     for rank in range(world):
         with open(os.path.join(out, f"rank{rank}.json")) as fh:
@@ -1455,15 +1405,14 @@ def sharded_proof_phase(singles, backend, world, devices, tmp) -> dict:
             if r["cummax"]:
                 raise AssertionError(f"rank {rank}/{world} {flavour.value}: {r['cummax']} "
                                      "torch.cummax calls")
-            need = SHARD_KERNELS + (SHARD_TREE_KERNELS if tree else ())
-            missing = [k for k in need if not r["counts"][k]]
+            missing = [k for k in SHARD_KERNELS if not r["counts"][k]]
             if missing:
                 raise AssertionError(f"rank {rank}/{world} {flavour.value}: {missing} not launched")
             w = r["warm"]
             print(f"rank {rank}/{world} {backend} ({devices[rank % len(devices)]}) "
                   f"{flavour.value}: proof equals the single-card proof, verifies, 0 cummax; "
                   + ", ".join(f"{k} {v:.4f}" for k, v in w.items())
-                  + f" s (comm_s: backend {backend}, {staged}; first proof "
+                  + f" s (comm_s: backend {backend}, {route}; first proof "
                   f"{r['cold']['total_s']:.4f} s, upload {r['cold']['upload_s']:.4f} s); peak "
                   f"device memory {r['peak_gib']:.4f} GiB against the single proof's "
                   f"{peak:.4f} GiB")
@@ -1569,32 +1518,11 @@ def check_sharded_steps(rng, dev, results):
                             wire_in=wire_in, wire_out=wire_out))
 
 
-# a one-shot proof as the CLI's --prove makes it (parse the zkey and the
-# witness, one generate_proof, the process's first CUDA work inside the
-# clock), then a second proof; argv: zkey, wtns, "default" or "staged"
-ONESHOT = """import sys, time
-import torch
-import groth16_tpu_torch as G
-zkey, wtns = G.parse_zkey(sys.argv[1]), G.parse_witness(sys.argv[2])
-fused = {"default": None, "staged": False}[sys.argv[3]]
-dev = torch.device("cuda")
-t = time.perf_counter()
-G.generate_proof(zkey, wtns, dev, fused=fused)
-first = time.perf_counter() - t
-t = time.perf_counter()
-G.generate_proof(zkey, wtns, dev, fused=fused)
-print(f"oneshot {first:.4f} {time.perf_counter() - t:.4f}")
-"""
-ONESHOT_RUNS = 2    # fresh processes a path, in turns
-
-
 def cli_phase():
     """The CLI as a user runs it, in a subprocess on the card: setup, prove
     and verify from the 2^16 circuit's files (exit 0), then a tampered
     witness against the written zkey (exit 2), then the sharded proof of the
-    written zkey under torchrun, one NCCL rank a card (exit 0); then the
-    CLI's proving step alone (`ONESHOT`) on the default path and with
-    fused=False, ONESHOT_RUNS fresh processes each, in turns."""
+    written zkey under torchrun, one NCCL rank a card (exit 0)."""
     import subprocess
     import torch
     import groth16_tpu_torch as G
@@ -1632,21 +1560,6 @@ def cli_phase():
             if out.returncode != want or not ok:
                 raise AssertionError(f"CLI {what}: exit {out.returncode}, want {want}\n"
                                      f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-        shots = {"default": [], "staged": []}
-        for _ in range(ONESHOT_RUNS):
-            for kind, got in shots.items():
-                out = subprocess.run([sys.executable, "-c", ONESHOT, f["c.zkey"], f["c.wtns"],
-                                      kind], cwd=root, capture_output=True, text=True,
-                                     timeout=300)
-                line = [ln for ln in out.stdout.splitlines() if ln.startswith("oneshot ")]
-                if out.returncode or not line:
-                    raise AssertionError(f"one-shot proof ({kind}): exit {out.returncode}\n"
-                                         f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
-                got.append(tuple(float(x) for x in line[0].split()[1:]))
-        print("CLI proving step in a fresh process (first proof, with the process's CUDA start, "
-              "upload and, on the default path, warm-up and capture; then a second proof), s, in "
-              "turns: " + "; ".join(f"{k} " + ", ".join(f"{a:.4f} then {b:.4f}" for a, b in v)
-                                    for k, v in shots.items()))
 
 
 def main() -> int:
@@ -1681,15 +1594,14 @@ def main() -> int:
     phase("K3 check", lambda: check_ntt_kernel(rng, dev, results))
     phase("K4-K6, K8 check", lambda: check_tree_kernels(rng, dev, results))
     phase("to_affine check", lambda: check_to_affine(rng, dev))
-    counts["proof"], singles, staged = phase("proofs", lambda: main_path(dev))
-    counts["fused"] = phase("fused proofs", lambda: fused_phase(dev, singles, staged))
+    counts["proof"], singles, msm_counts = phase("proofs", lambda: main_path(dev))
+    counts["fused"] = phase("fused proofs", lambda: fused_phase(dev, singles, msm_counts))
     phase(f"fused proof at 2^{LOG2_FUSED_BIG}", lambda: fused_big_phase(dev))
     zkey, wtns = singles[0][1], singles[0][2]
     phase("SpMV and Fp negation check", lambda: check_spmv_kernel(rng, dev, results, zkey, wtns))
     phase("quotient profile", lambda: profile_quotient(rng, dev))
     phase("points_to_host profile", lambda: profile_to_host(rng, dev, zkey))
     phase("quotient 2^16 and 2^20", lambda: quotient_phase(rng, dev, results))
-    phase("H1 tree vs fold", lambda: h1_tree_vs_fold(rng, dev, zkey))
     phase("K7 check", lambda: check_tree_mid_kernel(rng, dev, results))
     counts["fp products"], k9 = phase("K9 Fp-product run", lambda: fp_product_path(dev, results))
     counts["tree phases"] = phase("2^20 tree-phase run", lambda: tree_phase_path(dev, results))

@@ -17,23 +17,22 @@ The main path is one proof from a zkey and a witness on one device:
     assert verify_proof(extract_vkey(zkey), prf)
 
 On a CUDA device the proof is one replay of a CUDA graph captured at the
-zkey's first proof there (`fused=None`, the default; `fused=False` takes
-the staged path, the default on the CPU).  A batch of proofs against one
-zkey, the zkey's inputs uploaded to the card once and its graph captured
-once: `generate_proofs(zkey, witnesses, device, masks)`.  The command line:
+zkey's first proof there; on the CPU the same core runs eagerly, and both
+give the same proof.  A batch of proofs against one zkey, the zkey's
+inputs uploaded to the card once and its graph captured once:
+`generate_proofs(zkey, witnesses, device, masks)`.  The command line:
 `python -m groth16_tpu_torch --setup --prove --verify -r c.r1cs -w c.wtns`
 (`--device cpu` without a card).
 
 On CUDA tensors a proof runs these kernels (groth16_tpu_torch/csrc, built by
 nvcc at first use): the SpMV, K1 (point adds, doubling chains, Horner), K2
 (the fold MSMs), K3 and the quotient's pointwise kernel, and K6 and K5
-only in `to_affine`; an MSM forced onto the merge tree (`msm(...,
-path="tree")`) runs K8 (its levels) with the Fp negation of its signed
-rows.  On CPU tensors their plain PyTorch versions run.
+only in `to_affine`.  The merge-tree MSM (`ops.msm_tree.msm`), which no
+proof takes, runs K8 (its levels) with the Fp negation of its signed rows.
+On CPU tensors their plain PyTorch versions run.
 
-The tracer's counters `msm.fold` and `msm.tree` count the MSMs' bucket
-phases by the path each took, `msm.side_chains` the Horner chains the
-fused path runs on side streams.
+The tracer's counter `msm.fold` counts the MSMs' bucket phases,
+`msm.side_chains` the Horner chains a proof runs on side streams.
 
 `tracer` (utils/timing.py) records the program's spans on the profiler's
 clock while a torch profiler records or after `tracer.enable()`, the

@@ -13,8 +13,8 @@ The setup and the proof run on `--device` (default `cuda`); without a card
 the CLI stops with exit code 1 unless `--device cpu` is given.  The
 `-j/--nthreads` flag is accepted for surface compatibility and does nothing.
 `-t` turns the program's tracer on (`utils/timing.py`) and prints how long
-each step took; with `-v` also the proof's timings, on the card the device
-seconds of each phase of the fused proof among them.
+each step took; with `-v` also the proof's timings, one set of keys on
+either device, the seconds of each phase of the proof's core among them.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Multi-scalar multiplication (Pippenger, signed windows).
 
-Counterpart of groth16_tpu/ops/msm.py.  The bucket phase takes one of two
-paths (`tree_path`): the batched-affine merge tree (ops/msm_tree.py,
-kernels K4-K6 and K8), which the JAX package takes on the TPU from 2^16
-affine points, and the segmented fold.  On the H100 the fold is the faster
-at every measured size in both groups (TREE_MIN_N), so every MSM folds
-unless its caller forces the tree with path="tree".  The fold:
+Counterpart of groth16_tpu/ops/msm.py.  The bucket phase is the segmented
+fold, at every size from 128 points up.  The JAX package takes the
+batched-affine merge tree (ops/msm_tree.py) on the TPU from 2^16 affine
+points; on the H100 the fold was the faster at every measured size from
+2^16 to 2^21 in both groups, so the tree is only `msm_tree.msm`, which
+nothing on the proof's path calls.  The fold:
 
   1. signed (wNAF-style) window digits, |d| <= 2^(c-1), so a window has
      2^(c-1) + 1 buckets and a negative digit negates the point;
@@ -25,7 +25,7 @@ Every projective point operation goes through `curve.point_add`,
 `point_double_n` and `horner` (kernel K1 on CUDA tensors: the doubling
 chains of the bucket reduce and the whole Horner are one launch each).  Below 128 points the batched
 double-and-add ladder (`msm_naive`) runs instead.  `msm_chunked` streams
-point sets larger than one device segment.  The fused prover stops each
+point sets larger than one device segment.  The prover stops each
 MSM before step 4 (`msm_sums`) and runs the Horners beside the next MSMs'
 bucket phases (`SideChains`).  Results are projective; their affine forms
 equal the JAX package's for the same inputs.
@@ -50,36 +50,6 @@ NBITS = 254  # BN254 scalars fit 254 bits
 def pick_window_bits(n: int) -> int:
     """Pippenger window heuristic c ~ log2(n) - 3, clamped to [4, 16]."""
     return max(4, min(16, max(1, n).bit_length() - 3))
-
-
-def pick_window_bits_tree(n: int) -> int:
-    """The merge tree's window: one bit narrower than the fold's."""
-    return max(4, min(16, max(1, n).bit_length() - 4))
-
-
-# The least n from which "auto" takes the merge tree; None: never.  The TPU's
-# is 2^16 (groth16_tpu/ops/msm.py).  On an H100 (tools/bench_tree_phases.py
-# crossover, affine points, full-width scalars) the tree lost to the fold at
-# every size from 2^16 to 2^21 in G1 (37.2 against 10.2 ms at 2^16, 116.3
-# against 22.8 at 2^21) and in G2 (41.1 against 13.9, 247.7 against 60.4),
-# and reserved 2-4 times the memory.
-TREE_MIN_N = None
-PATHS = ("auto", "tree", "fold")
-
-
-def tree_path(n: int, affine: bool, path: str = "auto") -> bool:
-    """Whether an n-point MSM takes the merge tree (affine points only):
-    `path` "tree" or "fold" forces the bucket phase, "auto" takes the tree
-    from TREE_MIN_N points, which is never on the H100."""
-    if path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-    auto = TREE_MIN_N is not None and n >= TREE_MIN_N
-    return affine and (path == "tree" or (path == "auto" and auto))
-
-
-def _path_window_bits(n: int, affine: bool, path: str) -> int:
-    """The window width of the bucket phase that an n-point MSM takes."""
-    return pick_window_bits_tree(n) if tree_path(n, affine, path) else pick_window_bits(n)
 
 
 def _window_digits(s: torch.Tensor, w: int, c: int) -> torch.Tensor:
@@ -207,20 +177,14 @@ def _weighted_bucket_reduce(cv: CurveSpec, buckets, n_buckets: int):
     return C.point_add(cv, C.point_double_n(cv, Sq, L.bit_length() - 1), Sl)
 
 
-def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
-                affine: bool = False, path: str = "auto"):
-    """Per-window Pippenger sums (X, Y, Z) of [W, comp], before Horner: the
-    merge tree where `tree_path` says so, else the fold.  Adds 1 to the
-    tracer's counter `msm.tree` or `msm.fold`, and on the fold the m points
-    it folds (n padded to a power of two) to `msm.fold_points` and the m - n
-    padding points to `msm.pad_points` (once a capture on the fused path,
-    where Python runs only while the graph is recorded)."""
+def window_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int, affine: bool = False):
+    """Per-window Pippenger sums (X, Y, Z) of [W, comp], before Horner,
+    through the fold.  Adds 1 to the tracer's counter `msm.fold`, the m
+    points it folds (n padded to a power of two) to `msm.fold_points` and
+    the m - n padding points to `msm.pad_points` (once a capture on the
+    fused path, where Python runs only while the graph is recorded)."""
     n = scalars_std.shape[0]
-    tree = tree_path(n, affine, path)
-    T.count("msm.tree" if tree else "msm.fold", 1)
-    if tree:
-        from . import msm_tree as MT
-        return MT.window_sums_tree(cv, scalars_std, P, c, MT.WINDOW_GROUP)
+    T.count("msm.fold", 1)
     dev = scalars_std.device
     keys = signed_window_digits(scalars_std, c)
     m = max(FOLD_T, 1 << max(0, (n - 1).bit_length()))
@@ -247,32 +211,29 @@ def horner_combine(cv: CurveSpec, sums, c: int):
     return C.horner(cv, sums, c)
 
 
-def msm(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False,
-        path: str = "auto"):
+def msm(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False):
     """sum_i scalar_i * P_i -> one projective point.
 
     `scalars_std`: uint32[N, 16] standard (non-Montgomery) form.  `P`:
     projective batch; `affine=True` when every Z is 0 or Montgomery 1 (the
     zkey's wire-format points): the first fold level runs mixed adds on x|y
-    rows, or path="tree" runs the merge tree.  `path` forces the bucket
-    phase (see `tree_path`)."""
+    rows."""
     n = scalars_std.shape[0]
     if n < 128:
         return msm_naive(cv, scalars_std, P)
-    c = _path_window_bits(n, affine, path)
-    return horner_combine(cv, window_sums(cv, scalars_std, P, c, affine, path), c)
+    c = pick_window_bits(n)
+    return horner_combine(cv, window_sums(cv, scalars_std, P, c, affine), c)
 
 
-def msm_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False,
-             path: str = "auto"):
+def msm_sums(cv: CurveSpec, scalars_std: torch.Tensor, P, affine: bool = False):
     """`msm` up to its Horner: (window sums (X, Y, Z) of [W, comp], their
     width c) where a bucket phase runs, or (`msm`'s point, None) below 128
     points, where no Horner follows."""
     n = scalars_std.shape[0]
     if n < 128:
-        return msm(cv, scalars_std, P, affine, path), None
-    c = _path_window_bits(n, affine, path)
-    return window_sums(cv, scalars_std, P, c, affine, path), c
+        return msm(cv, scalars_std, P, affine), None
+    c = pick_window_bits(n)
+    return window_sums(cv, scalars_std, P, c, affine), c
 
 
 class SideChains:
@@ -385,12 +346,12 @@ def _on(device, x) -> torch.Tensor:
     return x.to(device)
 
 
-def msm_chunked(cv: CurveSpec, scalars_std, P, chunk_log2: int = 20, device="cuda"):
+def msm_chunked(cv: CurveSpec, scalars_std, P, chunk_log2: int = 20, *, device):
     """MSM of an affine (wire-format) point set streamed to `device` in
     segments of 2^chunk_log2 points (groth16_tpu/ops/msm.py:msm_chunked):
-    each segment runs the whole bucket phase at the window of the path a
-    segment takes, the per-window sums add across segments (one batched
-    point add each), and one Horner finishes.
+    each segment runs the whole bucket phase at a segment's window, the
+    per-window sums add across segments (one batched point add each), and
+    one Horner finishes.
 
     `scalars_std` / `P` may be host numpy arrays or tensors; each segment is
     copied to `device` in turn.  At n <= 2^chunk_log2 this is `msm` of the
@@ -402,7 +363,7 @@ def msm_chunked(cv: CurveSpec, scalars_std, P, chunk_log2: int = 20, device="cud
     if n % chunk:
         raise ValueError(f"msm_chunked: {n} points is not a multiple of the "
                          f"segment size 2^{chunk_log2}; pad the MSM")
-    c = _path_window_bits(chunk, True, "auto")
+    c = pick_window_bits(chunk)
     total = None
     for s in range(0, n, chunk):
         sums = window_sums(cv, _on(device, scalars_std[s:s + chunk]),

@@ -1,9 +1,12 @@
 """Batched-affine merge-tree MSM bucket accumulation.
 
 Counterpart of groth16_tpu/ops/msm_tree.py, the bucket phase of affine MSMs
-that msm(path="tree") takes (`msm.tree_path`; the JAX package takes it on
-the TPU from 2^16 points, the port's "auto" never on the H100, where the
-fold is faster, `msm.TREE_MIN_N`).  Per window the points
+that the JAX package takes on the TPU from 2^16 points.  Here only this
+module's `msm` takes it: on an H100 (tools/bench_tree_phases.py crossover,
+affine points, full-width scalars) the tree lost to the fold (`msm.msm`)
+at every size from 2^16 to 2^21 in G1 (37.2 against 10.2 ms at 2^16, 116.3
+against 22.8 at 2^21) and in G2 (41.1 against 13.9, 247.7 against 60.4),
+and reserved 2-4 times the memory.  Per window the points
 are sorted by |digit|; a binary segmented merge tree over the sorted stream
 keeps every partial sum affine, so each addition is a chord / tangent at
 about 7 field products and one batch inversion per block of 512 serves the
@@ -36,10 +39,16 @@ from . import curve as C
 from . import field as F
 from . import kernels as KN
 from . import kernels_tree as KT
+from . import msm as M
 from .curve import CurveSpec
 from .ntt import bitrev_perm
 
 WINDOW_GROUP = 4   # windows per tree (groth16_tpu/ops/msm.py window_sums)
+
+
+def pick_window_bits_tree(n: int) -> int:
+    """The merge tree's window: one bit narrower than the fold's."""
+    return max(4, min(16, max(1, n).bit_length() - 4))
 
 
 def group_buckets_tree(cv: CurveSpec, sk: torch.Tensor, cols: torch.Tensor,
@@ -115,12 +124,11 @@ def window_sums_tree(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
     tree.  P is projective with Z in {0, Montgomery 1} (wire-format affine
     points); windows go through the tree in power-of-two groups of at most
     `group`, so that one inversion per level serves the whole group."""
-    from .msm import _weighted_bucket_reduce, signed_window_digits
     nb = (1 << (c - 1)) + 1
     n = scalars_std.shape[0]
     dev = scalars_std.device
     npad = 1 << max(1, (n - 1).bit_length())
-    digits = torch.nn.functional.pad(signed_window_digits(scalars_std, c), (0, npad - n))
+    digits = torch.nn.functional.pad(M.signed_window_digits(scalars_std, c), (0, npad - n))
     W = digits.shape[0]
     K = cv.fops
     nc = KT.ncomp(cv)
@@ -152,5 +160,15 @@ def window_sums_tree(cv: CurveSpec, scalars_std: torch.Tensor, P, c: int,
     bx = F.as_u32(brows[..., :nc].reshape(shape))
     by = F.as_u32(brows[..., nc:].reshape(shape))
     buckets = tuple(b.transpose(0, 1) for b in C.from_affine(cv, bx, by))  # [nb, W, comp]
-    return _weighted_bucket_reduce(cv, buckets, nb)
+    return M._weighted_bucket_reduce(cv, buckets, nb)
+
+
+def msm(cv: CurveSpec, scalars_std: torch.Tensor, P):
+    """sum_i scalar_i * P_i -> one projective point through the merge tree:
+    `window_sums_tree` at the tree's window (`pick_window_bits_tree`, groups
+    of WINDOW_GROUP windows), then the Horner.  P is projective with Z in
+    {0, Montgomery 1} (wire-format affine points); scalars as `msm.msm`
+    takes them."""
+    c = pick_window_bits_tree(scalars_std.shape[0])
+    return M.horner_combine(cv, window_sums_tree(cv, scalars_std, P, c, WINDOW_GROUP), c)
 

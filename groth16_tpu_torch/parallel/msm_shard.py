@@ -5,8 +5,8 @@ reference's chunked MSM (`groth16/bn128/msm.nim:89-158`) across processes:
 
   * each rank holds a contiguous slab of the (scalar, point) pairs (slabs
     may be uneven; `mesh.shard_range`) and runs the whole MSM on it with
-    ops/msm.py `msm`, which picks the naive ladder or the fold by the
-    slab's size (`msm.tree_path`), Horner included;
+    ops/msm.py `msm`, the naive ladder or the fold by the slab's size,
+    Horner included;
   * `all_gather_rows` brings every rank's one projective point to every
     rank; they are summed with K1 point adds (`curve.tree_sum`) and taken
     to affine (K6 and one K5 launch, `curve.to_affine`).

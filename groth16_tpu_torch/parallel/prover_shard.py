@@ -18,8 +18,9 @@ Counterpart of groth16_tpu/parallel/prover_shard.py
      rank's contiguous slab of the witness, H1 over the H points of the
      domain indices whose scalars the quotient left on the rank, so nothing
      is regathered; one all_gather of one point an MSM;
-  4. the spec-point algebra on host ints (reference prover.nim:278-302),
-     in `prover.prove_phases`, which the single-device prover shares.
+  4. the spec-point algebra and the affine conversion on the device
+     (`prover.spec_algebra`, `prover.proof_buffer`), as the single-device
+     proof runs them.
 
 Every rank returns the same proof, byte-identical to
 `generate_proof_with_mask` for the same mask.
@@ -27,6 +28,7 @@ Every rank returns the same proof, byte-identical to
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,7 +39,8 @@ from ..ops import field as F
 from ..ops import kernels as KN
 from ..ops import ntt as NT
 from ..ops.field import FR
-from ..protocol.prover import Mask, Proof, _dev, _device_key, prove_phases
+from ..protocol import prover as PV
+from ..protocol.prover import Mask, Proof, device_key, to_device
 from ..protocol.types import Flavour, Witness, ZKey
 from .mesh import Mesh, shard_range
 from .msm_shard import msm_sharded
@@ -75,7 +78,7 @@ def zkey_shard_args(zkey: ZKey, mesh: Mesh) -> ShardZKey:
     rank count and the flavour (as `prover.zkey_device_args` keeps the whole
     zkey).  `zkey_shard_args.builds` counts the uploads."""
     hdr = zkey.header
-    key = ("shard", _device_key(mesh.device), mesh.rank, mesh.size, hdr.flavour)
+    key = ("shard", device_key(mesh.device), mesh.rank, mesh.size, hdr.flavour)
     cached = zkey.device_cache.get(key)
     if cached is not None:
         return cached
@@ -95,7 +98,7 @@ def zkey_shard_args(zkey: ZKey, mesh: Mesh) -> ShardZKey:
                         np.asarray(co.coeff)[mine], hdr.domain_size // d, dev)
 
     def points(cv, pa, sel):
-        return C.from_affine(cv, _dev(pa.x[sel], dev), _dev(pa.y[sel], dev))
+        return C.from_affine(cv, to_device(pa.x[sel], dev), to_device(pa.y[sel], dev))
 
     ws = shard_range(hdr.nvars, r, d)
     cs = shard_range(hdr.nvars - hdr.npubs - 1, r, d)
@@ -136,25 +139,46 @@ def generate_proof_sharded(zkey: ZKey, wtns: Witness, mask: Mask, mesh: Mesh,
                            timings: dict | None = None) -> Proof:
     """Reference generateProofWithMask (prover.nim:215-304) sharded over the
     ranks of `mesh`, each on mesh.device; every rank calls it with the same
-    zkey, witness and mask and gets the same Proof.  `timings` gets the
-    phase times of `prover.prove_phases` (quotient_s with its all_to_alls,
-    msm_*_s each with its all_gather) and comm_s, the seconds inside the
-    collectives where mesh.timed is set."""
-    hdr = zkey.header
+    zkey, witness and mask and gets the same Proof.  The device waits at
+    the end of each phase, for its time: `timings` gets upload_s (the
+    rank's part of the zkey at its first proof, the witness), spmv_s,
+    quotient_s (with its all_to_alls), msm_a1_s, msm_b1_s, msm_b2_s,
+    msm_h1_s and msm_c1_s (each with its all_gather), algebra_s (the
+    spec-point algebra and the proof points to the host), total_s, and
+    comm_s, the seconds inside the collectives where mesh.timed is set."""
+    hdr, dev = zkey.header, mesh.device
     comm0 = mesh.comm_s
+    pub = PV.public_io(zkey, wtns)
+    marks = [time.perf_counter()]
 
-    def msms(static, w, qs):
-        w_slab = w[slice(*static.witness_slab)]
-        zs_slab = w[hdr.npubs + 1:][slice(*static.c1_slab)]
-        for cv, sc, P in ((C.G1, w_slab, static.a1), (C.G1, w_slab, static.b1),
-                          (C.G2, w_slab, static.b2), (C.G1, qs, static.h1),
-                          (C.G1, zs_slab, static.c1)):
-            yield C.affine_to_host(cv, *msm_sharded(cv, mesh, sc, P, affine=True))[0]
+    def mark():
+        PV.sync(dev)
+        marks.append(time.perf_counter())
 
-    prf = prove_phases(zkey, wtns, mask, mesh.device, lambda: zkey_shard_args(zkey, mesh),
-                       lambda az, bz, cz: quotient_scalars_sharded(
-                           hdr.flavour, mesh, az, bz, cz, hdr.log_domain_size),
-                       msms, timings)
+    static = zkey_shard_args(zkey, mesh)
+    spec = PV.spec_args(zkey, dev)
+    w = to_device(wtns.values, dev)                  # uint32, standard form
+    mark()
+    az, bz, cz = KN.spmv(w, static.rows)
+    mark()
+    qs = quotient_scalars_sharded(hdr.flavour, mesh, az, bz, cz, hdr.log_domain_size)
+    mark()
+    w_slab = w[slice(*static.witness_slab)]
+    zs_slab = w[hdr.npubs + 1:][slice(*static.c1_slab)]
+    msms = []
+    for cv, sc, P in ((C.G1, w_slab, static.a1), (C.G1, w_slab, static.b1),
+                      (C.G2, w_slab, static.b2), (C.G1, qs, static.h1),
+                      (C.G1, zs_slab, static.c1)):
+        x, y = msm_sharded(cv, mesh, sc, P, affine=True)
+        msms.append(tuple(c[0] for c in C.from_affine(cv, x, y)))
+        mark()
+    mask_std = to_device(PV.mask_limbs(mask), dev)
+    buf = PV.proof_buffer(*PV.spec_algebra(spec, msms, mask_std))
+    pi_a, pi_b, pi_c = PV.proof_points(buf.cpu())
+    marks.append(time.perf_counter())
     if timings is not None:
-        timings["comm_s"] = mesh.comm_s - comm0
-    return prf
+        steps = ("upload_s", "spmv_s", "quotient_s", "msm_a1_s", "msm_b1_s", "msm_b2_s",
+                 "msm_h1_s", "msm_c1_s", "algebra_s")
+        timings.update({k: b - a for k, a, b in zip(steps, marks, marks[1:])})
+        timings.update(total_s=marks[-1] - marks[0], comm_s=mesh.comm_s - comm0)
+    return Proof(public_io=pub, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)

@@ -1,10 +1,8 @@
 """Groth16 prover (the analog of reference `groth16/prover.nim`), in PyTorch.
 
-Counterpart of groth16_tpu/protocol/prover.py: the staged path
-(`generate_proof_with_mask`, prover.py:510-574), the fused one-dispatch
-prover (`prove_core_device` :205-282, `_generate_proof_fused` :429-459, the
-selection of :476-509) and batch mode (`generate_proofs`).  One proof on one
-device:
+Counterpart of groth16_tpu/protocol/prover.py: the one-dispatch prover
+(`prove_core_device` :205-282, `_generate_proof_fused` :429-459) and batch
+mode (`generate_proofs`).  One proof on one device:
 
   0. the zkey's circuit-static inputs (the SpMV's sorted entries, the five
      point sets) go to the device once and stay cached on the zkey, keyed
@@ -17,26 +15,21 @@ device:
      JensGroth also scales by 1/Z there, interpolates and un-shifts in two
      more K3 launches (reference prover.nim:118-181);
   3. five MSMs: G1 over A1, B1, H1 and C1, G2 over B2, each through the
-     fold (K2; `msm.tree_path`: on the H100 the merge tree, which the JAX
-     package takes for H1 on the TPU, is slower at every size), with K1
-     for the bucket reduce and Horner;
-  4. the O(1) spec-point algebra (prover.nim:278-302).
+     fold (K2; `msm.msm_sums`), with K1 for the bucket reduce and Horner;
+  4. the O(1) spec-point algebra (prover.nim:278-302) and the affine
+     conversion of the three proof points.
 
-Two paths run these steps.  The staged path (`prove_phases`) synchronizes
-after each phase, brings each MSM's point to the host and runs step 4 on
-host ints.  The fused path (`prove_core_device`) runs steps 1-4 and the
-affine conversion on the device with no host round trip and no branch on
-device data; on a CUDA device it is captured once per (zkey, device,
-flavour) as a CUDA graph (`FusedProof`, which also holds the spec points
-and the window tables of delta1 and delta2 on the device), and a proof is
-one replay, whose only device-to-host traffic is the three proof points;
-there the MSMs' Horner chains run on side streams beside the next bucket
-phases (`core_msms`, `msm.SideChains`).  `fused=None` takes
-the fused path on a CUDA device and the staged one on the CPU, where no
-graph exists; both give the same proof for the same mask.
+`prove_core_device` runs steps 1-4 on the device with no host round trip
+and no branch on device data.  Every proof runs it; the device type says
+how.  On a CUDA device it is captured once per (zkey, device, flavour) as a
+CUDA graph (`FusedProof`, which also holds the spec points and the window
+tables of delta1 and delta2 on the device), and a proof is one replay,
+whose only device-to-host traffic is the three proof points; there the
+MSMs' Horner chains run on side streams beside the next bucket phases
+(`core_msms`, `msm.SideChains`).  On the CPU, where no graph exists, it is
+one eager call through the plain versions of the kernels.
 
-The device comes from the caller; nothing falls back to another device or
-path.
+The device comes from the caller; nothing falls back to another device.
 """
 
 from __future__ import annotations
@@ -56,7 +49,6 @@ from ..ops import msm as M
 from ..ops import ntt as NT
 from ..ops.field import FR
 from ..ops.limbs import ints_to_limbs, limbs_to_ints
-from ..utils import hostmath as H
 from ..utils import timing as T
 from .types import Flavour, Witness, ZKey
 
@@ -85,11 +77,13 @@ def random_mask() -> Mask:
     return Mask(r=secrets.randbelow(FR.modulus), s=secrets.randbelow(FR.modulus))
 
 
-def _dev(a, device) -> torch.Tensor:
+def to_device(a, device) -> torch.Tensor:
+    """A host numpy array as a tensor on `device`."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -112,7 +106,9 @@ class DeviceZKey:
     h1: tuple
 
 
-def _device_key(device) -> str:
+def device_key(device) -> str:
+    """The name a device's entries take in `zkey.device_cache` ("cuda" with
+    its index)."""
     d = torch.device(device)
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
@@ -127,7 +123,7 @@ def zkey_device_args(zkey: ZKey, device) -> DeviceZKey:
     The cache assumes the zkey's arrays do not change after the first
     proof.  `zkey_device_args.builds` counts the uploads; each is the span
     `upload`, recorded always, up to a synchronization."""
-    key = _device_key(device)
+    key = device_key(device)
     cached = zkey.device_cache.get(key)
     if cached is not None:
         return cached
@@ -135,7 +131,7 @@ def zkey_device_args(zkey: ZKey, device) -> DeviceZKey:
     co, pp = zkey.coeffs, zkey.ppoints
 
     def points(cv, pa):
-        return C.from_affine(cv, _dev(pa.x, dev), _dev(pa.y, dev))
+        return C.from_affine(cv, to_device(pa.x, dev), to_device(pa.y, dev))
 
     with T.span("upload", always=True):
         cached = DeviceZKey(
@@ -143,7 +139,7 @@ def zkey_device_args(zkey: ZKey, device) -> DeviceZKey:
             a1=points(C.G1, pp.points_a1), b1=points(C.G1, pp.points_b1),
             b2=points(C.G2, pp.points_b2), c1=points(C.G1, pp.points_c1),
             h1=points(C.G1, pp.points_h1))
-        _sync(dev)
+        sync(dev)
     zkey.device_cache[key] = cached
     zkey_device_args.builds += 1
     return cached
@@ -206,13 +202,24 @@ def spec_device_args(zkey: ZKey, device) -> DeviceSpec:
     """The zkey's spec points on `device` (the JAX package's
     zkey_device_args, groth16_tpu/protocol/prover.py:400-406, with window
     tables for delta): a few host doublings, 2 (SPEC_WINDOW - 1) K1
-    launches a table on CUDA.  `FusedProof` keeps them, so the staged path
-    never builds them."""
-    dev, spec = torch.device(_device_key(device)), zkey.spec
+    launches a table on CUDA.  Built with a device's first proof: a
+    `FusedProof` holds them on a CUDA device, `zkey.device_cache` on the CPU
+    (`spec_args`)."""
+    dev, spec = torch.device(device_key(device)), zkey.spec
     return DeviceSpec(alpha1_beta1=C.points_from_host(C.G1, [spec.alpha1, spec.beta1], dev),
                       beta2=C.points_from_host(C.G2, [spec.beta2], dev),
                       delta1=C.window_table(C.G1, spec.delta1, SPEC_WINDOW, dev),
                       delta2=C.window_table(C.G2, spec.delta2, SPEC_WINDOW, dev))
+
+
+def spec_args(zkey: ZKey, device) -> DeviceSpec:
+    """`spec_device_args` of the zkey on `device`, built at the first call
+    and kept in `zkey.device_cache` under ("spec", device)."""
+    key = ("spec", device_key(device))
+    spec = zkey.device_cache.get(key)
+    if spec is None:
+        spec = zkey.device_cache[key] = spec_device_args(zkey, device)
+    return spec
 
 
 def table_mul(cv: C.CurveSpec, table, scalars_std: torch.Tensor) -> tuple:
@@ -313,7 +320,7 @@ CHAIN_LAUNCHES = (("msm_a1", "msm_b1"), ("msm_b2",), ("msm_h1",), ("msm_c1",))
 def core_msms(flavour: Flavour, log2n: int, static: DeviceZKey,
               witness_std: torch.Tensor, mark=None, chains=None) -> tuple:
     """The SpMV, the quotient and the five MSMs of one proof (projective A1,
-    B1, B2, H1, C1 sums), each MSM on the path the staged proof takes.  The
+    B1, B2, H1, C1 sums), each bucket phase through `msm.msm_sums`.  The
     public part of the witness is what C1 does not cover.  `mark(phase)`,
     where given, is called as each phase of `timing.PHASES` ends: an MSM's
     phase is its bucket phase (`msm.msm_sums`).  The Horner chains go to
@@ -361,7 +368,7 @@ def prove_core_device(flavour: Flavour, log2n: int, static: DeviceZKey, spec: De
     It runs eagerly on any device: on CPU tensors through the plain
     versions of the kernels.  `mark(phase)`, where given, is called as each
     phase of `timing.PHASES` ends (the fused graph records a timing event
-    there); the eager and CPU paths pass none.  The MSMs' Horner chains run
+    there, the CPU proof reads the host clock).  The MSMs' Horner chains run
     in `chains` (an `msm.SideChains`; one of its own where None), on side
     streams on CUDA tensors, joined inside the phase `algebra`."""
     mark = mark or _no_mark
@@ -372,86 +379,6 @@ def prove_core_device(flavour: Flavour, log2n: int, static: DeviceZKey, spec: De
     buf = proof_buffer(*pts)
     mark("affine")
     return buf
-
-
-# ---------------------------------------------------------------------------
-# proof assembly
-# ---------------------------------------------------------------------------
-
-def _msm_to_host(cv: C.CurveSpec, scalars_std: torch.Tensor, P):
-    res = M.msm(cv, scalars_std, P, affine=True)   # wire points are affine
-    return C.points_to_host(cv, tuple(x[None] for x in res))[0]
-
-
-def _public_io(zkey: ZKey, wtns: Witness) -> list:
-    """The proof's public IO, after checking the witness against the zkey
-    and the zkey's point sections against its header."""
-    hdr, pts = zkey.header, zkey.ppoints
-    if hdr.curve != wtns.curve or hdr.nvars != wtns.nvars:
-        raise ValueError("witness does not match the zkey")
-    nvars, npubs = hdr.nvars, hdr.npubs
-    if not (nvars == len(pts.points_a1) == len(pts.points_b1) == len(pts.points_b2)
-            and hdr.domain_size == len(pts.points_h1)
-            and nvars - npubs - 1 == len(pts.points_c1)):
-        raise ValueError("zkey point sections do not match its header")
-    return limbs_to_ints(wtns.values[: npubs + 1])
-
-
-def prove_phases(zkey: ZKey, wtns: Witness, mask: Mask, device: torch.device, static_args,
-                 quotient, msms, timings: dict | None = None) -> Proof:
-    """The proof's phases on `device`, shared by `generate_proof_with_mask`
-    and the sharded prover (parallel/prover_shard.py): the zkey and witness
-    checks, the witness upload, the SpMV, the quotient, the five MSMs and
-    the spec-point algebra on host ints (prover.nim:278-302).  The callers
-    differ in three callables: `static_args()` gives the zkey's device
-    inputs (with the SpMV `rows`), `quotient(az, bz, cz)` the H1 scalars,
-    and `msms(static, witness_std, qs_std)` yields the five MSMs' host
-    points in the order A1, B1, B2, H1, C1.  `timings` gets upload_s,
-    spmv_s, quotient_s, msm_*_s (each to its host point), algebra_s (the
-    spec-point algebra on host ints) and total_s."""
-    spec = zkey.spec
-    public_io = _public_io(zkey, wtns)
-
-    t0 = time.perf_counter()
-    static = static_args()
-    witness_std = _dev(wtns.values, device)          # uint32, standard form
-    _sync(device)
-    tz = time.perf_counter()
-    az, bz, cz = KN.spmv(witness_std, static.rows)
-    _sync(device)
-    t1 = time.perf_counter()
-    qs_std = quotient(az, bz, cz)
-    _sync(device)
-    marks = [time.perf_counter()]
-    host = []
-    for pt in msms(static, witness_std, qs_std):
-        host.append(pt)
-        marks.append(time.perf_counter())
-    msm_a, msm_b1, msm_b2, msm_h, msm_c = host
-
-    r, s = mask.r % FR.modulus, mask.s % FR.modulus
-    # pi_a = alpha1 + r*delta1 + MSM(w, A1)            (prover.nim:278-282)
-    pi_a = H.g1_add(H.g1_add(spec.alpha1, H.g1_mul(r, spec.delta1)), msm_a)
-    # rho = beta1 + s*delta1 + MSM(w, B1)              (prover.nim:285-288)
-    rho = H.g1_add(H.g1_add(spec.beta1, H.g1_mul(s, spec.delta1)), msm_b1)
-    # pi_b = beta2 + s*delta2 + MSM(w, B2)             (prover.nim:290-294)
-    pi_b = H.g2_add(H.g2_add(spec.beta2, H.g2_mul(s, spec.delta2)), msm_b2)
-    # pi_c = s*pi_a + r*rho - rs*delta1 + MSM(qs, H1) + MSM(zs, C1)
-    pi_c = H.g1_mul(s, pi_a)
-    pi_c = H.g1_add(pi_c, H.g1_mul(r, rho))
-    pi_c = H.g1_add(pi_c, H.g1_mul((-r * s) % FR.modulus, spec.delta1))
-    pi_c = H.g1_add(pi_c, msm_h)
-    pi_c = H.g1_add(pi_c, msm_c)
-    t3 = time.perf_counter()
-
-    if timings is not None:
-        timings.update({
-            "upload_s": tz - t0, "spmv_s": t1 - tz, "quotient_s": marks[0] - t1,
-            "msm_a1_s": marks[1] - marks[0], "msm_b1_s": marks[2] - marks[1],
-            "msm_b2_s": marks[3] - marks[2], "msm_h1_s": marks[4] - marks[3],
-            "msm_c1_s": marks[5] - marks[4], "algebra_s": t3 - marks[5], "total_s": t3 - t0,
-        })
-    return Proof(public_io=public_io, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +411,7 @@ class FusedProof:
     reads nothing."""
 
     def __init__(self, zkey: ZKey, device):
-        self.device = torch.device(_device_key(device))
+        self.device = torch.device(device_key(device))
         if self.device.type != "cuda":
             raise ValueError(f"a fused proof captures a CUDA graph: it needs a CUDA device, "
                              f"not {self.device}")
@@ -493,7 +420,7 @@ class FusedProof:
         self.static = zkey_device_args(zkey, self.device)
         with T.span("capture.spec", always=True):
             self.spec = spec_device_args(zkey, self.device)
-            _sync(self.device)
+            sync(self.device)
         shape = (hdr.nvars, 16)
         self.witness = torch.zeros(shape, dtype=torch.uint32, device=self.device)
         self.mask = torch.zeros((3, 16), dtype=torch.uint32, device=self.device)
@@ -587,7 +514,7 @@ _FUSED_LOCK = threading.Lock()   # one capture at a time, and one per key
 
 
 def _fused_key(zkey: ZKey, device) -> tuple:
-    return ("fused", _device_key(device), zkey.header.flavour.value)
+    return ("fused", device_key(device), zkey.header.flavour.value)
 
 
 def fused_graph(zkey: ZKey, device) -> FusedProof:
@@ -624,109 +551,130 @@ def fused_graph(zkey: ZKey, device) -> FusedProof:
 fused_graph.captures = 0
 
 
-def _generate_proof_fused(zkey: ZKey, wtns: Witness, mask: Mask, device,
-                          timings: dict | None) -> Proof:
-    """One proof as one replay of the zkey's graph, its buffers held under
-    the graph's lock from the load to the copy back.
-    `timings` gets upload_s (the zkey's upload at its first proof on the
-    device, then the witness and masks queued into the static buffers),
-    capture_s (the spec points, warm-up and capture, on the proof that
-    captured), device_core_s (the replay up to the proof buffer on the
-    host) and total_s; while tracing is on also `<phase>_device_s`, the
-    device seconds of each phase of `timing.PHASES` inside the replay.
-    Traced, the proof is the root span `proof` over `public_io`, `load`
-    (`load.stage`, `load.enqueue`), `device_core` (`replay`, `copy_back`)
+# ---------------------------------------------------------------------------
+# one proof on any device
+# ---------------------------------------------------------------------------
+
+def public_io(zkey: ZKey, wtns: Witness) -> list:
+    """The proof's public IO, after checking the witness against the zkey
+    and the zkey's point sections against its header."""
+    hdr, pts = zkey.header, zkey.ppoints
+    if hdr.curve != wtns.curve or hdr.nvars != wtns.nvars:
+        raise ValueError("witness does not match the zkey")
+    nvars, npubs = hdr.nvars, hdr.npubs
+    if not (nvars == len(pts.points_a1) == len(pts.points_b1) == len(pts.points_b2)
+            and hdr.domain_size == len(pts.points_h1)
+            and nvars - npubs - 1 == len(pts.points_c1)):
+        raise ValueError("zkey point sections do not match its header")
+    return limbs_to_ints(wtns.values[: npubs + 1])
+
+
+def _replay(zkey: ZKey, wtns: Witness, mask: Mask, device, t: dict) -> tuple:
+    """The core as one replay of the zkey's graph on a CUDA device, its
+    buffers held under the graph's lock from the load to the copy back:
+    (the proof buffer on the host, the replay's phase seconds).  Puts
+    capture_s (the spec points, warm-up and capture) into `t` on the proof
+    that captured."""
+    captured = _fused_key(zkey, device) not in zkey.device_cache
+    t0 = time.perf_counter()
+    fp = fused_graph(zkey, device)
+    if captured:
+        t["capture_s"] = time.perf_counter() - t0
+    with fp.lock:
+        with T.span("load", t, "load_s"):
+            fp.load(wtns, mask)
+        with T.span("device_core", t, "device_core_s"):
+            buf = fp.replay()
+        return buf, fp.phases
+
+
+def _eager(zkey: ZKey, wtns: Witness, mask: Mask, device, t: dict) -> tuple:
+    """The core as one eager call, where no graph exists (the CPU), with the
+    zkey's `spec_args`: (the proof buffer, the phase seconds).  The core is
+    synchronous there, so `mark` reads the host clock; while tracing is on
+    each phase's seconds go to the tracer, as a replay's do."""
+    hdr = zkey.header
+    spec = spec_args(zkey, device)
+    with T.span("load", t, "load_s"):
+        witness_std = to_device(wtns.values, device)
+        mask_std = to_device(mask_limbs(mask), device)
+    clock = [time.perf_counter()]
+    with T.span("device_core", t, "device_core_s"):
+        buf = prove_core_device(hdr.flavour, hdr.log_domain_size, zkey_device_args(zkey, device),
+                                spec, witness_std, mask_std,
+                                lambda phase: clock.append(time.perf_counter()))
+    phases = {p: b - a for p, a, b in zip(T.PHASES, clock, clock[1:])} if T.on() else {}
+    if phases:
+        T.record_phases(phases)
+    return buf, phases
+
+
+def _prove(zkey: ZKey, wtns: Witness, mask: Mask, device, timings: dict | None, core) -> Proof:
+    """One proof with `core` (`_replay` or `_eager`) running the device
+    work.  `timings` gets upload_s (the zkey's upload at its first proof on
+    the device, then the witness and masks), device_core_s (the core up to
+    the proof buffer on the host) and total_s, capture_s on the proof that
+    captured a graph, and while tracing is on `<phase>_device_s`, the
+    seconds of each phase of `timing.PHASES` inside the core.  Traced, the
+    proof is the root span `proof` over `public_io`, `load`, `device_core`
     and `proof_points`, all under one proof id."""
     t: dict = {}
     with T.proof():
         with T.span("public_io"):
-            public_io = _public_io(zkey, wtns)
+            pub = public_io(zkey, wtns)
         t0 = time.perf_counter()
         zkey_device_args(zkey, device)
         t1 = time.perf_counter()
-        captured = _fused_key(zkey, device) not in zkey.device_cache
-        fp = fused_graph(zkey, device)
-        t2 = time.perf_counter()
-        with fp.lock:
-            with T.span("load", t, "load_s"):
-                fp.load(wtns, mask)
-            with T.span("device_core", t, "device_core_s"):
-                buf = fp.replay()
-            phases = fp.phases
+        buf, phases = core(zkey, wtns, mask, device, t)
         with T.span("proof_points"):
             pi_a, pi_b, pi_c = proof_points(buf)
         total_s = time.perf_counter() - t0
     if timings is not None:
         timings.update({"upload_s": (t1 - t0) + t["load_s"], "device_core_s": t["device_core_s"],
                         "total_s": total_s})
-        if captured:
-            timings["capture_s"] = t2 - t1
-        timings.update({f"{p}_device_s": s for p, s in phases.items()})
-    return Proof(public_io=public_io, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
-
-
-def _use_fused(fused: bool | None, device: torch.device) -> bool:
-    """The path of a proof on `device`: `fused=None` is fused on a CUDA
-    device and staged on the CPU, where no graph exists (the JAX package's
-    fused-on-the-TPU default); `fused=True` on a CPU device raises."""
-    if fused is None:
-        return device.type == "cuda"
-    if fused and device.type != "cuda":
-        raise ValueError(f"fused=True needs a CUDA device (a CUDA graph a proof), not {device}")
-    return bool(fused)
+        if "capture_s" in t:
+            timings["capture_s"] = t["capture_s"]
+        timings.update({f"{p}_device_s": sec for p, sec in phases.items()})
+    return Proof(public_io=pub, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
 
 
 def generate_proof_with_mask(zkey: ZKey, wtns: Witness, mask: Mask, device: torch.device,
-                             timings: dict | None = None, fused: bool | None = None) -> Proof:
+                             timings: dict | None = None) -> Proof:
     """Reference generateProofWithMask (prover.nim:215-304) on `device`, a
     torch.device the caller names: the proof runs there and nowhere else.
     The zkey's inputs are uploaded at its first proof on the device and
-    reused after (`zkey_device_args`).  `fused` picks the path
-    (`_use_fused`): the fused one is one replay of a CUDA graph captured
-    at the zkey's first fused proof on the device (`fused_graph`); the
-    staged one is `prove_phases`.  Both give the same proof."""
+    reused after (`zkey_device_args`).  On a CUDA device the proof is one
+    replay of the graph captured at the zkey's first proof there
+    (`fused_graph`); elsewhere one eager call of `prove_core_device`.  Both
+    give the same proof; `timings` as `_prove` fills it."""
     device = torch.device(device)
-    if _use_fused(fused, device):
-        return _generate_proof_fused(zkey, wtns, mask, device, timings)
-    hdr = zkey.header
-
-    def msms(static, w, qs):
-        for cv, sc, P in ((C.G1, w, static.a1), (C.G1, w, static.b1), (C.G2, w, static.b2),
-                          (C.G1, qs, static.h1), (C.G1, w[hdr.npubs + 1:], static.c1)):
-            yield _msm_to_host(cv, sc, P)
-
-    return prove_phases(zkey, wtns, mask, device, lambda: zkey_device_args(zkey, device),
-                        lambda az, bz, cz: quotient_scalars(hdr.flavour, az, bz, cz,
-                                                            hdr.log_domain_size),
-                        msms, timings)
+    return _prove(zkey, wtns, mask, device, timings, _replay if device.type == "cuda" else _eager)
 
 
 def generate_proof_with_trivial_mask(zkey: ZKey, wtns: Witness, device: torch.device,
-                                     timings: dict | None = None,
-                                     fused: bool | None = None) -> Proof:
+                                     timings: dict | None = None) -> Proof:
     """Reference prover.nim:308-310: the masks r = s = 0 (no zero knowledge;
     the proof is a function of the zkey and the witness alone)."""
-    return generate_proof_with_mask(zkey, wtns, Mask(0, 0), device, timings, fused)
+    return generate_proof_with_mask(zkey, wtns, Mask(0, 0), device, timings)
 
 
-def generate_proof(zkey: ZKey, wtns: Witness, device: torch.device, timings=None,
-                   fused: bool | None = None) -> Proof:
+def generate_proof(zkey: ZKey, wtns: Witness, device: torch.device, timings=None) -> Proof:
     """Reference prover.nim:312-319 (random masks)."""
-    return generate_proof_with_mask(zkey, wtns, random_mask(), device, timings, fused)
+    return generate_proof_with_mask(zkey, wtns, random_mask(), device, timings)
 
 
 def generate_proofs(zkey: ZKey, witnesses, device: torch.device, masks=None,
-                    timings: list | None = None, fused: bool | None = None) -> list:
+                    timings: list | None = None) -> list:
     """Batch mode: one proof of each witness against one zkey on `device`,
-    the zkey's inputs uploaded once for the batch (`zkey_device_args`); on
-    the fused path the first proof captures the graph and every later one
-    is a replay.  `masks` gives each proof's Mask (random masks where it is
+    the zkey's inputs uploaded once for the batch (`zkey_device_args`); on a
+    CUDA device the first proof captures the graph and every later one is a
+    replay.  `masks` gives each proof's Mask (random masks where it is
     None); `timings`, where given, gets one dict of phase times per proof."""
     out = []
     for i, w in enumerate(witnesses):
         mask = masks[i] if masks is not None else random_mask()
         sink = {} if timings is not None else None
-        out.append(generate_proof_with_mask(zkey, w, mask, device, sink, fused))
+        out.append(generate_proof_with_mask(zkey, w, mask, device, sink))
         if timings is not None:
             timings.append(sink)
     return out

@@ -9,9 +9,9 @@ fold's window (c = 16 at 2^20), on the phase tool's points (bench_tree_phases
 warm-up: signed digits (all windows); the sort (|digit| argsort and the
 sorted keys); the bucket table's set-up; each K2 level of `fold_schedule`
 with its T, lanes and closes; all levels together (`window_buckets`, table
-in and out); the bucket reduce; Horner; msm(path="fold"), whose peak device
+in and out); the bucket reduce; Horner; msm.msm, whose peak device
 memory is read around one call.  The levels' outputs feed each other as in
-the MSM, and the result must equal msm(path="fold")'s.
+the MSM, and the result must equal msm.msm's.
 
 `sweep`: the fold's projective levels (level 1 onwards) at the main path's
 shapes, G1 and G2 at 2^16 - 1 points (c = 13, 20 windows, 2,048 elements a
@@ -197,14 +197,14 @@ def run(log2n: int = 20, device="cuda", reps: int = 3) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev) / 2**30 if on_card else None
-    want = M.msm(cv, sc, P, affine=True, path="fold")
+    want = M.msm(cv, sc, P, affine=True)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
-    phase("msm(path='fold')", lambda: M.msm(cv, sc, P, affine=True, path="fold"))
+    phase("msm.msm", lambda: M.msm(cv, sc, P, affine=True))
     same = all(torch.equal(F.as_i32(a), F.as_i32(b))
                for a, b in zip(C.to_affine(cv, got), C.to_affine(cv, want)))
     if not same:
-        raise AssertionError("the phases' result differs from msm(path='fold')")
-    print(f"phases == msm(path='fold') (c = {c}, levels {Ts}); peak device memory of the fold "
+        raise AssertionError("the phases' result differs from msm.msm")
+    print(f"phases == msm.msm (c = {c}, levels {Ts}); peak device memory of the fold "
           "MSM " + ("not measured (cpu)" if peak is None
                     else f"{peak:.3f} GiB ({base:.3f} GiB allocated before it)"))
     res = {"tool": "bench_fold_phases", "card": measure.card_line(dev), "log2n": log2n, "c": c,

@@ -24,20 +24,19 @@ phase is timed with CUDA events, mean of 3 after a warm-up:
   one group through the real levels (K8, one launch a level);
   window_sums_tree over all windows;
   Horner;
-  msm(path="tree");
-  msm(path="fold") at the same n, the JAX tool's "(e)".
+  the tree's whole MSM (`msm_tree.msm`);
+  the fold's (`msm.msm`) at the same n, the JAX tool's "(e)".
 
-`run` checks that the tree, the fold and msm(path="auto") give one affine
-point, then prints one line per phase and one JSON line of the phase times
+`run` checks that the tree and the fold give one affine point, then prints one line per phase and one JSON line of the phase times
 with the card's name and power limit and the peak device memory of the tree
 MSM.  The JAX tool's `lax.gather` offset-first variant is left out: it
 compared two XLA formulations of one gather, and PyTorch has one.
 
 `crossover` times the two bucket phases against each other, the sizes and
 the curves (G1, G2) on its command line, scalars full width or of `bits`
-bits: milliseconds and peak memory reserved of msm(path="fold") and
-msm(path="tree") at each size, from which `msm.TREE_MIN_N` is set.  Needs
-one CUDA card; imports nothing of JAX.
+bits: milliseconds and peak memory reserved of `msm.msm` (the fold) and
+`msm_tree.msm` at each size, the measurement behind the fold being the
+port's one bucket phase.  Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -170,7 +169,7 @@ def noop_level(cv, A_pl, A_pr, B_pl, B_pr, match, aP, bP, want_em):
 
 def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
     """Time the phases of a G1 MSM of 2^log2n points on `device` (its plain
-    versions on a CPU device); check tree == fold == auto; print and return
+    versions on a CPU device); check tree == fold; print and return
     the phase times."""
     import numpy as np
     import torch
@@ -183,7 +182,7 @@ def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
     dev = torch.device(device)
     cv, K = C.G1, C.G1.fops
     n = 1 << log2n
-    c = M.pick_window_bits_tree(n)
+    c = MT.pick_window_bits_tree(n)
     nb = (1 << (c - 1)) + 1
     rng = np.random.default_rng(3)
     sc = torch.from_numpy(draw_scalars(n, 3)).to(dev)
@@ -268,15 +267,13 @@ def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev) / 2**30 if on_card else None
-    out = {"tree": phase("msm(path='tree')", lambda: M.msm(cv, sc, P, affine=True, path="tree"))}
+    tree = phase("msm_tree.msm", lambda: MT.msm(cv, sc, P))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
-    out["fold"] = phase("msm(path='fold')", lambda: M.msm(cv, sc, P, affine=True, path="fold"))
-    out["auto"] = M.msm(cv, sc, P, affine=True)
-    pts = [C.to_affine(cv, p) for p in out.values()]
-    for name, p in zip(out, pts):
-        if not all(torch.equal(F.as_i32(u), F.as_i32(v)) for u, v in zip(p, pts[0])):
-            raise AssertionError(f"msm(path={name!r}) gives another point than the tree")
-    print(f"tree, fold and auto give one point (c = {c} tree, "
+    fold = phase("msm.msm", lambda: M.msm(cv, sc, P, affine=True))
+    if not all(torch.equal(F.as_i32(u), F.as_i32(v))
+               for u, v in zip(C.to_affine(cv, tree), C.to_affine(cv, fold))):
+        raise AssertionError("the fold gives another point than the tree")
+    print(f"tree and fold give one point (c = {c} tree, "
           f"{M.pick_window_bits(n)} fold); peak device memory of the tree MSM "
           + ("not measured (cpu)" if peak is None
              else f"{peak:.3f} GiB ({base:.3f} GiB allocated before it)"))
@@ -290,20 +287,22 @@ def run(log2n: int = 20, group: int = 4, device="cuda", reps: int = 3) -> dict:
 
 def crossover(log2ns=(16, 18, 20, 21), curves=("G1", "G2"), bits: int = 254, device="cuda",
               reps: int = 3) -> dict:
-    """The tree/fold crossover: msm(path="fold") against msm(path="tree") of
-    affine points at each 2^log2n of `log2ns`, in each curve of `curves`,
+    """The tree/fold crossover: `msm.msm` (the fold) against `msm_tree.msm`
+    of affine points at each 2^log2n of `log2ns`, in each curve of `curves`,
     scalars of `bits` bits from a seed (`draw_scalars`).  Each path: mean
     milliseconds of `reps` calls after a warm-up (CUDA events), and on a card
     the peak memory reserved over its calls (`max_memory_reserved`, the
     allocator's cache emptied and its peak reset before) beside what the
-    inputs hold.  Both paths must give one point.  Prints one line a size
+    inputs hold.  Both must give one point; `auto` marks the fold, the
+    path `msm.msm` takes.  Prints one line a size
     and path and one JSON line with the card and the rows; returns it."""
     import torch
     from groth16_tpu_torch.ops import curve as C, field as F
-    from groth16_tpu_torch.ops import msm as M
+    from groth16_tpu_torch.ops import msm as M, msm_tree as MT
     from groth16_tpu_torch.tools import measure
 
     dev = torch.device(device)
+    msms = {"fold": lambda cv, sc, P: M.msm(cv, sc, P, affine=True), "tree": MT.msm}
     on_card = dev.type == "cuda"
     rows = []
     for name in curves:
@@ -313,22 +312,21 @@ def crossover(log2ns=(16, 18, 20, 21), curves=("G1", "G2"), bits: int = 254, dev
             P = make_points(n, dev, cv=cv)
             sc = torch.from_numpy(draw_scalars(n, 11 + log2n, bits)).to(dev)
             points = []
-            for path in ("fold", "tree"):
+            for path, msm in msms.items():
                 out = []
                 if on_card:
                     torch.cuda.synchronize(dev)
                     torch.cuda.empty_cache()
                     torch.cuda.reset_peak_memory_stats(dev)
                 inputs = torch.cuda.memory_allocated(dev) / 2**30 if on_card else None
-                ms = measure.time_ms(lambda: out.append(M.msm(cv, sc, P, affine=True, path=path)),
-                                     dev, reps)
+                ms = measure.time_ms(lambda: out.append(msm(cv, sc, P)), dev, reps)
                 peak = torch.cuda.max_memory_reserved(dev) / 2**30 if on_card else None
                 points.append(C.to_affine(cv, out[-1]))
                 del out
-                c = M.pick_window_bits_tree(n) if path == "tree" else M.pick_window_bits(n)
+                c = MT.pick_window_bits_tree(n) if path == "tree" else M.pick_window_bits(n)
                 rows.append(dict(curve=name, log2n=log2n, path=path, c=c, ms=ms,
                                  peak_reserved_gib=peak, inputs_gib=inputs,
-                                 auto=M.tree_path(n, True) == (path == "tree")))
+                                 auto=path == "fold"))
                 print(f"{name} 2^{log2n} {path:4s} c={c:2d} {ms:10.3f} ms, peak reserved "
                       + ("not measured (cpu)" if peak is None
                          else f"{peak:.3f} GiB ({inputs:.3f} GiB inputs)"), flush=True)

@@ -1,5 +1,6 @@
 """The port's tracer: spans on the profiler's clock, counters, and the
-device phases of a fused proof.
+phases of a proof's core (device seconds on the card, host seconds on the
+CPU).
 
     with span("load", sink, "load_s"):        # sink["load_s"] = seconds
         ...
@@ -22,7 +23,7 @@ Tracing is on while a torch profiler records, or between `enable()` and
 span without a sink costs one check and a shared null context, and
 records nothing.
 
-The recorder, the device phases (`record_phases`), the side branch's
+The recorder, the phases (`record_phases`), the side branch's
 device seconds (`record_side_chains`) and the counters (`count`) live at
 module level, bounded, so that they outlive the zkey whose proofs filled
 them; `records()`, `phases()`, `side_chains()` and `counters()` read them.
@@ -39,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-# the fused proof's device phases, in the order `prove_core_device` runs them
+# the phases of a proof's core, in the order `prove_core_device` runs them
 PHASES = ("spmv", "quotient", "msm_a1", "msm_b1", "msm_b2", "msm_h1", "msm_c1", "algebra",
           "affine")
 LIMIT = 65536          # records (and proofs' phases) the recorder keeps, the newest
@@ -169,7 +170,7 @@ def current_proof() -> int | None:
 
 
 def record_phases(seconds: dict) -> None:
-    """Keep one proof's device phases ({phase: seconds}) under the id of
+    """Keep one proof's phases ({phase: seconds}) under the id of
     the proof open on this thread."""
     _phases.append((current_proof(), dict(seconds)))
 
@@ -200,8 +201,9 @@ def records() -> list:
 
 
 def phases() -> list:
-    """[(proof id, {phase: device seconds})] of the traced fused proofs,
-    oldest first (at most LIMIT)."""
+    """[(proof id, {phase: seconds})] of the traced proofs (device
+    seconds on the card, host seconds on the CPU), oldest first (at most
+    LIMIT)."""
     return list(_phases)
 
 

@@ -1,8 +1,10 @@
-"""Shared parts of the fused-prover tests (tests/test_torch_fused.py,
-tests/test_torch_fused_guard.py, tests/test_torch_batch_jax.py): the masks,
-the port's staged proofs of one witness under several masks, the fused
-core's proofs under the same masks, `shared_msms`, which lets the two
-paths of one witness compute each MSM once, and `no_host_sync`, the guard
+"""Shared parts of the prover tests (tests/test_torch_fused.py,
+tests/test_torch_fused_guard.py, tests/test_torch_batch_jax.py,
+tests/test_torch_gpu.py): the masks, the timings keys of a proof, the
+test-side oracle of a proof (`oracle_proofs`: the masked spec-point algebra
+on host ints over the port's MSM points), the CPU proofs of one witness
+under several masks (`cpu_proofs`), `shared_msms`, which lets several
+proofs of one witness compute each MSM once, and `no_host_sync`, the guard
 that shows the core could be captured as a CUDA graph.  Imports no jax."""
 
 import contextlib
@@ -20,6 +22,8 @@ from groth16_tpu_torch.ops import msm as M
 from groth16_tpu_torch.ops import ntt as NT
 from groth16_tpu_torch.ops.field import FR
 from groth16_tpu_torch.protocol import prover as PV
+from groth16_tpu_torch.utils import hostmath as H
+from groth16_tpu_torch.utils import timing as TR
 
 CPU = torch.device("cpu")
 Q = FR.modulus
@@ -27,78 +31,82 @@ Q = FR.modulus
 MASKS = (T.Mask(0, 0),
          T.Mask(0x2B1A_5E7F_0123_4567_89AB_CDEF_FEDC_BA98, 0x1357_9BDF_2468_ACE0_0FED_CBA9_8765_4321),
          T.Mask(Q - 1, Q - 1))
-STAGED_KEYS = {"upload_s", "spmv_s", "quotient_s", "msm_a1_s", "msm_b1_s", "msm_b2_s",
-               "msm_h1_s", "msm_c1_s", "algebra_s", "total_s"}
+# the timings of a traced proof on either device, but for capture_s on the
+# proof that captured a graph
+PROOF_KEYS = {"upload_s", "device_core_s", "total_s"} | {f"{p}_device_s" for p in TR.PHASES}
 
 
 def points(p) -> tuple:
     return p.pi_a, p.pi_b, p.pi_c
 
 
-def staged_proofs(zkey, wtns, masks) -> tuple:
-    """(the port's staged proofs of `wtns` under each mask, the first
-    proof's timings): the first through `generate_proof_with_mask` with the
-    default path on the CPU, its five MSM points recorded as the staged path
-    brings them to the host; the others through `prove_phases` with those
-    points, since the MSMs do not depend on the mask."""
-    recorded = []
-    real = PV._msm_to_host
+def oracle_proofs(zkey, wtns, masks) -> list:
+    """The proofs of `wtns` under each mask by the masked algebra of
+    reference prover.nim:278-302 on host ints (utils/hostmath), over the
+    five MSM points the port's `msm.msm` gives for the witness on the CPU
+    (its SpMV and quotient give the H1 scalars)."""
+    hdr, spec = zkey.header, zkey.spec
+    static = PV.zkey_device_args(zkey, CPU)
+    w = torch.from_numpy(wtns.values)
+    qs = PV.quotient_scalars(hdr.flavour, *KN.spmv(w, static.rows), hdr.log_domain_size)
+    msm_a, msm_b1, msm_b2, msm_h, msm_c = (
+        C.points_to_host(cv, tuple(x[None] for x in M.msm(cv, sc, P, affine=True)))[0]
+        for cv, sc, P in ((C.G1, w, static.a1), (C.G1, w, static.b1), (C.G2, w, static.b2),
+                          (C.G1, qs, static.h1), (C.G1, w[hdr.npubs + 1:], static.c1)))
+    public_io = PV.public_io(zkey, wtns)
+    out = []
+    for mask in masks:
+        r, s = mask.r % Q, mask.s % Q
+        pi_a = H.g1_add(H.g1_add(spec.alpha1, H.g1_mul(r, spec.delta1)), msm_a)
+        rho = H.g1_add(H.g1_add(spec.beta1, H.g1_mul(s, spec.delta1)), msm_b1)
+        pi_b = H.g2_add(H.g2_add(spec.beta2, H.g2_mul(s, spec.delta2)), msm_b2)
+        pi_c = H.g1_add(H.g1_mul(s, pi_a), H.g1_mul(r, rho))
+        for pt in (H.g1_mul((-r * s) % Q, spec.delta1), msm_h, msm_c):
+            pi_c = H.g1_add(pi_c, pt)
+        out.append(T.Proof(public_io=public_io, pi_a=pi_a, pi_b=pi_b, pi_c=pi_c))
+    return out
 
-    def record(*args):
-        recorded.append(real(*args))
-        return recorded[-1]
 
-    timings = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(PV, "_msm_to_host", record)
+def cpu_proofs(zkey, wtns, masks) -> tuple:
+    """(`generate_proof_with_mask` of `wtns` under each mask on the CPU, the
+    first proof's timings, taken with tracing on)."""
+    timings: dict = {}
+    TR.enable()
+    try:
         proofs = [T.generate_proof_with_mask(zkey, wtns, masks[0], CPU, timings)]
-    hdr = zkey.header
-    for mask in masks[1:]:
-        proofs.append(PV.prove_phases(
-            zkey, wtns, mask, CPU, lambda: PV.zkey_device_args(zkey, CPU),
-            lambda az, bz, cz: PV.quotient_scalars(hdr.flavour, az, bz, cz, hdr.log_domain_size),
-            lambda *_: iter(recorded)))
+    finally:
+        TR.disable()
+    proofs += [T.generate_proof_with_mask(zkey, wtns, m, CPU) for m in masks[1:]]
     return proofs, timings
-
-
-def fused_buffers(static, spec, flavour, log2n: int, witness_std, masks_std) -> list:
-    """The fused core's proof buffers of one witness under each mask buffer,
-    eagerly: `prove_core_device`'s two parts, the MSMs once and the algebra
-    and affine conversion once a mask."""
-    msms = PV.core_msms(flavour, log2n, static, witness_std)
-    return [PV.proof_buffer(*PV.spec_algebra(spec, msms, m)) for m in masks_std]
-
-
-def fused_points(zkey, wtns, masks) -> list:
-    """The fused core's host (pi_a, pi_b, pi_c) of `wtns` under each mask on
-    the CPU (`fused_buffers`)."""
-    hdr = zkey.header
-    bufs = fused_buffers(PV.zkey_device_args(zkey, CPU), PV.spec_device_args(zkey, CPU),
-                         hdr.flavour, hdr.log_domain_size, torch.from_numpy(wtns.values),
-                         [torch.from_numpy(PV.mask_limbs(m)) for m in masks])
-    return [PV.proof_points(b) for b in bufs]
 
 
 @contextlib.contextmanager
 def shared_msms():
-    """Inside the block `msm.msm` remembers each result by its curve, the
-    point set it was given (the zkey's cached device arguments, which both
-    paths share), the scalars' bytes and its options, so that the staged
-    proof and the fused core of one witness compute each MSM once (the
-    naive MSMs of synthetic_circuit(5) take seconds each on the CPU).  A
-    path that handed `msm` other scalars or points would miss and compute
-    its own result, so the proofs still compare the two paths' inputs."""
+    """Inside the block `msm.msm` and `msm.msm_sums` remember each result by
+    the function, its curve, the point set it was given (the zkey's cached
+    device arguments, which every proof of the zkey shares), the scalars'
+    bytes and its options, so that several proofs of one witness compute
+    each MSM once (the naive MSMs of synthetic_circuit(5) take seconds each
+    on the CPU).  A proof that handed them other scalars or points would
+    miss and compute its own result, so the proofs still compare their
+    inputs.  The key is read with any dispatch mode off, so that a guard
+    around a call sees only the MSM's own ops."""
     memo = {}
-    real = M.msm
 
-    def msm(cv, scalars, P, *args, **kwargs):
-        key = (cv.name, id(P[0]), scalars.numpy().tobytes(), args, tuple(sorted(kwargs.items())))
-        if key not in memo:
-            memo[key] = (P, real(cv, scalars, P, *args, **kwargs))   # P held: its id stays
-        return memo[key][1]
+    def remember(real):
+        @functools.wraps(real)
+        def run(cv, scalars, P, *args, **kwargs):
+            with _disable_current_modes():
+                key = (real.__name__, cv.name, id(P[0]), scalars.numpy().tobytes(), args,
+                       tuple(sorted(kwargs.items())))
+            if key not in memo:
+                memo[key] = (P, real(cv, scalars, P, *args, **kwargs))   # P held: its id stays
+            return memo[key][1]
+        return run
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(M, "msm", msm)
+        for name in ("msm", "msm_sums"):
+            mp.setattr(M, name, remember(getattr(M, name)))
         yield
 
 

@@ -77,7 +77,7 @@ def test_cache_is_per_zkey_and_keyed_by_device(setup):
     z1.device_cache["cuda:0"] = sentinel
     assert PV.zkey_device_args(z1, "cuda:0") is sentinel
     assert PV.zkey_device_args(z1, "cpu") is first
-    assert PV._device_key(torch.device("cuda", 1)) == "cuda:1"
+    assert PV.device_key(torch.device("cuda", 1)) == "cuda:1"
     del z1.device_cache["cuda:0"]
     # the cache is no part of the key: same file bytes, not compared, not shown
     assert zkey_bytes(z1) == raw

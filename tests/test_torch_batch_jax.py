@@ -25,8 +25,8 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module", autouse=True)
 def _msms_once():
-    """The port's staged and fused runs of one witness compute each MSM
-    once (`fused_cases.shared_msms`)."""
+    """The port's runs of one witness compute each MSM once
+    (`fused_cases.shared_msms`)."""
     with shared_msms():
         yield
 
@@ -41,8 +41,9 @@ def jax_setup(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_staged(jax_setup):
-    """The JAX package's staged proof of witness i under a mask, computed
-    once for the module (a JAX proof takes most of a minute here)."""
+    """The JAX package's staged proof of witness i under a mask (its default
+    path on the CPU), computed once for the module (a JAX proof takes most
+    of a minute here)."""
     from groth16_tpu.protocol import prover as JP
     _, jzkey, witnesses = jax_setup
     memo = {}
@@ -50,8 +51,7 @@ def jax_staged(jax_setup):
     def proof(i, mask):
         key = (i, mask.r, mask.s)
         if key not in memo:
-            memo[key] = JP.generate_proof_with_mask(jzkey, witnesses[i], JP.Mask(mask.r, mask.s),
-                                                    fused=False)
+            memo[key] = JP.generate_proof_with_mask(jzkey, witnesses[i], JP.Mask(mask.r, mask.s))
         return memo[key]
     return proof
 

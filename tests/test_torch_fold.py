@@ -86,7 +86,7 @@ def test_fold_msm_levels_match_host(n, levels):
     ks = [int.from_bytes(rng.bytes(32), "little") % H.R for _ in range(n)]
     c = M.pick_window_bits(n)
     sums = M.window_sums(C.G1, torch.from_numpy(ints_to_limbs(ks)),
-                         C.points_from_host(C.G1, pts, "cpu"), c, affine=True, path="fold")
+                         C.points_from_host(C.G1, pts, "cpu"), c, affine=True)
     got = M.horner_combine(C.G1, sums, c)
     want = H.ec_scalar_mul(fo, sum(k * a for k, a in zip(ks, logs)) % H.R, g)
     assert C.points_to_host(C.G1, tuple(x[None] for x in got)) == [want]

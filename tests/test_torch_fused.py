@@ -1,17 +1,17 @@
-"""The fused one-dispatch prover on the CPU (groth16_tpu_torch/protocol/
-prover.py: `prove_core_device`, its spec-point algebra, the path
-selection): the core, run eagerly through the plain versions, gives the
-port's staged proof of synthetic_circuit(5) (the naive MSMs) under the
-masks (0, 0), a fixed pair and (q - 1, q - 1); the device algebra's
-window tables and ladders equal the host-int group law for scalars 0, 1,
-q - 1 and random ones, G1 and G2; `fused=True` on a CPU device raises and
-`fused=None` there is the staged path.  The tracer's view of the same
-runs: the core's nine phase marks, the fake setup's spans, and
-`_generate_proof_fused`'s timings and spans around a stand-in graph.  The slow lane runs the whole
-`prove_core_device` against the staged proof in both flavours at both
-sizes.  tests/test_torch_fused_guard.py holds JensGroth at the fold's size
-and the capture guard; tests/test_torch_gpu.py the captured graph on the
-card."""
+"""The one-dispatch prover on the CPU (groth16_tpu_torch/protocol/
+prover.py: `generate_proof_with_mask`, `prove_core_device`, its spec-point
+algebra): the CPU proof of synthetic_circuit(5) (the naive MSMs), the core
+run eagerly through the plain versions, equals the host-int oracle
+(`fused_cases.oracle_proofs`) under the masks (0, 0), a fixed pair and
+(q - 1, q - 1); the device algebra's window tables and ladders equal the
+host-int group law for scalars 0, 1, q - 1 and random ones, G1 and G2; a
+CUDA graph on a CPU device raises.  The tracer's view of the same runs:
+the core's nine phase marks, the CPU proof's timings, the fake setup's
+spans, and the CUDA path's timings and spans around a stand-in graph.  The
+slow lane runs the whole CPU proof against the oracle in both flavours at
+both sizes.  tests/test_torch_fused_guard.py holds JensGroth at the fold's
+size and the capture guard; tests/test_torch_gpu.py the captured graph on
+the card."""
 
 import threading
 
@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from fused_cases import CPU, MASKS, Q, STAGED_KEYS, fused_points, points, shared_msms, \
-    staged_proofs
+from fused_cases import CPU, MASKS, PROOF_KEYS, Q, cpu_proofs, oracle_proofs, points, \
+    shared_msms
 from test_snarkjs_golden import FIXED_TOXIC
 
 import groth16_tpu_torch as T
@@ -41,44 +41,49 @@ SCALARS = [0, 1, Q - 1] + [int.from_bytes(RNG.bytes(32), "little") % Q for _ in 
 
 @pytest.fixture(scope="module")
 def snarkjs5():
-    """(zkey, witness, the staged proofs under MASKS and the first one's
-    timings, the fused core's points under MASKS, and (the phases a marker
+    """(zkey, witness, the oracle's proofs under MASKS, the CPU proofs under
+    MASKS and the first one's timings, traced, and (the phases a marker
     saw, the proof buffer) of `prove_core_device` whole under MASKS[1] with
-    that marker); the paths share their MSM results where their inputs
-    agree (`shared_msms`)."""
+    that marker); all share their MSM results (`shared_msms`)."""
     r1cs, wtns = synthetic_circuit(5)
     zkey = T.fake_circuit_setup(r1cs, T.ToxicWaste(**FIXED_TOXIC), T.Flavour.Snarkjs, CPU)
     hdr = zkey.header
     with shared_msms():
-        staged, timings = staged_proofs(zkey, wtns, MASKS)
-        fused = fused_points(zkey, wtns, MASKS)
+        oracle = oracle_proofs(zkey, wtns, MASKS)
+        cpu, timings = cpu_proofs(zkey, wtns, MASKS)
         marks: list = []
         buf = PV.prove_core_device(hdr.flavour, hdr.log_domain_size, PV.zkey_device_args(zkey, CPU),
-                                   PV.spec_device_args(zkey, CPU), torch.from_numpy(wtns.values),
+                                   PV.spec_args(zkey, CPU), torch.from_numpy(wtns.values),
                                    torch.from_numpy(PV.mask_limbs(MASKS[1])), marks.append)
-        return zkey, wtns, staged, timings, fused, (marks, buf)
+        return zkey, wtns, oracle, (cpu, timings), (marks, buf)
 
 
 @pytest.mark.parametrize("i", range(len(MASKS)), ids=["zero", "fixed", "q-1"])
 def test_core_equals_staged(snarkjs5, i):
-    zkey, _, staged, _, fused, _ = snarkjs5
-    assert fused[i] == points(staged[i])
-    assert T.verify_proof(T.extract_vkey(zkey), staged[i])
+    """The CPU proof equals the host-int oracle's and verifies."""
+    zkey, _, oracle, (cpu, _), _ = snarkjs5
+    assert points(cpu[i]) == points(oracle[i])
+    assert cpu[i].public_io == oracle[i].public_io
+    assert T.verify_proof(T.extract_vkey(zkey), cpu[i])
 
 
 def test_default_on_cpu_is_staged(snarkjs5):
-    _, _, _, timings, _, _ = snarkjs5
-    assert set(timings) == STAGED_KEYS
+    """A traced CPU proof's timings have the CUDA path's keys (no capture
+    on the CPU): upload_s, device_core_s, total_s and each phase's seconds."""
+    _, _, _, (_, timings), _ = snarkjs5
+    assert set(timings) == PROOF_KEYS
+    assert all(v >= 0.0 for v in timings.values())
+    assert timings["total_s"] >= timings["upload_s"] + timings["device_core_s"]
 
 
 def test_fused_on_cpu_raises(snarkjs5):
-    zkey, wtns, _, _, _, _ = snarkjs5
-    with pytest.raises(ValueError):
-        T.generate_proof_with_mask(zkey, wtns, MASKS[1], CPU, fused=True)
-    with pytest.raises(ValueError):
-        T.generate_proofs(zkey, [wtns], CPU, MASKS[:1], fused=True)
+    """A CUDA graph of a proof needs a CUDA device."""
+    zkey, _, _, _, _ = snarkjs5
     with pytest.raises(ValueError):
         PV.FusedProof(zkey, CPU)
+    with pytest.raises(ValueError):
+        PV.fused_graph(zkey, CPU)
+    assert not any(isinstance(k, tuple) and k[0] == "fused" for k in zkey.device_cache)
 
 
 def _curve(name):
@@ -114,7 +119,7 @@ def test_multiples_are_the_small_multiples():
                          ids=["zero", "one", "q-1", "random"])
 def test_spec_algebra_matches_host(snarkjs5, r, s):
     """The algebra of prover.nim:278-302 on random MSM points, against the
-    staged path's host formula."""
+    host formula."""
     zkey = snarkjs5[0]
     spec = zkey.spec
     g1 = [H.g1_mul(5 + i) for i in range(4)]
@@ -144,25 +149,25 @@ def test_mask_limbs():
 @pytest.mark.parametrize("log2", [5, 8], ids=["naive", "fold"])
 @pytest.mark.parametrize("flavour", ["snarkjs", "jens-groth"])
 def test_prove_core_device_equals_staged_proof(flavour, log2):
-    """`prove_core_device` whole against `generate_proof_with_mask` with
-    fused=False, both flavours, at the naive MSMs' size and at the fold's
-    (about 30 s a case on one core)."""
+    """`prove_core_device` whole against the host-int oracle, both
+    flavours, at the naive MSMs' size and at the fold's (about 30 s a case
+    on one core)."""
     r1cs, wtns = synthetic_circuit(log2)
     zkey = T.fake_circuit_setup(r1cs, T.ToxicWaste(**FIXED_TOXIC), T.Flavour(flavour), CPU)
-    staged = T.generate_proof_with_mask(zkey, wtns, MASKS[1], CPU, fused=False)
+    (want,) = oracle_proofs(zkey, wtns, MASKS[1:2])
     hdr = zkey.header
     buf = PV.prove_core_device(hdr.flavour, hdr.log_domain_size, PV.zkey_device_args(zkey, CPU),
                                PV.spec_device_args(zkey, CPU), torch.from_numpy(wtns.values),
                                torch.from_numpy(PV.mask_limbs(MASKS[1])))
-    assert PV.proof_points(buf) == points(staged)
+    assert PV.proof_points(buf) == points(want)
 
 
 def test_core_marks_the_nine_phases_in_order(snarkjs5):
     """`prove_core_device` with a marker calls it once at the end of each
     phase, in order, and gives the proof it gives without one."""
-    _, _, _, _, fused, (marks, buf) = snarkjs5
+    _, _, _, (cpu, _), (marks, buf) = snarkjs5
     assert marks == list(TR.PHASES)
-    assert PV.proof_points(buf) == fused[1]
+    assert PV.proof_points(buf) == points(cpu[1])
 
 
 def test_fake_setup_records_its_steps(snarkjs5):
@@ -202,7 +207,7 @@ class _Replayed:
 def replayed(snarkjs5, monkeypatch):
     """`fused_graph` on the CPU gives a `_Replayed` of the fixture's marked
     proof, kept in the zkey's cache (taken out after the test)."""
-    zkey, wtns, _, _, fused, (_, buf) = snarkjs5
+    zkey, wtns, _, (cpu, _), (_, buf) = snarkjs5
     key = PV._fused_key(zkey, CPU)
 
     def graph(zk, device):
@@ -210,19 +215,20 @@ def replayed(snarkjs5, monkeypatch):
 
     monkeypatch.setattr(PV, "fused_graph", graph)
     TR.disable()
-    yield zkey, wtns, fused[1]
+    yield zkey, wtns, points(cpu[1])
     TR.disable()
     zkey.device_cache.pop(key, None)
 
 
 def test_fused_timings_keys_are_unchanged(replayed):
-    """`_generate_proof_fused`'s timings keys with tracing off: capture_s on
-    the proof that captured, then upload_s, device_core_s and total_s."""
+    """The CUDA path's timings keys (`_prove` with `_replay`) with tracing
+    off: capture_s on the proof that captured, then upload_s, device_core_s
+    and total_s."""
     zkey, wtns, points_ = replayed
     keys = {"upload_s", "device_core_s", "total_s"}
     sinks = [{}, {}]
     for sink in sinks:
-        prf = PV._generate_proof_fused(zkey, wtns, MASKS[1], CPU, sink)
+        prf = PV._prove(zkey, wtns, MASKS[1], CPU, sink, PV._replay)
         assert (prf.pi_a, prf.pi_b, prf.pi_c) == points_
     assert set(sinks[0]) == keys | {"capture_s"} and set(sinks[1]) == keys
     assert all(v >= 0.0 for s in sinks for v in s.values())
@@ -230,7 +236,7 @@ def test_fused_timings_keys_are_unchanged(replayed):
 
 
 def test_fused_proof_spans_share_one_proof_id(replayed):
-    """Traced, a fused proof is the root span `proof` over `public_io`,
+    """Traced, a proof of the CUDA path is the root span `proof` over `public_io`,
     `load`, `device_core` and `proof_points`, one proof id each proof, and
     its timings carry each phase's device seconds as `<phase>_device_s`."""
     zkey, wtns, _ = replayed
@@ -238,7 +244,7 @@ def test_fused_proof_spans_share_one_proof_id(replayed):
     first = len(TR.records())
     sinks = [{}, {}]
     for sink in sinks:
-        PV._generate_proof_fused(zkey, wtns, MASKS[1], CPU, sink)
+        PV._prove(zkey, wtns, MASKS[1], CPU, sink, PV._replay)
     TR.disable()
     recs = TR.records()[first:]
     roots = [r for r in recs if r.name == "proof"]

@@ -1,24 +1,25 @@
-"""The fused core at the fold's size, and the guard that shows it can be
+"""The core at the fold's size, and the guard that shows it can be
 captured as a CUDA graph, on the CPU.
 
 synthetic_circuit(8) in the JensGroth flavour (every MSM of 252 to 256
-points takes the fold): with the caches warm, the core's MSMs and its
-algebra under the masks (0, 0), a fixed pair and (q - 1, q - 1) run under
+points takes the fold): with the caches warm, the CPU proofs under the
+masks (0, 0), a fixed pair and (q - 1, q - 1) run their core
+(`prove_core_device`: the MSMs and the algebra) under
 `fused_cases.no_host_sync`, which fails at any op of the glue between the
 kernels that reads a device value on the host or sizes its output by the
 data (the kernels' plain versions run unguarded: on the card the kernels
-run instead); the proofs equal the port's staged proofs, and no cache of
+run instead); the proofs equal the host-int oracle's, and no cache of
 host-made constants or tables grows, so a capture would copy nothing from
-the host; the merge tree's glue, which the core takes at
-2^16 points, passes the same guard on 32 points.  A file of its own
-beside tests/test_torch_fused.py so that the two run side by side."""
+the host; the merge tree's glue passes the same guard on 32 points.  A
+file of its own beside tests/test_torch_fused.py so that the two run side
+by side."""
 
 import numpy as np
 import pytest
 import torch
 
-from fused_cases import CPU, MASKS, HostSyncError, fused_buffers, no_host_sync, points, \
-    staged_proofs
+from fused_cases import CPU, MASKS, HostSyncError, no_host_sync, oracle_proofs, points, \
+    shared_msms
 
 import groth16_tpu_torch as T
 from groth16_tpu_torch.models.circuits import synthetic_circuit
@@ -44,31 +45,42 @@ def _cache_sizes() -> tuple:
 
 @pytest.fixture(scope="module")
 def jensgroth8():
-    """(zkey, the staged proofs under MASKS, the fused core's points under
-    MASKS, the ops the guard passed, whether a cache grew): the staged
-    proofs and one run of the algebra warm the caches, then the fused core
-    runs under `no_host_sync`."""
+    """(zkey, the oracle's proofs under MASKS, the CPU proofs under MASKS,
+    the ops the guard passed, whether a cache grew): the oracle and the
+    zkey's spec points warm the caches, then each CPU proof runs its core
+    under `no_host_sync`; the proofs share their MSM results
+    (`shared_msms`), the first computing them under the guard."""
     r1cs, wtns = synthetic_circuit(8)
     zkey = T.fake_circuit_setup(r1cs, T.ToxicWaste(**TOXIC), T.Flavour.JensGroth, CPU)
-    staged, _ = staged_proofs(zkey, wtns, MASKS)
-    hdr, static, spec = zkey.header, PV.zkey_device_args(zkey, CPU), PV.spec_device_args(zkey, CPU)
-    w = torch.from_numpy(wtns.values)
-    masks = [torch.from_numpy(PV.mask_limbs(m)) for m in MASKS]
+    oracle = oracle_proofs(zkey, wtns, MASKS)
+    spec = PV.spec_args(zkey, CPU)
     infs = [C.inf_like(cv, (), CPU) for cv in (C.G1, C.G1, C.G2, C.G1, C.G1)]
-    PV.proof_buffer(*PV.spec_algebra(spec, infs, masks[1]))
+    PV.proof_buffer(*PV.spec_algebra(spec, infs, torch.from_numpy(PV.mask_limbs(MASKS[1]))))
+    ops: set = set()
+    real = PV.prove_core_device
+
+    def guarded(*args, **kwargs):
+        with no_host_sync() as guard:
+            out = real(*args, **kwargs)
+        ops.update(guard.ops)
+        return out
+
     before = _cache_sizes()
-    with no_host_sync() as guard:
-        bufs = fused_buffers(static, spec, hdr.flavour, hdr.log_domain_size, w, masks)
+    with shared_msms(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PV, "prove_core_device", guarded)
+        cpu = [T.generate_proof_with_mask(zkey, wtns, m, CPU) for m in MASKS]
     grown = _cache_sizes() != before
-    return zkey, staged, [PV.proof_points(b) for b in bufs], guard.ops, grown
+    return zkey, oracle, cpu, ops, grown
 
 
 @pytest.mark.parametrize("i", range(len(MASKS)), ids=["zero", "fixed", "q-1"])
 def test_core_equals_staged_fold(jensgroth8, i):
-    zkey, staged, fused, _, _ = jensgroth8
+    """The CPU proof, its core guarded, equals the host-int oracle's and
+    verifies."""
+    zkey, oracle, cpu, _, _ = jensgroth8
     assert min(zkey.header.nvars, zkey.header.domain_size) >= 128   # the fold, not the ladder
-    assert fused[i] == points(staged[i])
-    assert T.verify_proof(T.extract_vkey(zkey), staged[i])
+    assert points(cpu[i]) == points(oracle[i])
+    assert T.verify_proof(T.extract_vkey(zkey), cpu[i])
 
 
 def test_core_has_no_host_sync(jensgroth8):
@@ -79,7 +91,7 @@ def test_core_has_no_host_sync(jensgroth8):
 
 def test_tree_glue_has_no_host_sync():
     """The merge tree's bucket phase (`msm_tree.window_sums_tree`, which
-    `msm` gives H1 at 2^16 points) and Horner over its window sums, on 32
+    the JAX package gives H1 at 2^16 points) and Horner over its window sums, on 32
     points at c = 4 in one group of all 64 windows (one batch inversion a
     level: the plain inversion is the slow part on the CPU), warm, then
     guarded."""

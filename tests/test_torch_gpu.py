@@ -4,12 +4,14 @@ every plan and the quotient's pointwise kernel, K4 at partial blocks, K5 on
 strided and point-major operands included), the SpMV and the Fp negation
 kernels, `to_affine` on the card against the CPU, the merge-tree MSM, the
 chunked MSM, one small proof and a batch of proofs on the card, and the
-fused path's CUDA graph (one capture per zkey, device and flavour; replays
-equal to the staged proofs, and equal across the tree/fold crossover).
+proof's CUDA graph (one capture per zkey, device and flavour; replays
+equal to the CPU proofs of the same inputs).
 Marked `gpu`: they skip without CUDA.  On a GPU machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_gpu.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -39,6 +41,27 @@ def _scalars(rng, n, dev):
 
 def _same(a, b):
     return all(torch.equal(F.as_i32(x), F.as_i32(y)) for x, y in zip(a, b))
+
+
+def _cpu_proofs(zkey, cases) -> list:
+    """The CPU proofs (`generate_proof_with_mask` on the CPU, the core run
+    eagerly through the plain versions) of `zkey` for each (witness, mask)
+    of `cases`, the references of the card's proofs: the MSMs of one
+    witness computed once (`fused_cases.shared_msms`), on every core of
+    the host."""
+    import groth16_tpu_torch as G
+    from fused_cases import shared_msms
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        with shared_msms():
+            return [G.generate_proof_with_mask(zkey, w, m, "cpu") for w, m in cases]
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _points(p) -> tuple:
+    return p.pi_a, p.pi_b, p.pi_c
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -339,14 +362,14 @@ def test_msm_chunked_on_the_card(dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
 def test_tree_and_fold_agree_on_the_card(dev, cv):
-    """msm(path="tree") (K8 a level, the Fp negation, K6 and K5) and
-    msm(path="fold") at 2^16 points, full-width scalars: one point."""
-    from groth16_tpu_torch.ops import msm as M
+    """`msm_tree.msm` (K8 a level, the Fp negation, K6 and K5) and `msm.msm`
+    (the fold) at 2^16 points, full-width scalars: one point."""
+    from groth16_tpu_torch.ops import msm as M, msm_tree as MT
     from groth16_tpu_torch.tools.bench_tree_phases import draw_scalars, make_points
     n = 1 << 16
     P = make_points(n, dev, cv=cv)
     s = torch.from_numpy(draw_scalars(n, 16)).to(dev)
-    tree, fold = (C.to_affine(cv, M.msm(cv, s, P, affine=True, path=p)) for p in ("tree", "fold"))
+    tree, fold = (C.to_affine(cv, msm) for msm in (MT.msm(cv, s, P), M.msm(cv, s, P, affine=True)))
     assert _same(tree, fold)
 
 
@@ -426,10 +449,10 @@ def test_batch_proofs_on_the_card(dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("flavour", ["snarkjs", "jens-groth"])
 def test_fused_graph_replays_equal_staged(dev, flavour):
-    """The fused path at 2^9: the graph captured at the first proof and
-    replayed for three witnesses and masks gives the fused=False proofs,
-    which verify; one graph per (zkey, device, flavour), and a second zkey
-    gets its own."""
+    """Proofs on the card at 2^9: the graph captured at the first proof and
+    replayed for three witnesses and masks gives the CPU proofs of the same
+    inputs, which verify; one graph per (zkey, device, flavour), and a
+    second zkey gets its own."""
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
     from groth16_tpu_torch.ops.field import FR
@@ -444,14 +467,15 @@ def test_fused_graph_replays_equal_staged(dev, flavour):
     fused = G.generate_proofs(zkey, ws, dev, masks, timings)
     assert PV.fused_graph.captures == captures + 1
     assert "capture_s" in timings[0] and not any("capture_s" in t for t in timings[1:])
-    staged = G.generate_proofs(zkey, ws, dev, masks, fused=False)
-    assert [(p.pi_a, p.pi_b, p.pi_c) for p in fused] == [(p.pi_a, p.pi_b, p.pi_c) for p in staged]
+    cpu = _cpu_proofs(zkey, zip(ws, masks))
+    assert [_points(p) for p in fused] == [_points(p) for p in cpu]
+    assert [p.public_io for p in fused] == [p.public_io for p in cpu]
     vkey = G.extract_vkey(zkey)
     assert all(G.verify_proof(vkey, p) for p in fused)
     graphs = [k for k in zkey.device_cache if isinstance(k, tuple) and k[0] == "fused"]
     assert graphs == [("fused", "cuda:0", flavour)]
     other = G.fake_circuit_setup(r1cs, G.ToxicWaste(2, 3, 5, 7, 9), G.Flavour(flavour), dev)
-    prf = G.generate_proof_with_mask(other, ws[0], masks[0], dev, fused=True)
+    prf = G.generate_proof_with_mask(other, ws[0], masks[0], dev)
     assert PV.fused_graph.captures == captures + 2
     assert PV.fused_graph(zkey, dev) is zkey.device_cache[graphs[0]]
     assert G.verify_proof(G.extract_vkey(other), prf)
@@ -461,7 +485,7 @@ def test_fused_graph_replays_equal_staged(dev, flavour):
 @pytest.mark.gpu
 def test_fused_proofs_from_two_threads(dev):
     """Two threads proving with one zkey at once from a cold cache: one
-    capture, and each thread's proofs are the fused=False proofs of its own
+    capture, and each thread's proofs are the CPU proofs of its own
     witnesses and masks (the graph's buffers are taken in turns)."""
     from concurrent.futures import ThreadPoolExecutor
     import threading
@@ -472,7 +496,7 @@ def test_fused_proofs_from_two_threads(dev):
     zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
     ws = [synthetic_circuit(9, seed)[1] for seed in (42, 43, 44, 45)]
     masks = [G.Mask(17 + i, 19 + 5 * i) for i in range(len(ws))]
-    staged = [G.generate_proof_with_mask(zkey, w, m, dev, fused=False) for w, m in zip(ws, masks)]
+    cpu = _cpu_proofs(zkey, zip(ws, masks))
     captures = PV.fused_graph.captures
     start = threading.Barrier(2)
 
@@ -485,8 +509,8 @@ def test_fused_proofs_from_two_threads(dev):
         runs = [f.result() for f in [pool.submit(prove, t) for t in (0, 1)]]
     assert PV.fused_graph.captures == captures + 1
     for i, prf in (pair for run in runs for pair in run):
-        assert (prf.pi_a, prf.pi_b, prf.pi_c) == (staged[i].pi_a, staged[i].pi_b, staged[i].pi_c)
-        assert prf.public_io == staged[i].public_io
+        assert _points(prf) == _points(cpu[i])
+        assert prf.public_io == cpu[i].public_io
 
 
 @pytest.mark.gpu
@@ -543,11 +567,11 @@ def test_fused_side_chains_replays_equal_staged(dev, monkeypatch):
     """The fused core's Horner chains on side streams at 2^12: one
     capture forks its five chains (`msm.side_chains`); 20 replays
     alternating two witnesses and the three masks of fused_cases.MASKS are
-    byte-equal to the fused=False proofs (a side-branch read of a block the
-    main stream took back would change a proof); traced, a replay records
-    the side branch's device seconds; and the capture's pool is no larger
-    than that of the same core with its chains inline on the main stream
-    (no side stream allocates)."""
+    byte-equal to the CPU proofs of the same inputs (a side-branch read of
+    a block the main stream took back would change a proof); traced, a
+    replay records the side branch's device seconds; and the capture's
+    pool is no larger than that of the same core with its chains inline on
+    the main stream (no side stream allocates)."""
     from fused_cases import MASKS
     import groth16_tpu_torch as G
     from groth16_tpu_torch.models.circuits import synthetic_circuit
@@ -557,8 +581,8 @@ def test_fused_side_chains_replays_equal_staged(dev, monkeypatch):
     r1cs = synthetic_circuit(12)[0]
     zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
     ws = [synthetic_circuit(12, seed)[1] for seed in (42, 43)]
-    staged = {(i, j): G.generate_proof_with_mask(zkey, w, m, dev, fused=False)
-              for i, w in enumerate(ws) for j, m in enumerate(MASKS)}
+    cases = [(i, j) for i in range(len(ws)) for j in range(len(MASKS))]
+    cpu = dict(zip(cases, _cpu_proofs(zkey, [(ws[i], MASKS[j]) for i, j in cases])))
     fp = PV.FusedProof(zkey, dev)
     pool, chains = _pool_capture(fp)
     assert chains == 5 and fp.side_chains == 5
@@ -566,8 +590,7 @@ def test_fused_side_chains_replays_equal_staged(dev, monkeypatch):
         i, j = k % 2, k % 3
         fp.load(ws[i], MASKS[j])
         got = PV.proof_points(fp.replay())
-        want = staged[i, j]
-        assert got == (want.pi_a, want.pi_b, want.pi_c), (k, i, j)
+        assert got == _points(cpu[i, j]), (k, i, j)
     T.enable()
     try:
         fp.load(ws[0], MASKS[1])
@@ -581,40 +604,5 @@ def test_fused_side_chains_replays_equal_staged(dev, monkeypatch):
     inline = PV.FusedProof(zkey, dev)
     pool_inline, _ = _pool_capture(inline)
     inline.load(ws[1], MASKS[2])
-    want = staged[1, 2]
-    assert PV.proof_points(inline.replay()) == (want.pi_a, want.pi_b, want.pi_c)
+    assert PV.proof_points(inline.replay()) == _points(cpu[1, 2])
     assert pool <= pool_inline, (pool, pool_inline)
-
-
-@pytest.mark.gpu
-def test_fused_proof_equal_across_the_crossover(dev, monkeypatch):
-    """A fused 2^16 proof with the port's crossover (every MSM folds)
-    equals the same proof with msm.TREE_MIN_N put back at the TPU's 2^16
-    (H1 on the merge tree), and both verify.  The capture counts each MSM's
-    bucket phase once: with the port's rule no tree and five folds."""
-    import groth16_tpu_torch as G
-    from groth16_tpu_torch.models.circuits import synthetic_circuit
-    from groth16_tpu_torch.ops import msm as M
-    from groth16_tpu_torch.protocol import prover as PV
-    T = G.tracer
-    r1cs, wtns = synthetic_circuit(16)
-    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
-    names = ("msm.tree", "msm.fold")
-    proofs, counts = [], []
-    for tree_min_n in (M.TREE_MIN_N, 1 << 16):
-        monkeypatch.setattr(M, "TREE_MIN_N", tree_min_n)
-        fp = PV.FusedProof(zkey, dev)
-        fp.warm_up()
-        before = T.counters()
-        fp.capture()
-        after = T.counters()
-        counts.append(tuple(after.get(k, 0) - before.get(k, 0) for k in names))
-        del fp
-        for key in [k for k in zkey.device_cache if isinstance(k, tuple) and k[0] == "fused"]:
-            del zkey.device_cache[key]
-        proofs.append(G.generate_proof_with_mask(zkey, wtns, G.Mask(17, 19), dev, fused=True))
-    assert counts[0] == (0, 5)
-    assert counts[1][0] >= 1 and sum(counts[1]) == 5
-    a, b = proofs
-    assert (a.pi_a, a.pi_b, a.pi_c, a.public_io) == (b.pi_a, b.pi_b, b.pi_c, b.public_io)
-    assert G.verify_proof(G.extract_vkey(zkey), a)

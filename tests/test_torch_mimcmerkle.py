@@ -1,8 +1,9 @@
 """The benchmark's MiMCSponge Merkle batch (proofbench/circuits/mimcmerkle.py)
 at a tiny size on the CPU: 2 paths of depth 2, 12 MiMC rounds a Feistel,
 domain 2^9.  Its witness satisfies every row and a changed value fails one;
-each root is the plain MiMCSponge Merkle root of its path; the port's staged
-proof and eager `prove_core_device` (every MSM on the fold) equal the
+each root is the plain MiMCSponge Merkle root of its path; the port's CPU
+proof and its core `prove_core_device` called eagerly (every MSM on the
+fold; the two share each MSM's result, `fused_cases.shared_msms`) equal the
 benchmark's reference proof for the same toxic waste and mask; the fake
 setup is byte-identical to the JAX package's.  On a smaller instance (one
 path of depth 1, 3 rounds, domain 2^5), where every MSM of both packages
@@ -16,6 +17,7 @@ import random
 import pytest
 import torch
 
+from fused_cases import shared_msms
 from test_snarkjs_golden import FIXED_TOXIC
 
 import groth16_tpu_torch as T
@@ -134,13 +136,21 @@ def reference_proof(tiny):
     return _reference_proof(*tiny[:2])
 
 
-def test_staged_proof_equals_reference(tiny, reference_proof):
+@pytest.fixture(scope="module")
+def msms_once():
+    """The CPU proof and the eager core of one witness compute each MSM
+    once."""
+    with shared_msms():
+        yield
+
+
+def test_staged_proof_equals_reference(tiny, reference_proof, msms_once):
     _, w, zkey = tiny
     prf = T.generate_proof_with_mask(zkey, port.witness(w), T.Mask(*MASK), CPU)
     assert (prf.public_io, (prf.pi_a, prf.pi_b, prf.pi_c)) == reference_proof
 
 
-def test_eager_core_equals_reference(tiny, reference_proof):
+def test_eager_core_equals_reference(tiny, reference_proof, msms_once):
     _, w, zkey = tiny
     hdr = zkey.header
     buf = PV.prove_core_device(hdr.flavour, hdr.log_domain_size, PV.zkey_device_args(zkey, CPU),
@@ -201,7 +211,7 @@ def test_fold_counts_its_padding():
     scalars = torch.from_numpy(ints_to_limbs([rng.randrange(R) for _ in range(300)]))
     points = C.points_from_host(C.G1, [(1, 2)] * 300, CPU)          # the generator
     before = T.tracer.counters()
-    M.window_sums(C.G1, scalars, points, M.pick_window_bits(300), affine=True, path="fold")
+    M.window_sums(C.G1, scalars, points, M.pick_window_bits(300), affine=True)
     after = T.tracer.counters()
     got = {k: after.get(k, 0) - before.get(k, 0)
            for k in ("msm.fold", "msm.fold_points", "msm.pad_points")}

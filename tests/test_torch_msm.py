@@ -1,5 +1,5 @@
-"""Port MSM (groth16_tpu_torch.ops.msm: the fold path, the path controls and
-msm_chunked) vs a host-int oracle.
+"""Port MSM (groth16_tpu_torch.ops.msm: the fold and msm_chunked; the merge
+tree's own `msm_tree.msm`) vs a host-int oracle.
 
 The points are P_i = a_i * G with known discrete logs a_i, so the expected
 sum_i k_i P_i is one host scalar multiplication by sum_i k_i a_i.  Results
@@ -83,8 +83,11 @@ def _host_case(cv, n, seed):
     return ints_to_limbs(ks), P, want
 
 
-@pytest.mark.parametrize("n,chunk_log2", [(512, 8), (1024, 8)], ids=["2-segments", "4-segments"])
+@pytest.mark.parametrize("n,chunk_log2", [(512, 8), (1024, 8), (256, 6)],
+                         ids=["2-segments", "4-segments", "4-segments-under-the-ladder"])
 def test_msm_chunked_matches_host(n, chunk_log2):
+    """Segments of 64 points fold too (`msm` takes the naive ladder below
+    128 points), at a segment's window."""
     ks, P, want = _host_case(C.G1, n, seed=n)
     got = M.msm_chunked(C.G1, ks, P, chunk_log2, device="cpu")
     assert C.points_to_host(C.G1, tuple(c[None] for c in got)) == [want]
@@ -100,51 +103,39 @@ def test_msm_chunked_one_segment_and_ragged_length():
 
 @pytest.mark.parametrize("cv,n", [(C.G1, 512), (C.G2, 128)], ids=["G1", "G2"])
 def test_tree_and_fold_paths_agree(monkeypatch, cv, n):
-    """msm(path="tree") and msm(path="fold") (G1 at n = 512, G2 at 128):
-    one affine point, the host's.  The tree's window group is widened to 64
-    here only to keep the plain (CPU) levels few: every group pays one plain
-    Fermat inversion per level."""
+    """`msm_tree.msm` and `msm.msm` (G1 at n = 512, G2 at 128): one affine
+    point, the host's.  The tree's window group is widened to 64 here only
+    to keep the plain (CPU) levels few: every group pays one plain Fermat
+    inversion per level."""
     from groth16_tpu_torch.ops import msm_tree as MT
     monkeypatch.setattr(MT, "WINDOW_GROUP", 64)
     ks, P, want = _host_case(cv, n, seed=6)
     s, P = torch.from_numpy(ks), tuple(torch.from_numpy(c) for c in P)
-    for path in ("tree", "fold"):
-        got = M.msm(cv, s, P, affine=True, path=path)
-        assert C.points_to_host(cv, tuple(c[None] for c in got)) == [want], path
+    for name, got in (("tree", MT.msm(cv, s, P)), ("fold", M.msm(cv, s, P, affine=True))):
+        assert C.points_to_host(cv, tuple(c[None] for c in got)) == [want], name
 
 
-def test_tree_path_takes_the_callers_path():
-    """"tree" and "fold" force the bucket phase (the tree takes affine
-    points only); "auto" folds at every size, the crossover measured on the
-    H100 (the merge tree lost there from 2^16 to 2^21 points)."""
-    assert M.TREE_MIN_N is None
-    for n in (128, 1 << 16, 1 << 20):
-        assert M.tree_path(n, True, "tree") and not M.tree_path(n, True, "fold")
-        assert not M.tree_path(n, False, "tree")
-        assert not M.tree_path(n, True, "auto") and not M.tree_path(n, True)
-    with pytest.raises(ValueError):
-        M.tree_path(512, True, "merge")
-
-
-@pytest.mark.parametrize("path,affine,counter",
-                         [("auto", True, "msm.fold"), ("fold", True, "msm.fold"),
-                          ("tree", True, "msm.tree"), ("tree", False, "msm.fold")],
+@pytest.mark.parametrize("path,affine,folds",
+                         [("auto", True, 1), ("fold", True, 1), ("tree", True, 0),
+                          ("tree", False, 1)],
                          ids=["auto", "fold", "tree", "tree-projective"])
-def test_msm_counts_its_bucket_phase(monkeypatch, path, affine, counter):
-    """An MSM adds 1 to the tracer's counter of the bucket phase it took,
-    `msm.tree` or `msm.fold`, and nothing to the other; its point is the
-    host's (128 G1 points, the fewest that leave the naive ladder)."""
+def test_msm_counts_its_bucket_phase(monkeypatch, path, affine, folds):
+    """`msm.msm` adds 1 to the tracer's counter `msm.fold` (its bucket
+    phase is the fold on affine and projective points alike), and the
+    merge tree's own `msm_tree.msm` adds nothing; the point is the host's
+    (128 G1 points, the fewest that leave the naive ladder).  "auto" and
+    "fold" are `msm.msm` on affine points, "tree" is `msm_tree.msm`, and
+    "tree-projective" is `msm.msm` told the points are projective, which
+    the tree does not take."""
     from groth16_tpu_torch.ops import msm_tree as MT
     from groth16_tpu_torch.utils import timing as T
     monkeypatch.setattr(MT, "WINDOW_GROUP", 64)
     ks, P, want = _host_case(C.G1, 128, seed=8)
     s, P = torch.from_numpy(ks), tuple(torch.from_numpy(c) for c in P)
-    names = ("msm.tree", "msm.fold")
-    before = T.counters()
-    got = M.msm(C.G1, s, P, affine=affine, path=path)
-    after = T.counters()
-    assert {k: after.get(k, 0) - before.get(k, 0) for k in names} == \
-        {k: int(k == counter) for k in names}
+    before = T.counters().get("msm.fold", 0)
+    got = MT.msm(C.G1, s, P) if path == "tree" and affine else M.msm(C.G1, s, P, affine=affine)
+    assert T.counters().get("msm.fold", 0) - before == folds
+    assert "msm.tree" not in T.counters()
     assert C.points_to_host(C.G1, tuple(c[None] for c in got)) == [want]
 
 

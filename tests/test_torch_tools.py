@@ -23,7 +23,7 @@ torch.set_num_threads(1)
 
 
 def test_tree_phases_run_on_the_cpu(monkeypatch):
-    """Every phase once.  msm(path="tree")'s window group is widened to 64
+    """Every phase once.  The tree's window group is widened to 64
     here only to keep the plain levels few (each pays one plain Fermat
     inversion); on the card the tool runs the default group."""
     monkeypatch.setattr(MT, "WINDOW_GROUP", 64)

@@ -75,19 +75,39 @@ def test_tree_msm_one_bucket_and_tiny():
 
 def test_dispatch_matches_jax():
     """The tree's window and window group are the JAX package's; the
-    crossover is the port's own.  On the H100 the merge tree lost to the
+    dispatch is the port's own.  On the H100 the merge tree lost to the
     fold at every size from 2^16 to 2^21 points in G1 and in G2 alike, so
-    "auto" folds at every size in both (one rule, `tree_path` takes no
-    curve), where the JAX package takes the tree on the TPU from 2^16."""
+    the port's `msm` folds 2^16 affine points (and every size from 128),
+    where the JAX package's dispatch takes the tree from 2^16; only
+    `msm_tree.msm` takes the port's tree."""
     from groth16_tpu.ops import msm as JM
-    assert M.TREE_MIN_N is None and JM.TREE_MIN_N == 1 << 16
+    assert JM.TREE_MIN_N == 1 << 16
     assert MT.WINDOW_GROUP == 4
     for n in (1, 128, 65535, 65536, 1 << 20, 1 << 22):
-        assert M.pick_window_bits_tree(n) == JM.pick_window_bits_tree(n)
-        assert not M.tree_path(n, True) and not M.tree_path(n, False)
-        assert M.tree_path(n, True, "tree") and not M.tree_path(n, False, "tree")
-        assert M._path_window_bits(n, True, "auto") == M.pick_window_bits(n)
-        assert M._path_window_bits(n, True, "tree") == M.pick_window_bits_tree(n)
+        assert MT.pick_window_bits_tree(n) == JM.pick_window_bits_tree(n)
+
+    class Took(Exception):
+        pass
+
+    def bucket_phase(name):
+        def run(cv, scalars, P, c, *args, **kwargs):
+            raise Took(name, c)
+        return run
+
+    n = 1 << 16
+    s = torch.zeros((n, 16), dtype=torch.uint32)
+    P = C.inf_like(C.G1, (n,), "cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(M, "window_sums", bucket_phase("fold"))
+        mp.setattr(MT, "window_sums_tree", bucket_phase("tree"))
+        for run in (lambda: M.msm(C.G1, s, P, affine=True),
+                    lambda: M.msm_sums(C.G1, s, P, affine=True)):
+            with pytest.raises(Took) as took:
+                run()
+            assert took.value.args == ("fold", M.pick_window_bits(n))
+        with pytest.raises(Took) as took:
+            MT.msm(C.G1, s, P)
+        assert took.value.args == ("tree", MT.pick_window_bits_tree(n))
 
 
 # ---------------------------------------------------------------------------
