@@ -361,14 +361,14 @@ def check_fold_kernel(dev, results):
                               (tab_p,) + KN.fold_level_plain(cv, *args, tab_p, **kw))
             t_k = cuda_ms(lambda: KN.fold_level_kernel(cv, *args, scratch, **kw), 5)
             t_p = cuda_ms(lambda: KN.fold_level_plain(cv, *args, scratch, **kw), 1)
-            closes = measure.fold_closes(keys.cpu().numpy(), T)
+            shape = measure.fold_shape(keys.cpu().numpy(), T)
             kind = "affine" if kw["affine"] else "projective"
             lanes = W * (m // T)
-            print(f"K2 {cv.name} level {i} {kind} T={T} lanes={lanes} closes={closes}: "
-                  f"{t_k:.4f} ms (plain {t_p:.1f} ms), max_abs_err {err}")
+            print(f"K2 {cv.name} level {i} {kind} T={T} lanes={lanes} closes={shape['closes']} "
+                  f"zeros={shape['zeros']}: {t_k:.4f} ms (plain {t_p:.1f} ms), max_abs_err {err}")
             record(results, "fold_level_kernel", f"{cv.name} level {i} {kind} T={T} lanes={lanes}",
                    err, t_k, t_p, dict(curve=cv.name, affine=kw["affine"], T=T, lanes=lanes,
-                                       closes=closes, order=order is not None, last=kw["last"]))
+                                       **shape, order=order is not None, last=kw["last"]))
             table, (pts, keys), order, m = tab_k, got, None, m // T
         if not all(x is None for x in got):
             raise AssertionError("the last fold level must leave no trail")

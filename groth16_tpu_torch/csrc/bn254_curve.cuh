@@ -209,14 +209,22 @@ BN_HD Proj<typename C::F> horner_lane(const uint32_t* x, const uint32_t* y,
 //   table  uint32[W, nb, R]   bucket sums, R = 3*NC, updated in place
 //   trail  uint32[W*lanes, R] the lane's open segment after its last element,
 //   tkey   int32 [W*lanes]    and its |key| (both unused at the last level)
-// Lane l of window w walks sorted positions l*T .. l*T+T-1.  When |key|
-// changes at slot t >= 1, the segment that ran up to t-1 has closed: it is
-// added into table[w, |key(t-1)|].  No other lane of the launch touches that
+// Lane l of window w walks sorted positions l*T .. l*T+T-1.  A slot whose
+// key is 0 does no work: it reads its key and nothing else.  Bucket 0 has
+// weight 0 in the bucket reduce, so nothing reads the table's bucket 0, and
+// it keeps what it held.  The lane's first nonzero slot opens its segment at
+// its point.  When |key| changes at a later nonzero slot, the segment that
+// ran up to the nonzero slot before it has closed: it is added into that
+// slot's bucket table[w, |key|].  No other lane of the launch touches that
 // bucket: a key's run ends at one position of the stream.  At the last level
 // (one lane a window) the open segment is added into its bucket the same
-// way; otherwise it is the next level's row.  Every slot runs ONE complete
-// add: (running segment + point), or, where a segment closes, (bucket +
-// segment), so the warp never diverges over the formula.
+// way; otherwise it is the next level's row, and a lane of zero keys alone
+// leaves infinity under key 0, which the next level skips in turn.  The
+// rule holds for keys in any order; on the proof's sorted streams a
+// window's zero keys lead it, so whole warps of zero lanes skip together.
+// Every other slot runs ONE complete add: (running segment + point), or,
+// where a segment closes, (bucket + segment), so the warp never diverges
+// over the formula.
 
 template <class C>
 BN_HD Proj<typename C::F> load_proj_row(const uint32_t* row) {
@@ -255,6 +263,13 @@ BN_HD const uint32_t* opaque(const uint32_t* p) {
   return p;
 }
 
+// The zero keys among a lane's T slots, what K2 counts as skipped.
+BN_HD int lane_zeros(const int32_t* keys, int T) {
+  int zeros = 0;
+  for (int t = 0; t < T; ++t) zeros += keys[t] == 0;
+  return zeros;
+}
+
 template <class C, bool AFFINE>
 BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* keys,
                      uint32_t* table, uint32_t* trail, int32_t* tkey, int T, long m,
@@ -265,16 +280,17 @@ BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* 
   const long base = w * m + l * T;
   uint32_t* buckets = table + w * nb * R;
 
-  int32_t ap = 0;
+  int32_t ap = 0;  // |key| of the open segment; 0 while none is open
   Proj<F> run = infinity<C>();
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
     const int32_t k = keys[base + t];
+    if (k == 0) continue;
     const long row = order ? (long)order[base + t] : base + t;
     const uint32_t* src = rows + row * Rin;
     const Proj<F> fresh = fold_point<C, AFFINE>(src, k);
     const int32_t ak = k < 0 ? -k : k;
-    if (t == 0) {
+    if (ap == 0) {
       run = fresh;
     } else {
       const bool close = ak != ap;
@@ -292,8 +308,10 @@ BN_HD void fold_lane(const uint32_t* rows, const int32_t* order, const int32_t* 
     ap = ak;
   }
   if (last) {
-    uint32_t* bucket = buckets + (long)ap * R;
-    store_proj_row<C>(bucket, rcb_add<C>(load_proj_row<C>(bucket), run));
+    if (ap != 0) {
+      uint32_t* bucket = buckets + (long)ap * R;
+      store_proj_row<C>(bucket, rcb_add<C>(load_proj_row<C>(bucket), run));
+    }
   } else {
     store_proj_row<C>(trail + lane * R, run);
     tkey[lane] = ap;

@@ -144,11 +144,13 @@ static void mid_blocks(const MidIO& io) {
 template <class C, bool AFFINE>
 static void fold_lanes(const uint32_t* rows, const int32_t* order, const int32_t* keys,
                        uint32_t* table, uint32_t* trail, int32_t* tkey, int T, long m, int W,
-                       int nb, int last) {
+                       int nb, int last, int64_t* counts) {
   const long lanes = m / T;
-  for (long lane = 0; lane < W * lanes; ++lane)
+  for (long lane = 0; lane < W * lanes; ++lane) {
+    if (counts) counts[0] += lane_zeros(keys + lane * T, T), counts[1] += T;
     fold_lane<C, AFFINE>(rows, order, keys, table, trail, tkey, T, m, nb, last != 0,
                          lane / lanes, lane % lanes, lane);
+  }
 }
 
 // The block's segmented scan (csrc/spmv.cu `block_seg_scan`) over T threads
@@ -195,16 +197,17 @@ void shim_point(int g2, int dbl, long n, const uint32_t* const* in,
   else point_op<G1>(dbl, n, in, out);
 }
 
-// K2, one level: every lane of every window, in order
+// K2, one level: every lane of every window, in order; counts (null, or
+// int64[2]) += the zero slots and the slots walked, as the kernel counts
 void shim_fold(int g2, int affine, const uint32_t* rows, const int32_t* order,
                const int32_t* keys, uint32_t* table, uint32_t* trail, int32_t* tkey, int T,
-               long m, int W, int nb, int last) {
+               long m, int W, int nb, int last, int64_t* counts) {
   if (g2) {
-    if (affine) fold_lanes<G2, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
-    else fold_lanes<G2, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
+    if (affine) fold_lanes<G2, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, counts);
+    else fold_lanes<G2, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, counts);
   } else {
-    if (affine) fold_lanes<G1, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
-    else fold_lanes<G1, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last);
+    if (affine) fold_lanes<G1, true>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, counts);
+    else fold_lanes<G1, false>(rows, order, keys, table, trail, tkey, T, m, W, nb, last, counts);
   }
 }
 

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "g16_point_add": [_I] + [_P] * 9 + [_L, _P],
     "g16_point_double_n": [_I] + [_P] * 6 + [_L, _I, _P],
     "g16_horner": [_I] + [_P] * 6 + [_L, _I, _I, _P],
-    "g16_fold": [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I, _P],
+    "g16_fold": [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I, _P, _P],
     "g16_ntt_step": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _P],
     "g16_quotient_pointwise": [_P, _L, _P, _I, _P, _P],
     "g16_tree_phase_a": [_I, _P, _P, _P, _L, _P],
@@ -191,7 +191,7 @@ def host_shim():
     L.shim_point_double_n.argtypes = [_I, _L, _I, _P, _P]
     L.shim_horner.argtypes = [_I, _L, _I, _I, _P, _P]
     L.shim_field_inv.argtypes = [_I, _L, _P, _P]
-    L.shim_fold.argtypes = [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I]
+    L.shim_fold.argtypes = [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, _I, _P]
     L.shim_tree_phase_a.argtypes = [_I, _P, _P, _P, _L]
     L.shim_tree_mul_rows.argtypes = [_I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L]
     L.shim_tree_invert.argtypes = [_I, _P, _P, _L]

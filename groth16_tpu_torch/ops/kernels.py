@@ -19,6 +19,8 @@ input.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +31,7 @@ from . import field as F
 from . import cuda
 from .field import FP, FR
 from .limbs import N_LIMBS
+from ..utils import timing
 
 FOLD_T = 32  # sequential elements per lane at level 0
 
@@ -167,18 +170,42 @@ def _fold_check(cv, rows, order, keys, table, T, affine):
     return W, m, table.shape[1]
 
 
+_fold_counts = threading.local()
+
+
+@contextlib.contextmanager
+def fold_counts(counts: torch.Tensor):
+    """Inside the block, every K2 launch on this thread adds into `counts`
+    (int64 [2] on the launch's device) the slots it skipped, whose key was
+    0, and the slots it walked: one atomic add of each a block.  Outside
+    one, K2 counts nothing.  The fused proof opens one around its core, so
+    that its graph records the counters' address (`prover.FusedProof`)."""
+    if counts.dtype != torch.int64 or counts.shape != (2,) or not counts.is_contiguous():
+        raise ValueError("the fold counters are a contiguous int64 tensor of 2")
+    before = getattr(_fold_counts, "counts", None)
+    _fold_counts.counts = counts
+    try:
+        yield counts
+    finally:
+        _fold_counts.counts = before
+
+
 def fold_level_kernel(cv: C.CurveSpec, rows, order, keys, table, T: int,
                       affine: bool = False, last: bool = False):
     """K2: one fold level over CUDA tensors (see `fold_level_plain`).
     Replaces groth16_tpu/ops/kernels.py:416 `_fold_call`: one launch over
     every window's lanes, each thread gathering its points through `order`
-    and adding the segments that close into `table` in place (csrc/fold.cu)."""
+    and adding the segments that close into `table` in place (csrc/fold.cu).
+    Counts its slots where a `fold_counts` block is open."""
     W, m, nb = _fold_check(cv, rows, order, keys, table, T, affine)
     (rows,) = _cuda_inputs([rows])
     keys = _cuda_inputs([keys], torch.int32)[0]
     order = None if order is None else _cuda_inputs([order], torch.int32)[0]
     if table.device != rows.device or table.dtype != torch.uint32 or not table.is_contiguous():
         raise ValueError("the bucket table must be a contiguous uint32 tensor on the rows' device")
+    counts = getattr(_fold_counts, "counts", None)
+    if counts is not None and counts.device != rows.device:
+        raise ValueError("the fold counters must lie on the rows' device")
     dev, lanes, R = rows.device, m // T, fold_rows(cv)
     trail = None if last else torch.empty((W * lanes, R), dtype=torch.uint32, device=dev)
     tkey = None if last else torch.empty((W, lanes), dtype=torch.int32, device=dev)
@@ -187,6 +214,7 @@ def fold_level_kernel(cv: C.CurveSpec, rows, order, keys, table, T: int,
                              None if order is None else order.data_ptr(), keys.data_ptr(),
                              table_p, None if last else _aligned([trail])[0],
                              None if last else tkey.data_ptr(), T, m, W, nb, int(last),
+                             None if counts is None else counts.data_ptr(),
                              cuda.stream_ptr(dev))
     cuda.check(rc, "fold kernel")
     fold_level_kernel.launches += 1
@@ -206,12 +234,18 @@ def fold_level_plain(cv: C.CurveSpec, rows, order, keys, table, T: int,
     point-major, x|y (affine, (0, 0) = infinity) or x|y|z; sorted position j
     of window w is row order[w, j], or row w*m + j when `order` is None.
     table uint32[W, nb, R]: bucket sums, updated IN PLACE.  Lane l of window
-    w takes positions l*T .. l*T+T-1; where |digit| changes at a slot t >= 1,
-    the bucket of digit t-1 becomes (bucket + segment), every other slot
-    (segment + point), one complete add each.  Returns the lanes' open
-    segments (trail uint32[W * m/T, R], their |digit| int32[W, m/T]), or, at
-    the `last` level, adds them into their buckets too and returns (None,
-    None)."""
+    w takes positions l*T .. l*T+T-1.  A slot whose digit is 0 contributes
+    nothing: bucket 0 has weight 0 in the bucket reduce, so the table's
+    bucket 0 is not maintained and keeps what it held.  The lane's first
+    nonzero slot opens its segment at its point; where |digit| changes at a
+    later nonzero slot, the bucket of the nonzero slot before it becomes
+    (bucket + segment), every other nonzero slot (segment + point), one
+    complete add each.  Returns the lanes' open segments (trail uint32[W *
+    m/T, R], their |digit| int32[W, m/T]; infinity under 0 where a lane
+    holds zero digits alone), or, at the `last` level, adds them into their
+    buckets too and returns (None, None).  Adds the level's zero slots to
+    the tracer's counter `msm.zero_slots` and its W * m slots to
+    `msm.fold_slots`, as K2 counts them on the card."""
     W, m, nb = _fold_check(cv, rows, order, keys, table, T, affine)
     K, comp, dev = cv.fops, cv.comp_shape, keys.device
     R = fold_rows(cv)
@@ -224,6 +258,8 @@ def fold_level_plain(cv: C.CurveSpec, rows, order, keys, table, T: int,
     flat_o = None if order is None else order.reshape(-1).to(torch.int64)
     tab = F.as_i32(table).view(W * nb, R)
     b3 = F.const(cv.b3_limbs, dev)
+    timing.count("msm.zero_slots", int((flat_k == 0).sum()))
+    timing.count("msm.fold_slots", W * m)
 
     def split(r):      # int64 [n, R] -> (X, Y, Z) of [n, comp]
         return tuple(r[:, j * nc:(j + 1) * nc].reshape((-1,) + comp) for j in range(r.shape[1] // nc))
@@ -231,10 +267,14 @@ def fold_level_plain(cv: C.CurveSpec, rows, order, keys, table, T: int,
     def fuse(P):       # (X, Y, Z) -> int32 [n, R]
         return torch.cat([F.i64(c).reshape(c.shape[0], -1) for c in P], -1).to(torch.int32)
 
-    run, ap = None, None
+    def sel(mask, P, Q):
+        return tuple(K.select(mask, p, q) for p, q in zip(P, Q))
+
+    run = tuple(F.i64(c) for c in C.inf_like(cv, (W * lanes,), dev))
+    ap = torch.zeros(W * lanes, dtype=torch.int64, device=dev)   # 0: no segment open
     for t in range(T):
         k = flat_k[base + t]
-        ak = k.abs()
+        ak, live = k.abs(), k != 0
         p = F.i64(F.as_i32(rows)[base + t if flat_o is None else flat_o[base + t]])
         x, y = split(p)[:2]
         y = K.select(k < 0, K.neg(y), y)
@@ -245,21 +285,16 @@ def fold_level_plain(cv: C.CurveSpec, rows, order, keys, table, T: int,
             fresh = (K.select(inf, zero, x), K.select(inf, one, y), K.select(inf, zero, one))
         else:
             fresh = (x, y, split(p)[2])
-        if t == 0:
-            run = fresh
-        else:
-            close = ak != ap
-            dst = bucket0 + ap
-            old = split(F.i64(tab[dst]))
-            A = tuple(K.select(close, o, r) for o, r in zip(old, run))
-            B = tuple(K.select(close, r, f) for r, f in zip(run, fresh))
-            S = C.rcb_add(K, A, B, b3)
-            tab[dst[close]] = fuse(S)[close]
-            run = tuple(K.select(close, f, s) for f, s in zip(fresh, S))
-        ap = ak
+        close = live & (ap != 0) & (ak != ap)
+        dst = bucket0 + ap
+        S = C.rcb_add(K, sel(close, split(F.i64(tab[dst])), run), sel(close, run, fresh), b3)
+        tab[dst[close]] = fuse(S)[close]
+        run = sel(live & ((ap == 0) | close), fresh, sel(live, S, run))
+        ap = torch.where(live, ak, ap)
     if last:
         dst = bucket0 + ap
-        tab[dst] = fuse(C.rcb_add(K, split(F.i64(tab[dst])), run, b3))
+        S = fuse(C.rcb_add(K, split(F.i64(tab[dst])), run, b3))
+        tab[dst[ap != 0]] = S[ap != 0]
         return None, None
     return F.as_u32(fuse(run)), ap.to(torch.int32).reshape(W, lanes)
 

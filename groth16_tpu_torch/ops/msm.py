@@ -13,10 +13,12 @@ nothing on the proof's path calls.  The fold:
      into lanes of T elements and ONE fold launch (kernel K2) per level
      walks all windows' lanes at once, gathering its points through the
      sort order and adding every segment that closes inside a lane into
-     its bucket of a [W, buckets] table in place; the lanes' open segments
-     form the next, T-times shorter level, and the last level (one lane a
-     window) adds them into the table too.  T is FOLD_T at level 0 and
-     FOLD_T_PROJECTIVE after it (`fold_schedule`);
+     its bucket of a [W, buckets] table in place (a zero digit, of the
+     padding or of a small scalar's high windows, costs a key read and no
+     add); the lanes' open segments form the next, T-times shorter level,
+     and the last level (one lane a window) adds them into the table too.
+     T is FOLD_T at level 0 and FOLD_T_PROJECTIVE after it
+     (`fold_schedule`);
   3. the weighted bucket sum sum_b b * B_b of all windows at once through the
      [Q, L] factorization b = q*L + l (tree sums and log-depth suffix sums);
   4. Horner over the windows.
@@ -128,7 +130,10 @@ def window_buckets(cv: CurveSpec, keys: torch.Tensor, rows: torch.Tensor, n_buck
     of two), rows int32[m, Rin] the points (x|y affine with (0, 0) =
     infinity, or x|y|z).  One fold level (`kernels.fold_level`) per entry of
     `fold_schedule`, all adding into one bucket table.  Returns (X, Y, Z) of
-    [n_buckets, W, comp]."""
+    [n_buckets, W, comp].  A zero digit (the padding's, a small scalar's
+    high windows) adds nothing: bucket 0, which has weight 0 in
+    `_weighted_bucket_reduce`, stays at infinity and is not a sum of the
+    window's zero-digit points."""
     W, m = keys.shape
     Ts = fold_schedule(m)
     order = torch.argsort(keys.abs(), dim=1, stable=True)

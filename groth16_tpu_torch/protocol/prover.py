@@ -407,8 +407,11 @@ class FusedProof:
     chains the last run of the core forked.  While tracing is
     on, `replay()` reads each phase's device seconds into `phases` and the
     tracer, and the side branch's, first launch to last, into
-    `side_chains_s` and the tracer (`timing.record_side_chains`); off, it
-    reads nothing."""
+    `side_chains_s` and the tracer (`timing.record_side_chains`), and K2's
+    device counters (`fold_counts`: the slots its launches skipped for a
+    zero key and the slots they walked, zeroed at the start of every run of
+    the core) into the tracer's `msm.zero_slots` and `msm.fold_slots`; off,
+    it reads nothing."""
 
     def __init__(self, zkey: ZKey, device):
         self.device = torch.device(device_key(device))
@@ -437,15 +440,18 @@ class FusedProof:
                                 for _ in range(2))
         self.side_chains = 0
         self.side_chains_s = None
+        self.fold_counts = torch.zeros(2, dtype=torch.int64, device=self.device)
 
     def _mark(self, phase: str) -> None:
         self.events[T.PHASES.index(phase) + 1].record()
 
     def _core(self) -> torch.Tensor:
+        self.fold_counts.zero_()
         self.events[0].record()
         chains = M.SideChains(self.side_marks)
-        out = prove_core_device(self.flavour, self.log2n, self.static, self.spec, self.witness,
-                                self.mask, self._mark, chains)
+        with KN.fold_counts(self.fold_counts):
+            out = prove_core_device(self.flavour, self.log2n, self.static, self.spec,
+                                    self.witness, self.mask, self._mark, chains)
         self.side_chains = chains.forked
         return out
 
@@ -488,8 +494,9 @@ class FusedProof:
         buffer, copied to the host (the one synchronization of a proof):
         the spans `replay` (the launch) and `copy_back` (the copy and the
         synchronization).  While tracing is on, each phase's device seconds
-        then go to `phases` and to the tracer under the open proof's id, and
-        the side branch's to `side_chains_s` and the tracer."""
+        then go to `phases` and to the tracer under the open proof's id, the
+        side branch's to `side_chains_s` and the tracer, and K2's counters
+        to the tracer's `msm.zero_slots` and `msm.fold_slots`."""
         if self.graph is None:
             raise RuntimeError("replay before capture")
         with torch.cuda.device(self.device):
@@ -507,6 +514,9 @@ class FusedProof:
             if self.side_chains:
                 self.side_chains_s = self.side_marks[0].elapsed_time(self.side_marks[1]) / 1e3
                 T.record_side_chains(self.side_chains_s)
+            zeros, walked = self.fold_counts.tolist()
+            T.count("msm.zero_slots", zeros)
+            T.count("msm.fold_slots", walked)
         return self.host_out.numpy().view(np.uint32).copy()
 
 

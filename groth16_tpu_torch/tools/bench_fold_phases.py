@@ -2,6 +2,7 @@
 sweep that picks the fold's T per level.
 
     python3 -m groth16_tpu_torch.tools.bench_fold_phases [log2n]
+    python3 -m groth16_tpu_torch.tools.bench_fold_phases levels
 
 `run`: a G1 MSM of 2^log2n points (default 2^20) through the fold, at the
 fold's window (c = 16 at 2^20), on the phase tool's points (bench_tree_phases
@@ -21,7 +22,11 @@ one chain (CUDA events, mean of 3 after a warm-up) with T = 2, 4, 8, 16 and
 `fold_schedule`'s choice.  More levels cost launches; a larger T costs one
 thread's chain of T complete adds where the lanes do not fill the card.
 
-Both print one line a phase and one JSON line with the card's name and
+`levels`: each K2 level alone, at 2^16 and 2^20 points, G1 and G2, on
+full-width scalars and on a bit-decomposition witness's (97 % 0 or 1),
+beside its bound (`levels`); nothing else.
+
+Each prints one line a phase and one JSON line with the card's name and
 power limit.  Needs one CUDA card; imports nothing of JAX.
 """
 
@@ -42,6 +47,22 @@ def _scalars(n: int, device, seed: int):
     limbs = np.random.default_rng(seed).integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
     limbs[:, 15] &= 0x2FFF
     return torch.from_numpy(limbs).to(device)
+
+
+def _bit_scalars(n: int, device, seed: int):
+    """n scalars as a bit-decomposition witness has them: 97 % 0 or 1, the
+    rest below 2^32."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    limbs = np.zeros((n, 16), dtype=np.uint32)
+    limbs[:, 0] = rng.integers(0, 2, size=n)
+    wide = rng.random(n) < 0.03
+    limbs[wide, :2] = rng.integers(0, 1 << 16, size=(int(wide.sum()), 2))
+    return torch.from_numpy(limbs).to(device)
+
+
+SCALARS = {"full": _scalars, "bits": _bit_scalars}
 
 
 def _affine_rows(cv, P):
@@ -76,17 +97,18 @@ def _points(cv, n, device):
     return C.from_affine(cv, x, y)
 
 
-def fold_case(cv, log2n: int, device) -> tuple:
+def fold_case(cv, log2n: int, device, scalars: str = "full") -> tuple:
     """A fold MSM's level-0 operands at the window of 2^log2n - 1 points (the
     main path's MSMs are 2^16 - 1 points, padded to 2^16): x|y rows of
     2^log2n wire-form points, the |digit| sort order int32[W, m], the sorted
-    signed digits int32[W, m] of random scalars, and an infinity bucket
-    table uint32[W, nb, R]."""
+    signed digits int32[W, m] of random scalars (`SCALARS`: "full" width,
+    or a bit-decomposition witness's "bits"), and an infinity bucket table
+    uint32[W, nb, R]."""
     import torch
     from groth16_tpu_torch.ops import field as F, msm as M
     n = 1 << log2n
     c = M.pick_window_bits(n - 1)
-    keys = M.signed_window_digits(_scalars(n, device, 4), c)
+    keys = M.signed_window_digits(SCALARS[scalars](n, device, 4), c)
     W = keys.shape[0]
     nb = (1 << (c - 1)) + 1
     order = torch.argsort(keys.abs(), dim=1, stable=True)
@@ -133,6 +155,46 @@ def sweep(device="cuda", reps: int = 3) -> dict:
     return out
 
 
+LEVEL_CASES = tuple((cv, log2n, sc) for log2n in (16, 20) for cv in ("G1", "G2")
+                    for sc in ("full", "bits"))
+
+
+def levels(device="cuda", reps: int = 5) -> list:
+    """Each K2 level of `fold_schedule` at 2^16 and 2^20 points, G1 and G2,
+    on full-width and on bit-decomposition scalars (`LEVEL_CASES`), each
+    level fed by the one before and timed on a scratch copy of its table
+    (CUDA events, mean of `reps` after a warm-up), beside its bound
+    (`measure.work` of the level's `fold_shape` at the card's clock); print
+    a line a level and return the rows."""
+    from groth16_tpu_torch.ops import curve as C, kernels as KN, msm as M
+    from groth16_tpu_torch.tools import measure
+    clock = measure.sm_clock_max_mhz()
+    out = []
+    for name, log2n, sc in LEVEL_CASES:
+        cv = C.G1 if name == "G1" else C.G2
+        pts, order, keys, table = fold_case(cv, log2n, device, sc)
+        W, m = keys.shape
+        Ts = M.fold_schedule(m)
+        for i, T in enumerate(Ts):
+            kw = dict(T=T, affine=i == 0, last=i == len(Ts) - 1)
+            shape = measure.fold_shape(keys.cpu().numpy(), T)
+            scratch = table.clone()
+            ms = measure.time_ms(lambda: KN.fold_level(cv, pts, order, keys, scratch, **kw),
+                                 device, reps)
+            bound, by = measure.bound_ms(*measure.work(
+                "fold_level_kernel", name, lanes=W * (m // T), order=order is not None,
+                **kw, **shape), clock)
+            row = {"curve": name, "log2n": log2n, "scalars": sc, "level": i, "T": T,
+                   "lanes": W * (m // T), **shape, "ms": ms, "bound_ms": bound, "bound_by": by}
+            out.append(row)
+            print(f"levels {name} 2^{log2n} {sc:4s} level {i} T={T} lanes={row['lanes']} "
+                  f"zeros={shape['zeros']} closes={shape['closes']}: {ms:.4f} ms "
+                  f"(bound {bound:.5f} ms, {by})", flush=True)
+            pts, keys = KN.fold_level(cv, pts, order, keys, table, **kw)
+            order, m = None, m // T
+    return out
+
+
 def run(log2n: int = 20, device="cuda", reps: int = 3) -> dict:
     """Time the phases of a G1 fold MSM of 2^log2n points on `device` (its
     plain versions on a CPU device); print and return them."""
@@ -174,7 +236,7 @@ def run(log2n: int = 20, device="cuda", reps: int = 3) -> dict:
     pts, lk, lo = rows, sk, order
     for i, T in enumerate(Ts):
         last = i == len(Ts) - 1
-        closes = measure.fold_closes(lk.cpu().numpy(), T)
+        closes = measure.fold_shape(lk.cpu().numpy(), T)["closes"]
         args = (pts, lo, lk, T, i == 0, last)
         # the level's output from a fresh table, then its time on a scratch copy
         out = KN.fold_level(cv, pts, lo, lk, table, T, affine=i == 0, last=last)
@@ -222,6 +284,10 @@ def main(argv=None) -> int:
         return 2
     from groth16_tpu_torch.tools import measure
     print(measure.card_line("cuda"))
+    if args and args[0] == "levels":
+        print(json.dumps({"tool": "bench_fold_phases", "card": measure.card_line("cuda"),
+                          "levels": levels()}))
+        return 0
     run(int(args[0]) if args else 20)
     print(json.dumps({"tool": "bench_fold_phases", "sweep": sweep()}))
     return 0

@@ -141,13 +141,22 @@ def level_block_roots(curve: str, apr, bpl) -> list:
     return roots
 
 
-def fold_closes(keys, T: int) -> int:
-    """Segments that close inside the lanes of one fold level: slots t >= 1
-    of a lane of T whose |key| differs from slot t-1's, over sorted keys
-    [W, m] (numpy)."""
+def fold_shape(keys, T: int) -> dict:
+    """What one fold level's lanes of T do over keys [W, m] (numpy), the
+    shape `work("fold_level_kernel", ...)` takes: `zeros`, the slots whose
+    key is 0, which do no work; `opened`, the lanes with a nonzero key,
+    whose first one opens a segment; `closes`, the segments that close
+    inside the lanes (nonzero slots whose |key| differs from the lane's
+    nonzero slot before them)."""
     import numpy as np
     ak = np.abs(np.asarray(keys)).reshape(-1, T)
-    return int((ak[:, 1:] != ak[:, :-1]).sum())
+    live = ak != 0
+    at = np.maximum.accumulate(np.where(live, np.arange(T), -1), axis=1)
+    prev = np.zeros_like(ak)
+    prev[:, 1:] = np.where(at[:, :-1] >= 0,
+                           np.take_along_axis(ak, np.maximum(at[:, :-1], 0), axis=1), 0)
+    return {"zeros": int((~live).sum()), "opened": int(live.any(axis=1).sum()),
+            "closes": int((live & (prev != 0) & (ak != prev)).sum())}
 
 
 def time_ms(fn, device, reps: int = 3, warmup: bool = True) -> float:
@@ -360,8 +369,8 @@ def _geom(curve: str):
 def work(name: str, curve: str = "G1", **shape) -> tuple:
     """(bytes, Fp products) of one launch of wrapper `name` at `shape`:
     point_add (n), point_double_n (n, k), horner (B, W, c), fold_level_kernel
-    (affine, T, lanes: of all windows, closes: `fold_closes` of the level's
-    keys, order: level 0 gathers through one, last), ntt_inner_kernel (T, NB,
+    (affine, T, lanes: of all windows, zeros, opened, closes: `fold_shape` of
+    the level's keys, order: level 0 gathers through one, last), ntt_inner_kernel (T, NB,
     B, pre, post, wire_in, wire_out), quotient_pointwise_kernel (n, scale,
     standard), quotient (log2n, flavour: the whole of
     `prover.quotient_scalars`), phase_a_kernel (M), phase_b_kernel (M, dbl), level_kernel (K, emit,
@@ -380,19 +389,21 @@ def work(name: str, curve: str = "G1", **shape) -> tuple:
         B, W, c = s["B"], s["W"], s["c"]
         return 4 * 3 * nc * (W + 1) * B, (W - 1) * (9 * c + 14) * f * B
     if name == "fold_level_kernel":
-        # keys (and the order's indices) and points read once; a lane's open
-        # segment and its key written once, or added into its bucket at the
-        # last level; a close reads and writes its bucket.  A slot that
-        # joins a running segment is one add (mixed in the affine level), a
-        # close one complete add, a slot that opens a segment none.
-        T, lanes, closes = s["T"], s["lanes"], s["closes"]
+        # keys read once; the order's indices and the points of the nonzero
+        # slots read once (a zero key does no work); a lane's open segment
+        # and its key written once, or added into its bucket at the last
+        # level where it holds one; a close reads and writes its bucket.  A
+        # slot that joins a running segment is one add (mixed in the affine
+        # level), a close one complete add, a slot that opens a segment none.
+        T, lanes, zeros, opened, closes = (s["T"], s["lanes"], s["zeros"], s["opened"],
+                                           s["closes"])
         slots = T * lanes
         rin = (2 if s["affine"] else 3) * nc
-        adds = closes + (lanes if s["last"] else 0)
-        words = slots * (1 + int(s["order"]) + rin) + 2 * 3 * nc * adds
+        adds = closes + (opened if s["last"] else 0)
+        words = slots + (slots - zeros) * (int(s["order"]) + rin) + 2 * 3 * nc * adds
         if not s["last"]:
             words += lanes * (3 * nc + 1)
-        joins = slots - lanes - closes
+        joins = slots - zeros - opened - closes
         return 4 * words, ((13 if s["affine"] else 14) * joins + 14 * adds) * f
     if name == "ntt_inner_kernel":
         # B x NB transforms: each element read and written once (64 bytes

@@ -187,18 +187,41 @@ def test_fold_kernel_matches_plain(dev, cv, affine):
     one lane a window): the table (holding sums already), the trail and its
     keys, with runs across lanes, negative digits, (0, 0) points and, in
     the projective case, rows without an order."""
+    _check_fold_kernel(dev, cv, affine, "sorted")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", ["zero_heavy", "zero_window", "all_zero", "scattered"])
+@pytest.mark.parametrize("affine", [True, False], ids=["affine", "projective"])
+@pytest.mark.parametrize("cv", [C.G1, C.G2], ids=["G1", "G2"])
+def test_fold_kernel_skips_zero_keys(dev, cv, affine, keys):
+    """The same on the zero-heavy key sets of `fold_case` (zero runs over
+    whole lanes and ending mid-lane, a window of zeros, zeros alone, zeros
+    anywhere among the sorted nonzero keys): bucket 0 as it was, and the
+    device counters of every launch equal to its zero keys and its slots,
+    exactly."""
+    _check_fold_kernel(dev, cv, affine, keys)
+
+
+def _check_fold_kernel(dev, cv, affine, keys):
     from test_torch_fold import fold_case
     W, m, n, nb = 4, 256, 300, 40
-    rows, order, keys, table = (x.to(dev) for x in fold_case(cv, affine, W, m, n, nb, seed=2))
+    case = fold_case(cv, affine, W, m, n, nb, seed=2, keys=keys)
+    rows, order, keys_, table = (x.to(dev) for x in case)
+    zeros = int((keys_ == 0).sum())
     for T, last in ((1, False), (4, False), (32, False), (m, True)):
         for o in ([order] if affine else [order, None]):
             r = rows if o is not None else F.as_u32(
                 F.as_i32(rows)[torch.arange(W * m, device=dev) % n].contiguous())
             tk, tp = table.clone(), table.clone()
-            got = KN.fold_level_kernel(cv, r, o, keys, tk, T, affine, last)
-            want = KN.fold_level_plain(cv, r, o, keys, tp, T, affine, last)
+            counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            with KN.fold_counts(counts):
+                got = KN.fold_level_kernel(cv, r, o, keys_, tk, T, affine, last)
+            want = KN.fold_level_plain(cv, r, o, keys_, tp, T, affine, last)
             assert torch.equal(F.as_i32(tk), F.as_i32(tp))
             assert all(g is w or torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
+            assert torch.equal(F.as_i32(tk[:, 0]), F.as_i32(table[:, 0]))
+            assert counts.tolist() == [zeros, W * m], (T, last)
     torch.cuda.synchronize()
 
 
@@ -480,6 +503,65 @@ def test_fused_graph_replays_equal_staged(dev, flavour):
     assert PV.fused_graph(zkey, dev) is zkey.device_cache[graphs[0]]
     assert G.verify_proof(G.extract_vkey(other), prf)
     assert (prf.pi_a, prf.pi_b, prf.pi_c) != (fused[0].pi_a, fused[0].pi_b, fused[0].pi_c)
+
+
+def bits_circuit(k: int, seed: int):
+    """(r1cs, witness): k circomlib-style Num2Bits(32) checks, each value a
+    sum of 32 constrained bits, the first value public; the witness is 97 %
+    0 or 1 (at k = 15, 481 of 496 wires), as a bit-decomposition circuit's
+    is, so most MSM windows hold zero digits alone.  Domain 2^9 at k = 15."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.models.circuits import R, make_witness
+    from groth16_tpu_torch.protocol.types import WitnessConfig
+    rng = np.random.default_rng(seed)
+    xs = [int(v) for v in rng.integers(0, 1 << 32, size=k)]
+    bits = [(x >> i) & 1 for x in xs for i in range(32)]
+    n_wires = 1 + k + 32 * k
+    cons = []
+    for j in range(k):
+        b0 = 1 + k + 32 * j
+        for i in range(32):              # b * (b - 1) = 0
+            cons.append(([(b0 + i, 1)], [(b0 + i, 1), (0, R - 1)], []))
+        cons.append(([(b0 + i, 1 << i) for i in range(32)], [(0, 1)], [(1 + j, 1)]))
+    cfg = WitnessConfig(n_wires=n_wires, n_pub_out=1, n_pub_in=0, n_priv_in=0, n_labels=0)
+    r1cs = G.R1CS(r=R, cfg=cfg, n_constr=len(cons), constraints=cons, wire_to_label=[])
+    return r1cs, make_witness([1] + xs + bits)
+
+
+@pytest.mark.gpu
+def test_fused_zero_heavy_proofs_equal_cpu(dev):
+    """A bit-decomposition witness (`bits_circuit`, 97 % 0 or 1) through the
+    fused graph: replays equal to the CPU proofs of the same inputs, which
+    verify, and, while tracing is on, one replay's K2 counters equal the
+    zero slots and slots the CPU proof's plain fold levels count."""
+    import groth16_tpu_torch as G
+    from groth16_tpu_torch.utils import timing
+    r1cs = bits_circuit(15, 1)[0]
+    zkey = G.fake_circuit_setup(r1cs, G.ToxicWaste(3, 5, 7, 11, 13), G.Flavour.Snarkjs, dev)
+    ws = [bits_circuit(15, seed)[1] for seed in (1, 2)]
+    masks = [G.Mask(17, 19), G.Mask(0, 0)]
+    v = ws[0].values
+    assert ((v[:, 1:] == 0).all(1) & (v[:, 0] <= 1)).mean() > 0.96
+    fused = G.generate_proofs(zkey, ws, dev, masks)
+    names = ("msm.zero_slots", "msm.fold_slots")
+
+    def counted(fn):
+        before = timing.counters()
+        out = fn()
+        after = timing.counters()
+        return out, [after.get(k, 0) - before.get(k, 0) for k in names]
+
+    timing.enable()
+    try:
+        traced, card = counted(lambda: G.generate_proof_with_mask(zkey, ws[0], masks[0], dev))
+    finally:
+        timing.disable()
+    cpu, plain = counted(lambda: _cpu_proofs(zkey, [(ws[0], masks[0])]))
+    cpu += _cpu_proofs(zkey, [(ws[1], masks[1])])
+    assert [_points(p) for p in fused + [traced]] == [_points(p) for p in cpu + cpu[:1]]
+    assert [p.public_io for p in fused] == [p.public_io for p in cpu]
+    assert all(G.verify_proof(G.extract_vkey(zkey), p) for p in fused)
+    assert card == plain and card[0] > card[1] // 2
 
 
 @pytest.mark.gpu

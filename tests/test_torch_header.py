@@ -132,30 +132,64 @@ def _shim_fold(shim, cv, rows, order, keys, table, T, affine, last):
     tab = table.clone()
     trail = torch.zeros((W * (m // T), KN.fold_rows(cv)), dtype=torch.uint32)
     tkey = torch.zeros((W, m // T), dtype=torch.int32)
+    counts = torch.zeros(2, dtype=torch.int64)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     shim.shim_fold(int(cv.name == "G2"), int(affine), ptr(rows), ptr(order), ptr(keys), ptr(tab),
-                   ptr(trail), ptr(tkey), T, m, W, table.shape[1], int(last))
-    return tab, (None, None) if last else (trail, tkey)
+                   ptr(trail), ptr(tkey), T, m, W, table.shape[1], int(last), ptr(counts))
+    return tab, (None, None) if last else (trail, tkey), counts.tolist()
 
 
-@pytest.mark.parametrize("cv,affine", [(C.G1, True), (C.G1, False), (C.G2, True), (C.G2, False)],
-                         ids=["G1-affine", "G1-proj", "G2-affine", "G2-proj"])
-def test_fold_lane_header_matches_plain(shim, cv, affine):
-    """K2's lane body vs `fold_level_plain` at T = 1, 2, 4 and 32 (the last,
-    one lane a window, adding the open segments into the table too): the
-    bucket table, the trail and its keys bit-exact, with key runs that cross
-    lanes, negative digits, (0, 0) points, a table that already holds sums,
-    and, projective, the later levels' rows without an order."""
+def _plain_fold(cv, rows, order, keys, table, T, affine, last):
+    """`fold_level_plain` on a copy of the table: (the table, its result,
+    what it added to the tracer's counters `msm.zero_slots` and
+    `msm.fold_slots`)."""
+    from groth16_tpu_torch.utils import timing
+    tab = table.clone()
+    before = timing.counters()
+    got = KN.fold_level_plain(cv, rows, order, keys, tab, T, affine, last)
+    after = timing.counters()
+    return tab, got, [after[k] - before.get(k, 0) for k in ("msm.zero_slots", "msm.fold_slots")]
+
+
+def _check_fold_lane(shim, cv, affine, keys):
     W, m, n, nb = 3, 32, 40, 6
     from test_torch_fold import fold_case
-    rows, order, keys, table = fold_case(cv, affine, W, m, n, nb, seed=9)
+    rows, order, keys_, table = fold_case(cv, affine, W, m, n, nb, seed=9, keys=keys)
+    zeros = int((keys_ == 0).sum())
     for T in (1, 2, 4, 32):
         last = T == m
         for o in ([order] if affine else [order, None]):
             r = rows if o is not None else rows[torch.arange(W * m) % n].contiguous()
-            tab, got = _shim_fold(shim, cv, r, o, keys, table, T, affine, last)
-            want_tab = table.clone()
-            want = KN.fold_level_plain(cv, r, o, keys, want_tab, T, affine, last)
+            tab, got, counts = _shim_fold(shim, cv, r, o, keys_, table, T, affine, last)
+            want_tab, want, want_counts = _plain_fold(cv, r, o, keys_, table, T, affine, last)
             assert torch.equal(F.as_i32(tab), F.as_i32(want_tab)), (T, o is None)
             assert all(g is w or torch.equal(F.as_i32(g), F.as_i32(w)) for g, w in zip(got, want))
-            assert torch.equal(F.as_i32(tab), F.as_i32(table)) == (T == 1)   # T = 1: nothing closes
+            assert counts == want_counts == [zeros, W * m]
+            assert torch.equal(F.as_i32(tab[:, 0]), F.as_i32(table[:, 0]))   # bucket 0 kept
+            # T = 1: nothing closes; zeros alone: nothing at all
+            assert torch.equal(F.as_i32(tab), F.as_i32(table)) == (T == 1 or keys == "all_zero")
+
+
+FOLD_LANE_CASES = [(C.G1, True), (C.G1, False), (C.G2, True), (C.G2, False)]
+FOLD_LANE_IDS = ["G1-affine", "G1-proj", "G2-affine", "G2-proj"]
+
+
+@pytest.mark.parametrize("cv,affine", FOLD_LANE_CASES, ids=FOLD_LANE_IDS)
+def test_fold_lane_header_matches_plain(shim, cv, affine):
+    """K2's lane body vs `fold_level_plain` at T = 1, 2, 4 and 32 (the last,
+    one lane a window, adding the open segments into the table too): the
+    bucket table, the trail and its keys bit-exact, bucket 0 as it was, and
+    the zero slots and slots walked the shim counts against the plain
+    version's counters, with key runs that cross lanes, negative digits,
+    (0, 0) points, a table that already holds sums, and, projective, the
+    later levels' rows without an order."""
+    _check_fold_lane(shim, cv, affine, "sorted")
+
+
+@pytest.mark.parametrize("keys", ["zero_heavy", "zero_window", "all_zero", "scattered"])
+@pytest.mark.parametrize("cv,affine", FOLD_LANE_CASES, ids=FOLD_LANE_IDS)
+def test_fold_lane_header_skips_zero_keys(shim, cv, affine, keys):
+    """The same on the zero-heavy key sets of `fold_case`: zero runs over
+    whole lanes and ending mid-lane, a window of zeros, zeros alone, and
+    zeros anywhere among the sorted nonzero keys."""
+    _check_fold_lane(shim, cv, affine, keys)

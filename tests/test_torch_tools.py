@@ -287,20 +287,34 @@ def test_bound_slots_follow_the_wide_rate():
 def test_fold_and_level_work_counts():
     """K2: a slot that joins a segment is one add (13 products mixed, 14
     complete), a close one complete add that reads and writes its bucket;
-    the last level adds every lane's segment into its bucket.  K8: four
-    points and a flag byte read, two or three points written, 7 products an
-    addition, K6's tree and the Euclid steps a block."""
+    the last level adds every open segment into its bucket; a zero key is
+    read and does nothing else (no order, no point, no add), and a lane of
+    zero keys opens no segment.  K8: four points and a flag byte read, two
+    or three points written, 7 products an addition, K6's tree and the
+    Euclid steps a block."""
     keys = np.array([[1, 1, 2, -2, 3, 3, 3, 4]])
-    assert measure.fold_closes(keys, 4) == 2 and measure.fold_closes(keys, 8) == 3
-    assert measure.fold_closes(keys, 1) == 0
-    b, p = measure.work("fold_level_kernel", "G1", affine=True, T=4, lanes=2, closes=2,
-                        order=True, last=False)
+    assert measure.fold_shape(keys, 4) == {"zeros": 0, "opened": 2, "closes": 2}
+    assert measure.fold_shape(keys, 8) == {"zeros": 0, "opened": 1, "closes": 3}
+    assert measure.fold_shape(keys, 1) == {"zeros": 0, "opened": 8, "closes": 0}
+    b, p = measure.work("fold_level_kernel", "G1", affine=True, T=4, lanes=2,
+                        **measure.fold_shape(keys, 4), order=True, last=False)
     assert p == 13 * (8 - 2 - 2) + 14 * 2
     assert b == 4 * (8 * (1 + 1 + 32) + 2 * 48 * 2 + 2 * (48 + 1))
-    b, p = measure.work("fold_level_kernel", "G2", affine=False, T=8, lanes=1, closes=3,
-                        order=False, last=True)
+    b, p = measure.work("fold_level_kernel", "G2", affine=False, T=8, lanes=1,
+                        **measure.fold_shape(keys, 8), order=False, last=True)
     assert p == 3 * (14 * (8 - 1 - 3) + 14 * 4)
     assert b == 4 * (8 * (1 + 96) + 2 * 96 * 4)
+    zkeys = np.array([[0, 0, 0, 0, 0, 2, 0, -3]])
+    assert measure.fold_shape(zkeys, 4) == {"zeros": 6, "opened": 1, "closes": 1}
+    assert measure.fold_shape(zkeys, 8) == {"zeros": 6, "opened": 1, "closes": 1}
+    b, p = measure.work("fold_level_kernel", "G1", affine=True, T=4, lanes=2,
+                        **measure.fold_shape(zkeys, 4), order=True, last=False)
+    assert p == 14 * 1
+    assert b == 4 * (8 + 2 * (1 + 32) + 2 * 48 * 1 + 2 * (48 + 1))
+    b, p = measure.work("fold_level_kernel", "G1", affine=False, T=8, lanes=1,
+                        **measure.fold_shape(zkeys, 8), order=False, last=True)
+    assert p == 14 * 2
+    assert b == 4 * (8 + 2 * 48 + 2 * 48 * 2)
     b, p = measure.work("level_kernel", "G2", K=600, emit=True,
                         inv_ops=measure.FP_MUL_MULTIPLIES * 2)
     assert b == 4 * 7 * 64 * 600 + 600
