@@ -3,8 +3,16 @@ only module of the benchmark that imports the program.
 
 It hands the program the benchmark's own inputs in the program's types
 (the circuit as an R1CS, each witness, the toxic waste, each mask), runs
-its fake setup and its entry point `generate_proof_with_mask` on the
-default path, and reads back the proof's points and its counters.
+its fake setup and its entry point, and reads back the proof's points and
+its counters.  A one-card cell proves through `generate_proof_with_mask`
+on the default path.  A cell of d cards runs d ranks, one process a card
+(`spawn`: the program's `parallel.launch.spawn`, which joins each rank
+through `parallel.mesh.init_mesh`; NCCL on the cards, gloo on the CPU);
+every rank proves every request through the sharded entry
+`parallel.prover_shard.generate_proof_sharded` (`prove_sharded`), and
+the ranks agree on rank 0's clock and exchange their readings over the
+mesh (`agree`, `gather`).  The parallel modules are imported only where a
+rank needs them, so a one-card run loads nothing more than before.
 """
 
 from __future__ import annotations
@@ -56,14 +64,79 @@ def prove(zkey, wtns, r: int, s: int, device, timings: dict | None = None) -> tu
     return prf.pi_a, prf.pi_b, prf.pi_c, [int(v) for v in prf.public_io]
 
 
+def prove_sharded(zkey, wtns, r: int, s: int, mesh, timings: dict | None = None) -> tuple:
+    """One proof on the program's sharded path, this rank's part of it:
+    every rank of `mesh` calls it with the same zkey, witness and masks and
+    gets the same (pi_a, pi_b, pi_c, public_io)."""
+    from groth16_tpu_torch.parallel.prover_shard import generate_proof_sharded
+    prf = generate_proof_sharded(zkey, wtns, G.Mask(r=r, s=s), mesh, timings)
+    return prf.pi_a, prf.pi_b, prf.pi_c, [int(v) for v in prf.public_io]
+
+
 COUNTERS = {"uploads": ("zkey_device_args", "builds"), "captures": ("fused_graph", "captures")}
 
 
-def counters() -> dict:
+def counters(mesh=None) -> dict:
     """The program's counters of zkey uploads and graph captures (those it
-    has)."""
-    return {name: int(getattr(getattr(PV, fn), attr)) for name, (fn, attr) in COUNTERS.items()
-            if hasattr(getattr(PV, fn, None), attr)}
+    has); on a rank of `mesh`, the uploads add the rank's part of the zkey
+    (`zkey_shard_args.builds`)."""
+    out = {name: int(getattr(getattr(PV, fn), attr)) for name, (fn, attr) in COUNTERS.items()
+           if hasattr(getattr(PV, fn, None), attr)}
+    if mesh is not None:
+        from groth16_tpu_torch.parallel.prover_shard import zkey_shard_args
+        out["uploads"] = out.get("uploads", 0) + int(zkey_shard_args.builds)
+    return out
+
+
+def spawn(fn, ranks: int, device, *args) -> None:
+    """fn(mesh, *args) in `ranks` processes (fn importable at module level,
+    args picklable) through the program's `parallel.launch.spawn`: NCCL
+    ranks on cuda:0 .. cuda:ranks-1 where `device` is a card, gloo ranks on
+    the CPU where it is the CPU.  A rank that raises stops the others and
+    makes this raise; a collective that waits past the program's
+    `mesh.TIMEOUT` raises on its rank."""
+    from groth16_tpu_torch.parallel import launch
+    device = torch.device(device)
+    if device.type == "cuda":
+        launch.spawn(fn, ranks, "nccl", [torch.device("cuda", i) for i in range(ranks)], *args)
+    else:
+        launch.spawn(fn, ranks, "gloo", [device], *args)
+
+
+def agree(mesh, go: bool) -> bool:
+    """Rank 0's `go` on every rank of `mesh` (a one-element broadcast over
+    the mesh); `go` itself without one."""
+    if mesh is None:
+        return go
+    import torch.distributed as dist
+    flag = torch.tensor([int(go)], dtype=torch.int32,
+                        device=mesh.device if mesh.backend == "nccl" else "cpu")
+    dist.broadcast(flag, src=0, group=mesh.group)
+    return bool(flag.item())
+
+
+def gather(mesh, obj) -> list:
+    """Every rank's `obj` (picklable), in rank order, on every rank of
+    `mesh`; a barrier besides."""
+    import torch.distributed as dist
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj, group=mesh.group)
+    return out
+
+
+@contextlib.contextmanager
+def timed(mesh):
+    """Inside the block the mesh's collectives wait for the device before
+    and after each and add their seconds to the proof's `comm_s`; nothing
+    without a mesh."""
+    if mesh is None:
+        yield
+        return
+    was, mesh.timed = mesh.timed, True
+    try:
+        yield
+    finally:
+        mesh.timed = was
 
 
 class _GraphSpan:

@@ -7,10 +7,14 @@ From the root of a checkout.  The last line of standard output is one JSON
 object: correct, attempted, failed, metrics (the cell's end-to-end metrics,
 or with --trace 1 its per-layer ones), device, with --trace 1 breakdown,
 and last the checks, each number compared beside its limit (also the last
-lines of standard error).  Exits non-zero with no result without a CUDA
-card, with fewer cards than the cell asks for, or when the process has
-loaded JAX or the JAX package.  The program's kernels build into its own
-directory inside the checkout at the first run there.
+lines of standard error).  A cell of one chip runs in this process on
+cuda:0; a cell of d chips runs d ranks, one process a card on cuda:0 ..
+cuda:d-1 under NCCL, rank 0 owning the clock (harness/cell.py), and this
+process prints the result once every rank has ended.  Exits non-zero
+with no result without a CUDA card, with fewer cards than the cell asks
+for, when a rank fails, or when this process or a rank has loaded JAX or
+the JAX package.  The program's kernels build into its own directory
+inside the checkout at the first run there.
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ def test_plan_resolves_the_cell():
     assert p.chips == 1 and p.generator.__name__.endswith("mimcmerkle")
     assert p.traffic == _json("traffic", "stream2.json")
     assert [m.name for m in p.end_to_end] == ["proofs_per_s", "peak_device_gib", "setup_s"]
-    assert [m.name for m in p.per_layer] == list(READERS)
+    assert [m.name for m in p.per_layer] == list(READERS) + ["msm.zero_skip_pct"]
     assert {m.layer for m in p.per_layer} == {"MSMs and the spec-point algebra", "Set-up"}
 
 
